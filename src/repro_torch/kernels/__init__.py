@@ -1,0 +1,128 @@
+"""Hand-written CUDA C++ kernels for Hopper (sm_90a) behind the query engine.
+
+Each kernel package ships:
+  ref.py    — the plain PyTorch version of the function (CPU tests, and the
+              on-card yardstick the kernel is held against),
+  kernel.py — the ctypes binding and launch of the CUDA kernel,
+  ops.py    — the dispatch: a CPU tensor goes to ``ref``, a CUDA tensor
+              launches the kernel (or raises); each public op carries a
+              ``launches`` counter bumped where it launches its kernel.
+
+Kernels: kg_scan (fused masked triple-pattern scan with its int32 prefix
+sum), kg_join (merge-join candidate ranges and the expand-join
+compatibility matrix). Their sources live in ``src/repro_torch/csrc/``.
+
+The sources are compiled at first CUDA use by ``nvcc`` into shared
+libraries with a plain C interface under ``build/repro_torch/`` at the
+repository root, one library per source, all sources compiled in
+parallel. Nothing here is imported or compiled when the package is
+imported, so the CPU-only test suite never needs a CUDA toolchain.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("kg_scan.cu", "kg_join.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                           "of repro_torch are compiled at first use")
+    return found
+
+
+def _lib_path(source: str) -> Path:
+    digest = hashlib.sha1((CSRC / source).read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
+
+
+def build(sources: tuple[str, ...] = SOURCES) -> float:
+    """Compile every missing library (one nvcc per source, all started
+    together) and load them. Returns the wall seconds spent; a library
+    whose source is unchanged is reused from ``build/repro_torch/``."""
+    t0 = time.perf_counter()
+    with _lock:
+        todo = [s for s in sources if s not in _libs]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for src in todo:
+            out = _lib_path(src)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+            procs.append((src, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        errors = []
+        for src, out, tmp, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed on {src}:\n{log.decode()}")
+            else:
+                os.replace(tmp, out)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        for src in todo:
+            _libs[src] = ctypes.CDLL(str(_lib_path(src)))
+    return time.perf_counter() - t0
+
+
+def library(source: str) -> ctypes.CDLL:
+    """The loaded shared library for one source, building it on first use."""
+    lib = _libs.get(source)
+    if lib is None:
+        build((source,))
+        lib = _libs[source]
+    return lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` returned by a C entry."""
+    if status != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch "
+                           f"(cudaError {status})")
+
+
+def current_stream(device) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``device`` as a ctypes pointer."""
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device pointer as a ctypes pointer (None -> NULL)."""
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def require(t, name: str, dtype, ndim: int | None = None) -> None:
+    """Validate a kernel argument: CUDA, dtype, contiguity (and rank)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")

@@ -1,0 +1,203 @@
+"""The PyTorch port's copied, framework-free modules against the JAX
+package: generators, WawPart partitioning, shard blocks, plans, buckets and
+sort permutations must be identical. Also: the port never imports JAX or
+the JAX package, and never falls back from the card to the CPU."""
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# tiny tensors: one intra-op thread, so the test workers running beside
+# this one keep their cores
+torch.set_num_threads(1)
+
+from repro.core.partitioner import wawpart_partition as j_wawpart  # noqa: E402
+from repro.engine.batch import bucket_plans as j_bucket_plans  # noqa: E402
+from repro.engine.batch import shard_perms as j_shard_perms  # noqa: E402
+from repro.engine.federated import ShardedKG as JShardedKG  # noqa: E402
+from repro.engine.oracle import evaluate_bgp as j_evaluate  # noqa: E402
+from repro.engine.planner import make_plan as j_make_plan  # noqa: E402
+from repro.kg import generator as j_gen  # noqa: E402
+from repro.kg import workloads as j_work  # noqa: E402
+
+from repro_torch.core.partitioner import (centralized_partition,  # noqa: E402
+                                          random_partition, wawpart_partition)
+from repro_torch.engine.batch import (bucket_plans,  # noqa: E402
+                                      resolve_device, shard_perms)
+from repro_torch.engine.federated import ShardedKG  # noqa: E402
+from repro_torch.engine.oracle import evaluate_bgp  # noqa: E402
+from repro_torch.engine.planner import make_plan  # noqa: E402
+from repro_torch.kg import generator, workloads  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+DATASETS = {
+    "lubm-0.05": (lambda g: g.generate_lubm(1, scale=0.05, seed=0),
+                  lambda w: w.lubm_queries()),
+    "lubm-0.1": (lambda g: g.generate_lubm(1, scale=0.1, seed=0),
+                 lambda w: w.lubm_queries()),
+    "bsbm-120": (lambda g: g.generate_bsbm(120, seed=0),
+                 lambda w: w.bsbm_queries()),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(DATASETS))
+def both(request):
+    """(port store, port queries, JAX-package store, JAX-package queries)."""
+    make_store, make_queries = DATASETS[request.param]
+    return (make_store(generator), make_queries(workloads),
+            make_store(j_gen), make_queries(j_work))
+
+
+def _plan_tuple(p):
+    return (p.query.name, p.ppn, p.n_shards, p.n_vars, p.var_names,
+            p.table_cap, p.n_params, tuple(map(dataclasses.astuple, p.steps)),
+            p.meta["order"], p.meta["homes"])
+
+
+def test_store_and_workload_copies(both):
+    st, qs, jst, jqs = both
+    assert st.triples.dtype == jst.triples.dtype == np.int32
+    np.testing.assert_array_equal(st.triples, jst.triples)
+    assert len(st.dictionary) == len(jst.dictionary)
+    assert [st.dictionary.term_of(i) for i in range(len(st.dictionary))] \
+        == [jst.dictionary.term_of(i) for i in range(len(jst.dictionary))]
+    assert [repr(q) for q in qs] == [repr(q) for q in jqs]
+
+
+def test_partition_shards_plans_buckets_perms(both):
+    st, qs, jst, jqs = both
+    part = wawpart_partition(st, qs, n_shards=3)
+    jpart = j_wawpart(jst, jqs, n_shards=3)
+    np.testing.assert_array_equal(part.assign_triples(),
+                                  jpart.assign_triples())
+    np.testing.assert_array_equal(part.shard_sizes, jpart.shard_sizes)
+    assert part.meta["labels"] == jpart.meta["labels"]
+
+    kg, jkg = ShardedKG.build(part), JShardedKG.build(jpart)
+    np.testing.assert_array_equal(kg.triples, jkg.triples)
+    np.testing.assert_array_equal(kg.valid, jkg.valid)
+    assert (kg.n_shards, kg.cap) == (jkg.n_shards, jkg.cap)
+    np.testing.assert_array_equal(shard_perms(kg), j_shard_perms(jkg))
+
+    plans = [make_plan(q, part) for q in qs]
+    jplans = [j_make_plan(q, jpart) for q in jqs]
+    assert [_plan_tuple(p) for p in plans] == [_plan_tuple(p) for p in jplans]
+    buckets, jbuckets = bucket_plans(plans), j_bucket_plans(jplans)
+    assert [dataclasses.astuple(b.signature) for b in buckets] \
+        == [dataclasses.astuple(b.signature) for b in jbuckets]
+    for b, jb in zip(buckets, jbuckets):
+        assert b.n_params == jb.n_params
+        assert [_plan_tuple(p) for p in b.plans] \
+            == [_plan_tuple(p) for p in jb.plans]
+        for pd, jpd in zip(b.pdata, jb.pdata):
+            for f in pd._fields:
+                a, ja = getattr(pd, f), np.asarray(getattr(jpd, f))
+                assert a.dtype == ja.dtype, f
+                np.testing.assert_array_equal(a, ja, err_msg=f)
+    for q, jq in zip(qs, jqs):
+        np.testing.assert_array_equal(evaluate_bgp(st, q),
+                                      j_evaluate(jst, jq))
+
+
+@pytest.mark.parametrize("method", ["random", "centralized"])
+def test_baseline_partitions_match(method):
+    from repro.core.partitioner import (centralized_partition as j_central,
+                                        random_partition as j_random)
+    st = generator.generate_lubm(1, scale=0.05, seed=0)
+    jst = j_gen.generate_lubm(1, scale=0.05, seed=0)
+    qs, jqs = workloads.lubm_queries(), j_work.lubm_queries()
+    if method == "random":
+        part = random_partition(st, qs, n_shards=3, seed=0)
+        jpart = j_random(jst, jqs, n_shards=3, seed=0)
+    else:
+        part, jpart = centralized_partition(st, qs), j_central(jst, jqs)
+    np.testing.assert_array_equal(part.assign_triples(),
+                                  jpart.assign_triples())
+    np.testing.assert_array_equal(ShardedKG.build(part).triples,
+                                  JShardedKG.build(jpart).triples)
+
+
+def test_sharded_kg_from_arrays_and_to_device():
+    st = generator.generate_lubm(1, scale=0.05, seed=0)
+    jst = j_gen.generate_lubm(1, scale=0.05, seed=0)
+    jkg = JShardedKG.build(j_wawpart(jst, j_work.lubm_queries(), n_shards=3))
+    kg = ShardedKG.from_arrays(np.asarray(jkg.triples), np.asarray(jkg.valid))
+    assert (kg.n_shards, kg.cap) == (jkg.n_shards, jkg.cap)
+    np.testing.assert_array_equal(
+        kg.triples,
+        ShardedKG.build(wawpart_partition(st, workloads.lubm_queries(),
+                                          n_shards=3)).triples)
+    tr, va = kg.to_device("cpu")
+    assert tr.dtype == torch.int32 and va.dtype == torch.bool
+    np.testing.assert_array_equal(tr.numpy(), jkg.triples)
+    with pytest.raises(ValueError, match="n_shards"):
+        ShardedKG.from_arrays(kg.triples[..., :2], kg.valid)
+
+
+# ---------------------------------------------------------------------------
+# isolation and no-fallback guarantees
+# ---------------------------------------------------------------------------
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    for f in files:
+        bad = _imported_roots(f) & {"jax", "jaxlib", "repro", "flax", "optax"}
+        assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_cuda_device_without_a_card_raises(monkeypatch):
+    from repro_torch.engine.batch import run_batched
+    from repro_torch.launch.serve import WorkloadServer, main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    st = generator.generate_lubm(1, scale=0.05, seed=0)
+    qs = workloads.lubm_queries()
+    part = wawpart_partition(st, qs, n_shards=3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        WorkloadServer(qs, part)                 # device defaults to cuda
+    (bucket, *_) = bucket_plans([make_plan(q, part) for q in qs])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_batched(bucket, ShardedKG.build(part))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--scale", "0.05", "--requests", "4"])
+
+
+def test_kernel_ops_raise_off_cpu_instead_of_falling_back():
+    """A tensor that is not on the CPU goes to the kernel's launcher, which
+    refuses anything that is not a CUDA tensor — it never runs the plain
+    version instead."""
+    from repro_torch.kernels.kg_join.ops import compat_matrix, join_ranges
+    from repro_torch.kernels.kg_scan.ops import scan_hits
+
+    meta = torch.device("meta")
+    tr = torch.zeros((2, 8, 3), dtype=torch.int32, device=meta)
+    va = torch.zeros((2, 8), dtype=torch.bool, device=meta)
+    spo = torch.zeros((2, 3), dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        scan_hits(tr, va, spo)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        join_ranges(spo, spo)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        compat_matrix(tr, va, tr, va, spo, spo)
+    assert scan_hits.launches == join_ranges.launches \
+        == compat_matrix.launches == 0
