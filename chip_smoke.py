@@ -8,14 +8,30 @@ order; any failure exits non-zero:
 1. device — the card's name and power limit;
 2. build — compile the kernels from src/repro_torch/csrc with nvcc;
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the main path's shapes (bit-identical, every output), with its median
-   CUDA-event time over 25 runs (L2 flushed before each), its bound, the
-   plain version's time and, where one exists, a PyTorch library call's;
-4. main path — LUBM(1) at scale 1.0, WawPart over 3 shards, served by
-   WorkloadServer(join_impl="sorted") with the kernels: every result equals
-   the oracle, no overflow flag is set, scan_hits and join_ranges launched;
+   its path's shapes, with its median CUDA-event time (L2 flushed before
+   each run), its bound, the plain version's time and, where one exists, a
+   PyTorch library call's. The query kernels and Jaccard (at a production
+   workload of 16,380 LUBM query instances) are bit-identical, gather_rows
+   is exact, the CIN layer is within atol=5e-4, rtol=1e-4;
+4. main path — LUBM(1) at scale 1.0, WawPart over 3 shards taken from the
+   Jaccard kernel's distances (the same partition as the numpy distances),
+   served by WorkloadServer(join_impl="sorted") with the kernels: every
+   result equals the oracle, no overflow flag is set, jaccard_distance,
+   scan_hits and join_ranges launched;
 5. expand path — LUBM at scale 0.1 under join_impl="expand": the same
-   checks, and compat_matrix launched.
+   checks, and compat_matrix launched;
+6. clustering — the production workload's distances through
+   jaccard_distance_matrix(use_kernel=True), linkage_torch on the card over
+   its first 4,096 instances, and over its first 1,024 on the card and on
+   the CPU for the three linkages (single and complete identical, average
+   with the same merges and distances within 1e-6);
+7. xDeepFM — the full config (39 sparse fields, D = 10, CIN 200-200-200,
+   MLP 400-400, 26.4M embedding rows, random weights from a seed) served
+   at batch 512 and 262,144 with the kernels: logits match the plain
+   forward within atol=1e-3, rtol=1e-4, each CIN layer (on the embeddings
+   scaled to unit variance) matches the plain layer within atol=5e-4,
+   rtol=1e-4, gather_rows launched once and cin_layer three times per
+   forward.
 
 The last three lines are the card's name and power limit, a JSON line of
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -39,8 +55,20 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.configs import xdeepfm as xdeepfm_configs  # noqa: E402
+from repro_torch.core.distance import (feature_matrix,  # noqa: E402
+                                       jaccard_distance_matrix)
+from repro_torch.core.hac import LINKAGES, linkage_torch  # noqa: E402
 from repro_torch.core.partitioner import wawpart_partition  # noqa: E402
+from repro_torch.data.recsys import click_batches  # noqa: E402
 from repro_torch.engine.oracle import evaluate_bgp  # noqa: E402
+from repro_torch.kernels.cin import ops as cin_ops  # noqa: E402
+from repro_torch.kernels.cin.ref import cin_layer_ref  # noqa: E402
+from repro_torch.kernels.embedding_bag import ops as emb_ops  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import \
+    gather_rows_ref  # noqa: E402
+from repro_torch.kernels.jaccard import ops as jac_ops  # noqa: E402
+from repro_torch.kernels.jaccard.ref import jaccard_distance_ref  # noqa: E402
 from repro_torch.kernels.kg_join import ops as join_ops  # noqa: E402
 from repro_torch.kernels.kg_join.ref import (compat_matrix_ref,  # noqa: E402
                                              join_ranges_ref)
@@ -50,14 +78,26 @@ from repro_torch.kg.generator import generate_lubm  # noqa: E402
 from repro_torch.kg.workloads import lubm_queries  # noqa: E402
 from repro_torch.launch.serve import (WorkloadServer,  # noqa: E402
                                       request_stream)
+from repro_torch.models.recsys.xdeepfm import (XDeepFM,  # noqa: E402
+                                               field_offsets)
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
-INT_OPS_PER_S = 67e12        # H100 SXM float32 rate outside the tensor
+OPS_PER_S = 67e12            # H100 SXM float32 rate outside the tensor
 #                              cores; integer ALU ops are counted against it
+INT8_TC_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate: exact
+#                              for products of 0/1 operands
 REPS = 25
 RNG = np.random.default_rng(0)
 BATCH = 14                   # requests per serve(): one per LUBM template
+# the production clustering workload: every (university, department)
+# instance of the 14 LUBM templates, 78 x 15 x 14 = 16,380 queries
+UNIVERSITIES, DEPARTMENTS = 78, 15
+LINKAGE_N, LINKAGE_CHECK_N = 4096, 1024
+CIN_TOL = dict(atol=5e-4, rtol=1e-4)       # tests/test_kernels.py's
+LOGIT_TOL = dict(atol=1e-3, rtol=1e-4)     # tests/test_models_recsys.py's
+XDEEPFM_REPS = {"serve_p99": 20, "serve_bulk": 3}
+PLAIN_CHUNK = 8192           # plain forward's batch chunk at serve_bulk
 
 
 def log(*a):
@@ -78,8 +118,8 @@ def dev(a) -> torch.Tensor:
 _FLUSH = None
 
 
-def time_ms(fn) -> float:
-    """Median milliseconds of fn() over REPS CUDA-event-timed runs, each
+def time_ms(fn, reps: int = REPS) -> float:
+    """Median milliseconds of fn() over ``reps`` CUDA-event-timed runs, each
     after a 256 MiB write that evicts the 50 MB L2."""
     global _FLUSH
     if _FLUSH is None:
@@ -87,7 +127,7 @@ def time_ms(fn) -> float:
     for _ in range(3):
         fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         _FLUSH.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -114,10 +154,63 @@ def max_err(outs, refs) -> int:
     return err
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def float_err(out, ref, *, exact: bool = False, atol: float = 0.0,
+              rtol: float = 0.0) -> float:
+    """Largest |kernel - plain| of a float output; fails unless the two are
+    bit-identical (``exact``, NaN where the other has NaN) or within
+    atol + rtol * |plain|."""
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"kernel output {tuple(out.shape)} {out.dtype} "
+                             f"!= plain {tuple(ref.shape)} {ref.dtype}")
+    if out.numel() == 0:
+        return 0.0
+    nan = torch.isnan(ref)
+    if not torch.equal(torch.isnan(out), nan):
+        raise AssertionError("kernel and plain version differ in NaNs")
+    diff = (out - ref).abs().masked_fill(nan, 0)
+    err = float(diff.max().item())
+    ok = (torch.equal(out.masked_fill(nan, 0).view(torch.int32),
+                      ref.masked_fill(nan, 0).view(torch.int32)) if exact
+          else bool((diff <= atol + rtol * ref.abs()).all().item()))
+    if not ok:
+        raise AssertionError(
+            f"kernel differs from its plain version: max |diff| {err} "
+            + ("(bits differ)" if exact else f"(atol {atol}, rtol {rtol})"))
+    return err
+
+
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_breakdown(fn) -> str:
+    """One run of fn() under torch.profiler: the device-busy share of its
+    wall and the kernels with the most device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    on_device = torch.autograd.DeviceType.CUDA
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == on_device and not e.is_user_annotation),
+                  key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in rows)
+    top = "; ".join(f"{e.key[:70]} x{e.count} "
+                    f"{e.self_device_time_total / 1e3:.3f} ms"
+                    for e in rows[:6])
+    return (f"device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
+            f"profiled wall ({busy_us / wall_us:.1%}); {top}")
+
+
+def production_queries():
+    return [q for u in range(UNIVERSITIES) for d in range(DEPARTMENTS)
+            for q in lubm_queries(u, d)]
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +271,41 @@ def compat_case(n_inst: int, r: int, v: int, c: int):
     return args, err, bound(n_bytes, n_inst * r * c * 8)
 
 
+def jaccard_case(m_np: np.ndarray):
+    m = dev(m_np)
+    out = jac_ops.jaccard_distance(m)
+    torch.cuda.synchronize()
+    err = float_err(out, jaccard_distance_ref(m), exact=True)
+    q, f = m.shape
+    # Q x F read, Q x Q written; the product of 0/1 operands is exact on
+    # int8 tensor cores and its output symmetric: Q (Q + 1) / 2 dot
+    # products of F multiply-adds
+    return m, err, bound(4 * q * f + 4 * q * q, q * (q + 1) * f,
+                         INT8_TC_OPS_PER_S)
+
+
+def gather_case(table: torch.Tensor, ids_np: np.ndarray):
+    ids = dev(ids_np.astype(np.int32))
+    out = emb_ops.gather_rows(table, ids)
+    torch.cuda.synchronize()
+    err = float_err(out, gather_rows_ref(table, ids), exact=True)
+    n, d = ids.shape[0], table.shape[1]
+    # the ids, the distinct rows they name, the output
+    rows = torch.unique(ids).numel()
+    return ids, err, bound(4 * n + 4 * rows * d + 4 * n * d, 0)
+
+
+def cin_case(b: int, h: int, f: int, d: int, k: int):
+    xk = dev(RNG.normal(size=(b, h, d)).astype(np.float32))
+    x0 = dev(RNG.normal(size=(b, f, d)).astype(np.float32))
+    w = dev((RNG.normal(size=(k, h, f)) / np.sqrt(h * f)).astype(np.float32))
+    out = cin_ops.cin_layer(xk, x0, w)
+    torch.cuda.synchronize()
+    err = float_err(out, cin_layer_ref(xk, x0, w), **CIN_TOL)
+    n_bytes = 4 * (b * h * d + b * f * d + k * h * f + b * k * d)
+    return (xk, x0, w), err, bound(n_bytes, 2 * b * k * d * h * f)
+
+
 def phase_kernels() -> dict:
     """Check every kernel on the ragged sweep shapes and the main path's
     shapes; time each at its main-path shape. Returns per-kernel records."""
@@ -189,7 +317,20 @@ def phase_kernels() -> dict:
         ranges_case(2, sb, c, r)
     for r, v, c in ((32, 4, 64), (200, 1, 17), (513, 6, 300)):
         compat_case(3, r, v, c)
-    log("  ragged sweep shapes: all bit-identical")
+    for q, f in ((3, 5), (14, 23), (130, 257), (1000, 77)):
+        jaccard_case((RNG.uniform(size=(q, f)) < 0.3).astype(np.float32))
+    small = dev(RNG.normal(size=(1000, 17)).astype(np.float32))
+    for v, d, n in ((500, 10, 64), (128, 128, 16), (1000, 17, 200)):
+        gather_case(dev(RNG.normal(size=(v, d)).astype(np.float32)),
+                    RNG.integers(0, v, n))
+    # jnp.take's semantics: negative ids wrap, ids out of range give NaN
+    gather_case(small, np.array([0, 999, -1, -1000, 1000, -1001, 7]))
+    for shape in ((12, 20, 39, 10, 50), (8, 39, 39, 10, 200),
+                  (16, 7, 13, 8, 20), (3, 1, 1, 1, 1), (33, 200, 39, 10, 200)):
+        cin_case(*shape)
+    log("  ragged sweep shapes: the query kernels and jaccard "
+        "bit-identical, gather_rows exact (NaN where jnp.take fills), cin "
+        "within tolerance")
 
     rec = {}
     # kg_scan at the merge-path scan of bucket 4: 8 padded requests x 3
@@ -257,6 +398,75 @@ def phase_kernels() -> dict:
         f"ms={time_ms(lambda: join_ops.compat_matrix(*args)):.4f} "
         f"plain_ms={time_ms(lambda: compat_matrix_ref(*args)):.4f} "
         f"bound_ms={b_ms:.4f}")
+
+    m_np, _ = feature_matrix(production_queries())
+    m, err, (b_ms, b_by) = jaccard_case(m_np)
+    q, f = m.shape
+    rec["jaccard_distance"] = dict(
+        name="jaccard.jaccard_distance", route="cuda",
+        source="src/repro_torch/csrc/jaccard.cu",
+        replaces="src/repro/kernels/jaccard/kernel.py:48", max_abs_err=err,
+        ms=time_ms(lambda: jac_ops.jaccard_distance(m), reps=10),
+        plain_ms=time_ms(lambda: jaccard_distance_ref(m), reps=10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"  jaccard.jaccard_distance ({q} x {f}, {int(m_np.sum()):,} ones; "
+        f"bit-identical): {rec['jaccard_distance']}; byte bound "
+        f"{(4 * q * f + 4 * q * q) / HBM_BYTES_PER_S * 1e3:.4f} ms, the "
+        f"symmetric product on int8 tensor cores "
+        f"{q * (q + 1) * f / INT8_TC_OPS_PER_S * 1e3:.4f} ms, the kernel's "
+        f"dense product at the float32 rate "
+        f"{2 * q * q * f / OPS_PER_S * 1e3:.4f} ms")
+    del m
+
+    cfg = xdeepfm_configs.full()
+    bsz = xdeepfm_configs.SERVE_BATCH["serve_bulk"]
+    batch = next(click_batches(cfg.vocab_sizes, cfg.n_dense, bsz, seed=0))
+    rows = (batch["sparse"] + field_offsets(cfg)[None, :]).reshape(-1)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    table = torch.randn((cfg.total_vocab, cfg.embed_dim), generator=gen,
+                        device=DEV) * 0.01
+    ids, err, (b_ms, b_by) = gather_case(table, rows)
+    rec["gather_rows"] = dict(
+        name="embedding_bag.gather_rows", route="cuda",
+        source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag/kernel.py:26",
+        max_abs_err=err,
+        ms=time_ms(lambda: emb_ops.gather_rows(table, ids)),
+        plain_ms=time_ms(lambda: gather_rows_ref(table, ids)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.index_select(table, 0, ids)))
+    log(f"  embedding_bag.gather_rows ({ids.shape[0]:,} ids of serve_bulk "
+        f"into {cfg.total_vocab:,} x {cfg.embed_dim}, "
+        f"{torch.unique(ids).numel():,} distinct; exact): "
+        f"{rec['gather_rows']}")
+    del table, ids
+
+    layers = []
+    h_prev = cfg.n_sparse
+    b = xdeepfm_configs.SERVE_BATCH["serve_p99"]
+    for k in cfg.cin_layers:
+        (xk, x0, w), err, (b_ms, b_by) = cin_case(b, h_prev, cfg.n_sparse,
+                                                  cfg.embed_dim, k)
+        layer = dict(
+            err=err, ms=time_ms(lambda: cin_ops.cin_layer(xk, x0, w)),
+            plain_ms=time_ms(lambda: cin_layer_ref(xk, x0, w)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: torch.einsum("bhd,khf,bfd->bkd",
+                                                    xk, w, x0)))
+        log(f"  cin.cin_layer layer {len(layers) + 1} (B {b}, H {h_prev}, "
+            f"F {cfg.n_sparse}, D {cfg.embed_dim}, K {k}): {layer}")
+        layers.append(layer)
+        h_prev = k
+    by = {la["bound_by"] for la in layers}
+    rec["cin_layer"] = dict(
+        name="cin.cin_layer", route="cuda", source="src/repro_torch/csrc/cin.cu",
+        replaces="src/repro/kernels/cin/kernel.py:42",
+        max_abs_err=max(la["err"] for la in layers),
+        **{key: sum(la[key] for la in layers)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        bound_by=by.pop() if len(by) == 1 else "operations")
+    log(f"  cin.cin_layer, serve_p99's three layers summed: "
+        f"{rec['cin_layer']}")
     return rec
 
 
@@ -264,26 +474,49 @@ def phase_kernels() -> dict:
 # phases 4 and 5: serve the workload through the port's entry points
 # ---------------------------------------------------------------------------
 
+OPS = {"scan_hits": scan_ops.scan_hits,
+       "join_ranges": join_ops.join_ranges,
+       "compat_matrix": join_ops.compat_matrix,
+       "jaccard_distance": jac_ops.jaccard_distance,
+       "gather_rows": emb_ops.gather_rows,
+       "cin_layer": cin_ops.cin_layer}
+
+
 def reset_counts():
-    scan_ops.scan_hits.launches = 0
-    join_ops.join_ranges.launches = 0
-    join_ops.compat_matrix.launches = 0
+    for op in OPS.values():
+        op.launches = 0
 
 
 def counts() -> dict:
-    return {"scan_hits": scan_ops.scan_hits.launches,
-            "join_ranges": join_ops.join_ranges.launches,
-            "compat_matrix": join_ops.compat_matrix.launches}
+    return {name: op.launches for name, op in OPS.items()}
 
 
-def serve_path(scale: float, join_impl: str, passes: int = 2) -> dict:
+def serve_path(scale: float, join_impl: str, passes: int = 2, *,
+               kernel_partition: bool = False) -> dict:
     """Build, partition and serve a round-robin stream over every LUBM
     template (``passes`` passes of BATCH requests); check every result
-    against the oracle. Returns the launch counts of the served run."""
+    against the oracle. With ``kernel_partition`` the partition comes from
+    the Jaccard kernel's distances and must equal the numpy one. Returns
+    the launch counts of the served run (and of the partition step)."""
     t0 = time.perf_counter()
     store = generate_lubm(1, scale=scale, seed=0)
     queries = lubm_queries()
     part = wawpart_partition(store, queries, n_shards=3)
+    jaccard_launches = 0
+    if kernel_partition:
+        reset_counts()
+        kpart = wawpart_partition(
+            store, queries, n_shards=3, dist_matrix=jaccard_distance_matrix(
+                queries, use_kernel=True, device=DEV))
+        jaccard_launches = counts()["jaccard_distance"]
+        if (kpart.unit_shard != part.unit_shard
+                or kpart.meta["labels"] != part.meta["labels"]):
+            raise AssertionError("the partition from the kernel's distances "
+                                 "differs from the numpy one")
+        log(f"  WawPart from jaccard_distance_matrix(use_kernel=True): "
+            f"labels {kpart.meta['labels']}, equal to the numpy partition "
+            f"({jaccard_launches} jaccard launch)")
+        part = kpart
     server = WorkloadServer(queries, part, join_impl=join_impl,
                             backend="cuda", device=DEV)
     log(f"  LUBM scale {scale}: {len(store):,} triples -> shards "
@@ -315,6 +548,7 @@ def serve_path(scale: float, join_impl: str, passes: int = 2) -> dict:
         per_call.append(time.perf_counter() - t0)
     dt = time.perf_counter() - t_all
     launched = counts()
+    launched["jaccard_distance"] = jaccard_launches
     peak = torch.cuda.max_memory_allocated(DEV)
 
     for (name, _), (rows, n, ovf) in zip(stream, results):
@@ -333,39 +567,216 @@ def serve_path(scale: float, join_impl: str, passes: int = 2) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 6: WawPart's query clustering at a production workload's size
+# ---------------------------------------------------------------------------
+
+def phase_clustering() -> dict:
+    """Distances of the production workload through the entry point, then
+    linkage_torch on the card (timed) and against its CPU run."""
+    queries = production_queries()
+    reset_counts()
+    t0 = time.perf_counter()
+    dist = jaccard_distance_matrix(queries, use_kernel=True, device=DEV)
+    t_dist = time.perf_counter() - t0
+    launched = counts()
+    n = len(queries)
+    if (dist.shape != (n, n) or dist.dtype != np.float32
+            or not np.array_equal(dist, dist.T) or np.diag(dist).any()):
+        raise AssertionError("distance matrix is not a symmetric (Q, Q) "
+                             "float32 matrix with a zero diagonal")
+    log(f"  jaccard_distance_matrix(use_kernel=True) over {n:,} queries: "
+        f"{t_dist:.3f} s host wall (features, copy in, kernel, "
+        f"{dist.nbytes:,} bytes back); launches {launched}")
+
+    d = dist[:LINKAGE_N, :LINKAGE_N]
+    timed = {}
+    for link in LINKAGES:
+        t0 = time.perf_counter()
+        z = linkage_torch(d, link, device=DEV)
+        timed[link] = time.perf_counter() - t0
+        if (z.shape != (LINKAGE_N - 1, 4) or z[-1, 3] != LINKAGE_N
+                or not np.isfinite(z).all()):
+            raise AssertionError(f"{link} linkage over {LINKAGE_N} is "
+                                 "malformed")
+        if link == "single" and (np.diff(z[:, 2]) < 0).any():
+            raise AssertionError("single linkage heights decrease")
+        log(f"  linkage_torch {link} over the first {LINKAGE_N:,} instances "
+            f"on the card: {timed[link]:.3f} s "
+            f"({timed[link] / (LINKAGE_N - 1) * 1e3:.4f} ms per merge, no "
+            f"host sync inside the loop); top merge at {z[-1, 2]:.6f}")
+
+    d = dist[:LINKAGE_CHECK_N, :LINKAGE_CHECK_N]
+    log(f"  linkage_torch single over {LINKAGE_CHECK_N:,}, profiled: "
+        + device_breakdown(lambda: linkage_torch(d, "single", device=DEV)))
+    for link in LINKAGES:
+        z = linkage_torch(d, link, device=DEV)
+        t0 = time.perf_counter()
+        zc = linkage_torch(d, link, device="cpu")
+        t_cpu = time.perf_counter() - t0
+        if link == "average":
+            same = (np.array_equal(z[:, [0, 1, 3]], zc[:, [0, 1, 3]])
+                    and np.abs(z[:, 2] - zc[:, 2]).max() <= 1e-6)
+        else:
+            same = np.array_equal(z, zc)
+        if not same:
+            raise AssertionError(f"{link} linkage over {LINKAGE_CHECK_N}: "
+                                 "card and CPU differ")
+        log(f"  linkage_torch {link} over {LINKAGE_CHECK_N:,}: card equals "
+            f"CPU (identical matrix{'' if link != 'average' else ' pairs'}, "
+            f"max |height diff| {np.abs(z[:, 2] - zc[:, 2]).max()}); "
+            f"CPU {t_cpu:.3f} s")
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# phase 7: xDeepFM serving forward at full width
+# ---------------------------------------------------------------------------
+
+def wall_ms(fn, reps: int) -> float:
+    """Median host milliseconds of fn() to a synchronised end, after one
+    untimed run."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def plain_forward(model: XDeepFM, sparse, dense) -> torch.Tensor:
+    """The forward without kernels, over batch chunks of PLAIN_CHUNK: the
+    plain CIN materializes (chunk, H, F, D)."""
+    return torch.cat([model(sparse[i:i + PLAIN_CHUNK],
+                            dense[i:i + PLAIN_CHUNK])
+                      for i in range(0, sparse.shape[0], PLAIN_CHUNK)])
+
+
+def check_cin_layers(model: XDeepFM, sparse) -> list[float]:
+    """Each CIN layer of the forward, the kernel against its plain version
+    (over batch chunks of PLAIN_CHUNK) on the same input, at CIN_TOL. The
+    input is the looked-up embeddings scaled to unit variance: at the
+    model's init, layers 2 and 3 sit near 1e-6, below any useful absolute
+    tolerance, and move the logits by less than their own. Returns each
+    layer's max |diff|."""
+    emb = model.embedding_lookup(sparse, use_kernel=True)
+    x0 = emb / emb.std()
+    xk, errs = x0, []
+    for w in model.cin:
+        out = cin_ops.cin_layer(xk, x0, w)
+        ref = torch.cat([cin_layer_ref(xk[i:i + PLAIN_CHUNK],
+                                       x0[i:i + PLAIN_CHUNK], w)
+                         for i in range(0, x0.shape[0], PLAIN_CHUNK)])
+        errs.append(float_err(out, ref, **CIN_TOL))
+        xk = out
+    return errs
+
+
+def phase_xdeepfm() -> dict:
+    """The full config served at serve_p99 and serve_bulk through the
+    kernels; logits against the plain forward. Returns the launch counts
+    of the two checked forwards."""
+    cfg = xdeepfm_configs.full()
+    t0 = time.perf_counter()
+    model = XDeepFM.random(cfg, torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name}: {cfg.n_sparse} sparse + {cfg.n_dense} dense fields, "
+        f"D {cfg.embed_dim}, CIN {cfg.cin_layers}, MLP {cfg.mlp_layers}, "
+        f"{cfg.total_vocab:,} embedding rows, {n_params:,} parameters "
+        f"({time.perf_counter() - t0:.2f} s to init on the card)")
+    launched = {"gather_rows": 0, "cin_layer": 0}
+    for shape, bsz in xdeepfm_configs.SERVE_BATCH.items():
+        batch = next(click_batches(cfg.vocab_sizes, cfg.n_dense, bsz, seed=0))
+        sparse, dense = dev(batch["sparse"]), dev(batch["dense"])
+        torch.cuda.reset_peak_memory_stats(DEV)
+        with torch.inference_mode():
+            reset_counts()
+            logits = model(sparse, dense, use_kernel=True)
+            torch.cuda.synchronize()
+            c = counts()
+            if c["gather_rows"] != 1 or c["cin_layer"] != len(cfg.cin_layers):
+                raise AssertionError(f"{shape}: forward launched {c}")
+            for k in launched:
+                launched[k] += c[k]
+            peak = torch.cuda.max_memory_allocated(DEV)
+            if logits.shape != (bsz,) or not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{shape}: logits malformed")
+            err = float_err(logits, plain_forward(model, sparse, dense),
+                            **LOGIT_TOL)
+            cin_errs = check_cin_layers(model, sparse)
+            reps = XDEEPFM_REPS[shape]
+            ms = wall_ms(lambda: model(sparse, dense, use_kernel=True), reps)
+            plain_ms = wall_ms(lambda: plain_forward(model, sparse, dense),
+                               max(1, reps // 3))
+        log(f"  {shape} (batch {bsz:,}): {ms:.3f} ms per forward with the "
+            f"kernels (median of {reps}), plain {plain_ms:.3f} ms; logits "
+            f"within {LOGIT_TOL} of the plain forward (max |diff| {err:.3g}, "
+            f"mean logit {logits.mean().item():.4f}); each CIN layer on "
+            f"unit-variance embeddings within {CIN_TOL} of the plain layer "
+            f"(max |diff| {[f'{e:.3g}' for e in cin_errs]}); launches "
+            f"{ {k: c[k] for k in launched} }; "
+            f"max_memory_allocated {peak:,} bytes")
+        with torch.inference_mode():
+            log(f"  {shape} forward with the kernels, profiled: "
+                + device_breakdown(lambda: model(sparse, dense,
+                                                 use_kernel=True)))
+    return launched
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/6] device: {card}; torch.cuda.get_device_name: "
+    log(f"[1/8] device: {card}; torch.cuda.get_device_name: "
         f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    # the plain versions' float32 products run in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
-    log(f"[2/6] build: {kernels.build():.2f} s (nvcc, "
-        f"{' '.join(kernels.NVCC_FLAGS)})")
+    log(f"[2/8] build: {kernels.build():.2f} s (nvcc, "
+        f"{' '.join(kernels.NVCC_FLAGS)}; {len(kernels.SOURCES)} libraries)")
 
-    log("[3/6] kernels against their plain versions on the card")
+    log("[3/8] kernels against their plain versions on the card")
     rec = phase_kernels()
 
-    log("[4/6] main path: LUBM(1) scale 1.0, WawPart 3 shards, join sorted, "
-        f"backend cuda, {BATCH} requests per serve()")
-    main_counts = serve_path(1.0, "sorted")
-    for k in ("scan_hits", "join_ranges"):
+    log("[4/8] main path: LUBM(1) scale 1.0, WawPart 3 shards from the "
+        f"Jaccard kernel, join sorted, backend cuda, {BATCH} requests per "
+        "serve()")
+    main_counts = serve_path(1.0, "sorted", kernel_partition=True)
+    for k in ("jaccard_distance", "scan_hits", "join_ranges"):
         if main_counts[k] <= 0:
             raise AssertionError(f"main path never launched {k}")
 
-    log("[5/6] expand path: LUBM scale 0.1, join expand, backend cuda")
+    log("[5/8] expand path: LUBM scale 0.1, join expand, backend cuda")
     expand_counts = serve_path(0.1, "expand")
     if expand_counts["compat_matrix"] <= 0:
         raise AssertionError("expand path never launched compat_matrix")
 
+    log(f"[6/8] clustering: {UNIVERSITIES * DEPARTMENTS * 14:,} LUBM query "
+        "instances")
+    cluster_counts = phase_clustering()
+    if cluster_counts["jaccard_distance"] <= 0:
+        raise AssertionError("clustering never launched jaccard_distance")
+
+    log("[7/8] xDeepFM serving forward, full config")
+    xdeepfm_counts = phase_xdeepfm()
+
     rec["scan_hits"]["launches"] = main_counts["scan_hits"]
     rec["join_ranges"]["launches"] = main_counts["join_ranges"]
     rec["compat_matrix"]["launches"] = expand_counts["compat_matrix"]
-    log("[6/6] kernels: " + ", ".join(
-        f"{r['name']} ok (bit-identical) launches={r['launches']}"
-        for r in rec.values())
+    rec["jaccard_distance"]["launches"] = main_counts["jaccard_distance"]
+    rec["gather_rows"]["launches"] = xdeepfm_counts["gather_rows"]
+    rec["cin_layer"]["launches"] = xdeepfm_counts["cin_layer"]
+    log("[8/8] kernels: " + ", ".join(
+        f"{r['name']} ok launches={r['launches']}" for r in rec.values())
         + f"; main path launches {main_counts}, expand path launches "
-        f"{expand_counts}; total {time.perf_counter() - t_start:.1f} s")
+        f"{expand_counts}, clustering launches {cluster_counts}, xDeepFM "
+        f"launches {xdeepfm_counts}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)

@@ -4,9 +4,11 @@ Produces a scipy-style linkage matrix Z[(n-1), 4] = (id_a, id_b, dist, size)
 with new-cluster ids n+step, from a precomputed distance matrix, with the
 paper's three linkages: single (SL), complete (CL), average (AL) — Fig. 2.
 
-`linkage_numpy` is the host implementation (O(n^3), fine for workload-sized
-n). A device-side Lance-Williams loop for very large workloads is not part of
-this package yet.
+Two implementations:
+  * `linkage_numpy` — host oracle (O(n^3), fine for workload-sized n),
+  * `linkage_torch` — the Lance-Williams loop in plain PyTorch on a device,
+                      the counterpart of the reference's jit-ed
+                      `linkage_jax`, for large production workloads.
 """
 from __future__ import annotations
 
@@ -54,6 +56,72 @@ def linkage_numpy(dist: np.ndarray, linkage: str = "single") -> np.ndarray:
         sizes[i] = sizes[i] + sizes[j]
         cluster_id[i] = n + step
     return z
+
+
+def linkage_torch(dist, linkage: str = "single", *,
+                  device="cuda") -> np.ndarray:
+    """Algorithm 1 on ``device`` in float32, merge for merge the reference's
+    `linkage_jax`: each step merges the first minimum of the flattened
+    matrix (``torch.argmin`` returns the first occurrence, as
+    ``jnp.argmin`` does), so ties — the rule among Jaccard distances —
+    break the same way.
+
+    The reference re-masks inactive rows and columns with _INF before
+    every argmin; here they are kept at _INF in ``d`` itself (a merged
+    slot's row and column are overwritten on the step that retires it), so
+    the argmin reads the same matrix with one pass fewer. The merge slots
+    stay on the device through the step: the loop makes no host sync, and
+    the linkage matrix comes back in one copy at the end.
+    """
+    import torch
+
+    from repro_torch.engine.batch import resolve_device
+
+    if linkage not in LINKAGES:
+        raise ValueError(f"unknown linkage {linkage!r}")
+    n = int(dist.shape[0])
+    if n < 2:
+        return np.zeros((0, 4))
+    dev = resolve_device(device)
+    if isinstance(dist, torch.Tensor):
+        d = dist.to(device=dev, dtype=torch.float32, copy=True)
+    else:
+        d = torch.tensor(np.asarray(dist), dtype=torch.float32, device=dev)
+    d.fill_diagonal_(_INF)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    sizes = torch.ones(n, dtype=torch.float32, device=dev)
+    cid = torch.arange(n, dtype=torch.float32, device=dev)
+    z = torch.empty((n - 1, 4), dtype=torch.float32, device=dev)
+    inf = torch.full((n,), _INF, dtype=torch.float32, device=dev)
+    for step in range(n - 1):
+        flat = torch.argmin(d.view(-1))
+        i0, j0 = flat // n, flat % n
+        i = torch.minimum(i0, j0).view(1)
+        j = torch.maximum(i0, j0).view(1)
+        ci, cj = cid.index_select(0, i), cid.index_select(0, j)
+        si, sj = sizes.index_select(0, i), sizes.index_select(0, j)
+        z[step] = torch.cat([torch.minimum(ci, cj), torch.maximum(ci, cj),
+                             d.view(-1).index_select(0, i * n + j),
+                             si + sj])
+        da, db = d.index_select(0, i)[0], d.index_select(0, j)[0]
+        if linkage == "single":
+            new_row = torch.minimum(da, db)
+        elif linkage == "complete":
+            new_row = torch.maximum(da, db)
+        else:
+            # fma(si, da, sj * db), the contraction XLA makes of the
+            # reference's (si * da + sj * db)
+            new_row = torch.addcmul(sj * db, si, da) / (si + sj)
+        active.index_fill_(0, j, False)
+        new_row = torch.where(active, new_row, inf)
+        new_row.index_fill_(0, i, _INF)
+        d.index_copy_(0, i, new_row[None, :])
+        d.index_copy_(1, i, new_row[:, None])
+        d.index_copy_(0, j, inf[None, :])
+        d.index_copy_(1, j, inf[:, None])
+        sizes.index_copy_(0, i, si + sj)
+        cid.index_fill_(0, i, float(n + step))
+    return z.cpu().numpy().astype(np.float64)
 
 
 def cut(z: np.ndarray, n: int, *, n_clusters: int | None = None,

@@ -1,4 +1,4 @@
-"""Hand-written CUDA C++ kernels for Hopper (sm_90a) behind the query engine.
+"""Hand-written CUDA C++ kernels for Hopper (sm_90a).
 
 Each kernel package ships:
   ref.py    — the plain PyTorch version of the function (CPU tests, and the
@@ -9,8 +9,11 @@ Each kernel package ships:
               ``launches`` counter bumped where it launches its kernel.
 
 Kernels: kg_scan (fused masked triple-pattern scan with its int32 prefix
-sum), kg_join (merge-join candidate ranges and the expand-join
-compatibility matrix). Their sources live in ``src/repro_torch/csrc/``.
+sum) and kg_join (merge-join candidate ranges and the expand-join
+compatibility matrix) behind the query engine; jaccard (the WawPart
+query-distance matrix); embedding_bag (the xDeepFM row gather) and cin
+(the fused xDeepFM CIN layer). Their sources live in
+``src/repro_torch/csrc/``.
 
 The sources are compiled at first CUDA use by ``nvcc`` into shared
 libraries with a plain C interface under ``build/repro_torch/`` at the
@@ -31,7 +34,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("kg_scan.cu", "kg_join.cu")
+SOURCES = ("kg_scan.cu", "kg_join.cu", "jaccard.cu", "embedding_bag.cu",
+           "cin.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,0 +1,25 @@
+"""Public Jaccard-distance op: dispatch on the tensor's device.
+
+A CPU tensor runs the plain version (`ref.jaccard_distance_ref`); a CUDA
+tensor launches the jaccard kernel, and anything the kernel does not take
+raises. There is no fallback from the card to the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.jaccard.kernel import jaccard_distance_kernel
+from repro_torch.kernels.jaccard.ref import jaccard_distance_ref
+
+
+def jaccard_distance(m: torch.Tensor) -> torch.Tensor:
+    """(Q, F) 0/1 membership matrix -> (Q, Q) float32 Jaccard distance
+    matrix with a zero diagonal."""
+    if m.device.type == "cpu":
+        return jaccard_distance_ref(m)
+    out = jaccard_distance_kernel(m.to(torch.float32).contiguous())
+    jaccard_distance.launches += 1
+    return out
+
+
+jaccard_distance.launches = 0

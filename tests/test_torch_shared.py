@@ -181,11 +181,25 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--scale", "0.05", "--requests", "4"])
 
+    from repro_torch.configs.xdeepfm import smoke
+    from repro_torch.core.distance import jaccard_distance_matrix
+    from repro_torch.core.hac import linkage_torch
+    from repro_torch.models.recsys.xdeepfm import XDeepFM
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        jaccard_distance_matrix(qs, use_kernel=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        linkage_torch(np.ones((3, 3)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        XDeepFM.from_jax(smoke(), {})
+
 
 def test_kernel_ops_raise_off_cpu_instead_of_falling_back():
     """A tensor that is not on the CPU goes to the kernel's launcher, which
     refuses anything that is not a CUDA tensor — it never runs the plain
     version instead."""
+    from repro_torch.kernels.cin.ops import cin_layer
+    from repro_torch.kernels.embedding_bag.ops import gather_rows
+    from repro_torch.kernels.jaccard.ops import jaccard_distance
     from repro_torch.kernels.kg_join.ops import compat_matrix, join_ranges
     from repro_torch.kernels.kg_scan.ops import scan_hits
 
@@ -199,5 +213,13 @@ def test_kernel_ops_raise_off_cpu_instead_of_falling_back():
         join_ranges(spo, spo)
     with pytest.raises(ValueError, match="CUDA tensor"):
         compat_matrix(tr, va, tr, va, spo, spo)
+    f32 = torch.zeros((4, 3, 5), dtype=torch.float32, device=meta)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        jaccard_distance(f32[0])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gather_rows(f32[0], spo[0])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cin_layer(f32, f32, f32[:, :, :3])
     assert scan_hits.launches == join_ranges.launches \
-        == compat_matrix.launches == 0
+        == compat_matrix.launches == jaccard_distance.launches \
+        == gather_rows.launches == cin_layer.launches == 0
