@@ -12,7 +12,13 @@ order; any failure exits non-zero:
    each run), its bound, the plain version's time and, where one exists, a
    PyTorch library call's. The query kernels and Jaccard (at a production
    workload of 16,380 LUBM query instances) are bit-identical, gather_rows
-   is exact, the CIN layer is within atol=5e-4, rtol=1e-4;
+   is exact, the CIN layer is within atol=5e-4, rtol=1e-4; flash_attention
+   is within atol=2e-5 in float32 and atol=1e-4 + 2**-7 |plain| (one
+   bfloat16 step) in bfloat16, on a ragged sweep (G 1, 4, 48; causal or
+   not; q_start 0, T - S and mid-tile; strided cache views) and at the LM
+   path's prefill (1 x 32 heads x 8,192 over 8 KV heads) and decode
+   (8 x 32 heads over a 32,768-slot cache at q_start 32,760) shapes, each
+   timed in bfloat16 and listed as a kernel record of its own;
 4. main path — LUBM(1) at scale 1.0, WawPart over 3 shards taken from the
    Jaccard kernel's distances (the same partition as the numpy distances),
    served by WorkloadServer(join_impl="sorted") with the kernels: every
@@ -31,13 +37,23 @@ order; any failure exits non-zero:
    forward within atol=1e-3, rtol=1e-4, each CIN layer (on the embeddings
    scaled to unit variance) matches the plain layer within atol=5e-4,
    rtol=1e-4, gather_rows launched once and cin_layer three times per
-   forward.
+   forward;
+8. LM serving — granite-3-8b and granite-20b at full width and 4 layers
+   in float32: prefill logits with the kernel within 1e-4 x max |logit| of
+   the plain attention path, a decode step within 1e-3 of forward's
+   logits; then granite-3-8b at full width and depth in bfloat16 (random
+   weights from seed 0, 16.7 GB): a prefill of 1 x 8,192 prompt tokens and
+   8 greedy decode steps of 8 sequences over a 32,768-slot cache (42.9 GB)
+   from position 32,760, every logit finite, flash_attention launched 40
+   times in the prefill and 40 per step, each profiled;
+9. summary — every kernel's launches on its path.
 
 The last three lines are the card's name and power limit, a JSON line of
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -55,18 +71,23 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.configs import granite_3_8b, granite_20b  # noqa: E402
 from repro_torch.configs import xdeepfm as xdeepfm_configs  # noqa: E402
 from repro_torch.core.distance import (feature_matrix,  # noqa: E402
                                        jaccard_distance_matrix)
 from repro_torch.core.hac import LINKAGES, linkage_torch  # noqa: E402
 from repro_torch.core.partitioner import wawpart_partition  # noqa: E402
 from repro_torch.data.recsys import click_batches  # noqa: E402
+from repro_torch.data.tokens import token_batches  # noqa: E402
 from repro_torch.engine.oracle import evaluate_bgp  # noqa: E402
 from repro_torch.kernels.cin import ops as cin_ops  # noqa: E402
 from repro_torch.kernels.cin.ref import cin_layer_ref  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as emb_ops  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import \
     gather_rows_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    attention_ref  # noqa: E402
 from repro_torch.kernels.jaccard import ops as jac_ops  # noqa: E402
 from repro_torch.kernels.jaccard.ref import jaccard_distance_ref  # noqa: E402
 from repro_torch.kernels.kg_join import ops as join_ops  # noqa: E402
@@ -80,6 +101,7 @@ from repro_torch.launch.serve import (WorkloadServer,  # noqa: E402
                                       request_stream)
 from repro_torch.models.recsys.xdeepfm import (XDeepFM,  # noqa: E402
                                                field_offsets)
+from repro_torch.models.transformer import Transformer  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
@@ -87,6 +109,7 @@ OPS_PER_S = 67e12            # H100 SXM float32 rate outside the tensor
 #                              cores; integer ALU ops are counted against it
 INT8_TC_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate: exact
 #                              for products of 0/1 operands
+BF16_TC_OPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core rate
 REPS = 25
 RNG = np.random.default_rng(0)
 BATCH = 14                   # requests per serve(): one per LUBM template
@@ -98,6 +121,24 @@ CIN_TOL = dict(atol=5e-4, rtol=1e-4)       # tests/test_kernels.py's
 LOGIT_TOL = dict(atol=1e-3, rtol=1e-4)     # tests/test_models_recsys.py's
 XDEEPFM_REPS = {"serve_p99": 20, "serve_bulk": 3}
 PLAIN_CHUNK = 8192           # plain forward's batch chunk at serve_bulk
+# flash_attention against attention_ref: float32 at tests/test_kernels.py's
+# 2e-5; bfloat16 at one bfloat16 step of the plain output (2**-7 of |out|),
+# since both round float32 results that differ only in summation order,
+# plus 1e-4 for outputs near 0
+FLASH_TOL = {torch.float32: dict(atol=2e-5),
+             torch.bfloat16: dict(atol=1e-4, rtol=2 ** -7)}
+# LM serving: granite-3-8b prefill of 1 x 8,192 tokens (the reference's
+# prefill_32k is 32 x 32,768), decode of 8 sequences for 8 steps over a
+# 32,768-slot cache from position 32,760 (decode_32k's length; its batch of
+# 128 would need 687 GB of cache)
+PREFILL_S = 8192
+DECODE_B, DECODE_T, DECODE_CUR, DECODE_STEPS = 8, 32768, 32760, 8
+# float32 checks at full width and 4 layers: B x S prompt tokens into a
+# cache of S + 8 slots, then one decode step at position S
+CHECK_LAYERS, CHECK_B, CHECK_S = 4, 2, 1024
+CHECK_LOGIT_SHARE = 1e-4     # kernel vs plain prefill logits: atol as a
+#                              share of the plain run's largest |logit|
+CHECK_DECODE_ERR = 1e-3      # decode vs forward, tests/test_models_lm.py's
 
 
 def log(*a):
@@ -186,9 +227,10 @@ def bound(n_bytes: float, n_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_breakdown(fn) -> str:
+def device_breakdown(fn, share_of: str | None = None) -> str:
     """One run of fn() under torch.profiler: the device-busy share of its
-    wall and the kernels with the most device time."""
+    wall and the kernels with the most device time (and the share of the
+    device time spent in kernels whose name holds ``share_of``)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -204,8 +246,12 @@ def device_breakdown(fn) -> str:
     top = "; ".join(f"{e.key[:70]} x{e.count} "
                     f"{e.self_device_time_total / 1e3:.3f} ms"
                     for e in rows[:6])
+    share = "" if share_of is None else (
+        f"; {share_of} "
+        f"{sum(e.self_device_time_total for e in rows if share_of in e.key) / busy_us:.1%}"
+        " of device time")
     return (f"device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
-            f"profiled wall ({busy_us / wall_us:.1%}); {top}")
+            f"profiled wall ({busy_us / wall_us:.1%}); {top}{share}")
 
 
 def production_queries():
@@ -304,6 +350,137 @@ def cin_case(b: int, h: int, f: int, d: int, k: int):
     err = float_err(out, cin_layer_ref(xk, x0, w), **CIN_TOL)
     n_bytes = 4 * (b * h * d + b * f * d + k * h * f + b * k * d)
     return (xk, x0, w), err, bound(n_bytes, 2 * b * k * d * h * f)
+
+
+def flash_bound(q, k, q_start: int, causal: bool = True):
+    """The least time of one attention call: its operations (QK^T and PV,
+    2 multiply-adds, 4 d operations per visible (row, key) pair, counted
+    for the keys each row sees) at the dtype's tensor-core rate (float32 at
+    its CUDA-core rate: TF32 would not meet the tolerance), or its bytes
+    (q and out once, the K and V rows the rows see once)."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if causal:
+        pairs = int(np.minimum(t, q_start + np.arange(s) + 1).sum())
+        kv_rows = min(t, q_start + s)
+    else:
+        pairs, kv_rows = s * t, t
+    n_bytes = q.element_size() * (2 * b * h * s * d + 2 * b * hkv * kv_rows * d)
+    rate = BF16_TC_OPS_PER_S if q.dtype == torch.bfloat16 else OPS_PER_S
+    return bound(n_bytes, 4 * b * h * d * pairs, rate)
+
+
+def flash_case(b, hkv, g, s, t, d, dt, causal: bool, q_start: int, *,
+               cache_layout: bool = False) -> float:
+    """Max |diff| of q (b, hkv g, s, d) over k/v (b, hkv, t, d) against
+    the plain version; fails beyond FLASH_TOL. ``cache_layout`` hands the
+    kernel what the model does: q from (b, s, h, d) storage and k/v from a
+    (b, t, hkv, d) cache, both transposed views."""
+    def randn(*shape):
+        return torch.randn(shape, device=DEV).to(dt)
+    if cache_layout:
+        q = randn(b, s, hkv * g, d).transpose(1, 2)
+        k = randn(b, t, hkv, d).transpose(1, 2)
+        v = randn(b, t, hkv, d).transpose(1, 2)
+    else:
+        q, k, v = randn(b, hkv * g, s, d), randn(b, hkv, t, d), \
+            randn(b, hkv, t, d)
+    out = fa_ops.flash_attention(q, k, v, causal=causal, q_start=q_start)
+    torch.cuda.synchronize()
+    ref = attention_ref(q, k, v, causal=causal, q_start=q_start)
+    if out.dtype != ref.dtype:
+        raise AssertionError(f"flash_attention returned {out.dtype}, plain "
+                             f"{ref.dtype}")
+    return float_err(out.float(), ref.float(), **FLASH_TOL[dt])
+
+
+def flash_sweep() -> dict:
+    """Ragged shapes: S and T off the 64-row tiles, G = H / Hkv in
+    {1, 4, 48}, causal and not, float32 and bfloat16, q_start at 0, T - S
+    and a value mid-tile, head dims the 8-byte copies cannot take (6, 7:
+    element loads), and the model's strided cache layout. Returns the
+    largest |diff| per dtype."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    shapes = [(1, 2, 1, 64, 64, 16), (2, 2, 4, 96, 200, 32),
+              (1, 1, 48, 33, 70, 16), (1, 4, 1, 40, 40, 8),
+              (2, 3, 4, 70, 133, 128), (1, 1, 48, 1, 200, 128),
+              (3, 2, 4, 1, 77, 128), (1, 2, 48, 5, 300, 64),
+              (1, 1, 1, 1, 1, 128), (2, 2, 4, 130, 130, 100),
+              (1, 2, 4, 50, 90, 6), (1, 1, 4, 17, 31, 7)]
+    n = 0
+    for (b, hkv, g, s, t, d) in shapes:
+        for dt in worst:
+            starts = sorted({0, t - s, (t - s) // 2 + 3})
+            for causal, q_start in [(True, q) for q in starts if q >= 0] \
+                    + [(False, 0)]:
+                for layout in (False, True):
+                    err = flash_case(b, hkv, g, s, t, d, dt, causal,
+                                     q_start, cache_layout=layout)
+                    worst[dt] = max(worst[dt], err)
+                    n += 1
+    log(f"  flash_attention ragged sweep: {n} cases within the plain "
+        f"version's float32 atol 2e-5 and bfloat16 atol 1e-4 + 2**-7 |plain| "
+        f"(max |diff| float32 {worst[torch.float32]:.3g}, "
+        f"bfloat16 {worst[torch.bfloat16]:.3g})")
+    return worst
+
+
+def flash_record() -> dict:
+    """flash_attention at the LM path's two shapes: the prefill of 1 x 8,192
+    tokens (q_start 0 over the prompt's own keys) and a decode step of 8
+    sequences over the 32,768-slot cache at q_start 32,760. Each shape is
+    checked in float32 and in bfloat16 against the plain version and timed
+    in bfloat16, the model's dtype; returns one record per shape."""
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    live = DECODE_CUR + 1
+
+    def inputs(name, dt):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=DEV).to(dt)
+        if name == "prefill":
+            return (randn(1, 32, PREFILL_S, 128), randn(1, 8, PREFILL_S, 128),
+                    randn(1, 8, PREFILL_S, 128), 0)
+        ck, cv = randn(DECODE_B, DECODE_T, 8, 128), \
+            randn(DECODE_B, DECODE_T, 8, 128)
+        return (randn(DECODE_B, 32, 1, 128), ck.transpose(1, 2),
+                cv.transpose(1, 2), DECODE_CUR)
+
+    rec = {}
+    for name in ("prefill", "decode"):
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, q_start = inputs(name, dt)
+            out = fa_ops.flash_attention(q, k, v, q_start=q_start)
+            torch.cuda.synchronize()
+            errs[dt] = float_err(out.float(), attention_ref(
+                q, k, v, q_start=q_start).float(), **FLASH_TOL[dt])
+            del out
+        # q, k, v are the bfloat16 inputs from here on
+        if name == "prefill":
+            def library():
+                return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            def library():
+                return sdpa(q, k[:, :, :live], v[:, :, :live],
+                            enable_gqa=True)
+        b_ms, b_by = flash_bound(q, k, q_start)
+        rec[name] = dict(
+            name=f"flash_attention.flash_attention[{name}]", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:75",
+            max_abs_err=errs[torch.bfloat16],
+            ms=time_ms(lambda: fa_ops.flash_attention(q, k, v,
+                                                      q_start=q_start)),
+            plain_ms=time_ms(lambda: attention_ref(q, k, v, q_start=q_start),
+                             reps=5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library),
+            q=list(q.shape), kv=list(k.shape), q_start=q_start,
+            max_abs_err_float32=errs[torch.float32])
+        log(f"  flash_attention.flash_attention {name}: {rec[name]}")
+        del q, k, v, library
+        torch.cuda.empty_cache()
+    return rec
 
 
 def phase_kernels() -> dict:
@@ -467,6 +644,11 @@ def phase_kernels() -> dict:
         bound_by=by.pop() if len(by) == 1 else "operations")
     log(f"  cin.cin_layer, serve_p99's three layers summed: "
         f"{rec['cin_layer']}")
+    del xk, x0, w
+
+    flash_sweep()
+    for name, r in flash_record().items():
+        rec[f"flash_attention[{name}]"] = r
     return rec
 
 
@@ -479,7 +661,8 @@ OPS = {"scan_hits": scan_ops.scan_hits,
        "compat_matrix": join_ops.compat_matrix,
        "jaccard_distance": jac_ops.jaccard_distance,
        "gather_rows": emb_ops.gather_rows,
-       "cin_layer": cin_ops.cin_layer}
+       "cin_layer": cin_ops.cin_layer,
+       "flash_attention": fa_ops.flash_attention}
 
 
 def reset_counts():
@@ -727,23 +910,145 @@ def phase_xdeepfm() -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 8: dense-transformer serving (prefill and decode)
+# ---------------------------------------------------------------------------
+
+def lm_check(cfg_full) -> str:
+    """float32 at full width and CHECK_LAYERS layers: prefill logits with
+    the kernel against the plain path (`_sdpa`) within CHECK_LOGIT_SHARE of
+    the largest |logit| (float32 sums in other orders, about 1e-6 relative
+    per op, through 4 layers), and a decode step at position CHECK_S
+    against `forward`'s logits there within CHECK_DECODE_ERR."""
+    cfg = dataclasses.replace(cfg_full, n_layers=CHECK_LAYERS,
+                              dtype="float32")
+    model = Transformer.random(cfg, seed=0, device=DEV)
+    toks = dev(next(token_batches(cfg.vocab_size, CHECK_B, CHECK_S + 1,
+                                  seed=0))["tokens"])
+    logits, cache = model.prefill(toks[:, :CHECK_S], max_len=CHECK_S + 8)
+    plain, _ = model.prefill(toks[:, :CHECK_S], max_len=CHECK_S + 8,
+                             use_kernel=False)
+    top = plain.abs().max().item()
+    err = float_err(logits, plain, atol=CHECK_LOGIT_SHARE * top)
+    step, _ = model.decode_step(cache, toks[:, CHECK_S:], CHECK_S)
+    fwd = model.forward(toks)[:, CHECK_S:]
+    dec_err = (step - fwd).abs().max().item()
+    if not dec_err < CHECK_DECODE_ERR:
+        raise AssertionError(f"{cfg.name}: decode at {CHECK_S} differs from "
+                             f"forward by {dec_err}")
+    return (f"{cfg.name} float32, {CHECK_LAYERS} layers, "
+            f"{model.n_params():,} parameters, {CHECK_B} x {CHECK_S} "
+            f"tokens: prefill logits with the kernel within "
+            f"{CHECK_LOGIT_SHARE} x {top:.4g} of the plain path (max |diff| "
+            f"{err:.3g}); decode at {CHECK_S} vs forward max |diff| "
+            f"{dec_err:.3g} (< {CHECK_DECODE_ERR})")
+
+
+def phase_lm() -> dict:
+    """granite-3-8b at full width and depth in bf16 through the port's
+    entry points: prefill of 1 x PREFILL_S prompt tokens, then DECODE_STEPS
+    greedy decode steps of DECODE_B sequences over a DECODE_T-slot cache
+    filled from a seeded generator up to DECODE_CUR. Returns the launch
+    counts of the two driven runs."""
+    for cfg in (granite_3_8b.full(), granite_20b.full()):
+        log("  " + lm_check(cfg))
+        torch.cuda.empty_cache()
+
+    cfg = granite_3_8b.full()
+    t0 = time.perf_counter()
+    model = Transformer.random(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.padded_vocab:,}; {model.n_params():,} bf16 "
+        f"parameters ({torch.cuda.memory_allocated(DEV):,} bytes; "
+        f"{time.perf_counter() - t0:.2f} s to draw on the card)")
+    prompt = dev(next(token_batches(cfg.vocab_size, 1, PREFILL_S,
+                                    seed=0))["tokens"])
+    model.prefill(prompt[:, :256])                       # warm-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats(DEV)
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(prompt)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    prefill_counts = counts()
+    peak = torch.cuda.max_memory_allocated(DEV)
+    if prefill_counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"prefill launched {prefill_counts}")
+    if logits.shape != (1, PREFILL_S, cfg.padded_vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits malformed or not finite")
+    log(f"  prefill 1 x {PREFILL_S:,} tokens: {dt:.4f} s "
+        f"({PREFILL_S / dt:,.1f} tokens/s); logits finite; launches "
+        f"{prefill_counts}; max_memory_allocated {peak:,} bytes")
+    del logits, cache
+    log("  prefill, profiled: " + device_breakdown(
+        lambda: model.prefill(prompt), share_of="flash_tile"))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cache = model.init_cache(DECODE_B, DECODE_T)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    for ct in cache["dense"]:
+        for layer in ct:
+            layer.normal_(generator=gen)
+    tok = dev(next(token_batches(cfg.vocab_size, DECODE_B, 1,
+                                 seed=0))["tokens"])
+    model.decode_step(cache, tok, DECODE_CUR - 1)         # warm-up
+    torch.cuda.synchronize()
+    log(f"  decode cache: {DECODE_B} x {DECODE_T:,} slots x {cfg.n_layers} "
+        f"layers, {2 * cache['dense'][0].nbytes:,} bytes, random from seed 0 "
+        f"({time.perf_counter() - t0:.2f} s to fill)")
+
+    torch.cuda.reset_peak_memory_stats(DEV)
+    reset_counts()
+    steps = []
+    t_all = time.perf_counter()
+    for i in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        logits, _ = model.decode_step(cache, tok, DECODE_CUR + i)
+        tok = logits[:, :, :cfg.vocab_size].argmax(dim=-1).to(torch.int32)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"decode step {i}: logits not finite")
+        steps.append((time.perf_counter() - t0) * 1e3)
+    dt = time.perf_counter() - t_all
+    decode_counts = counts()
+    peak = torch.cuda.max_memory_allocated(DEV)
+    if decode_counts["flash_attention"] != cfg.n_layers * DECODE_STEPS:
+        raise AssertionError(f"decode launched {decode_counts}")
+    log(f"  decode {DECODE_B} x {DECODE_STEPS} steps from position "
+        f"{DECODE_CUR:,}: {np.median(steps):.3f} ms per step (median; "
+        f"{[round(t, 3) for t in steps]}), "
+        f"{DECODE_B * DECODE_STEPS / dt:,.1f} tokens/s; logits finite; "
+        f"launches {decode_counts}; max_memory_allocated {peak:,} bytes")
+    log("  decode step, profiled: " + device_breakdown(
+        lambda: model.decode_step(cache, tok, DECODE_CUR),
+        share_of="flash_tile"))
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    return {"prefill": prefill_counts, "decode": decode_counts}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/8] device: {card}; torch.cuda.get_device_name: "
+    log(f"[1/9] device: {card}; torch.cuda.get_device_name: "
         f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     # the plain versions' float32 products run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log(f"[2/8] build: {kernels.build():.2f} s (nvcc, "
+    log(f"[2/9] build: {kernels.build():.2f} s (nvcc, "
         f"{' '.join(kernels.NVCC_FLAGS)}; {len(kernels.SOURCES)} libraries)")
 
-    log("[3/8] kernels against their plain versions on the card")
+    log("[3/9] kernels against their plain versions on the card")
     rec = phase_kernels()
 
-    log("[4/8] main path: LUBM(1) scale 1.0, WawPart 3 shards from the "
+    log("[4/9] main path: LUBM(1) scale 1.0, WawPart 3 shards from the "
         f"Jaccard kernel, join sorted, backend cuda, {BATCH} requests per "
         "serve()")
     main_counts = serve_path(1.0, "sorted", kernel_partition=True)
@@ -751,19 +1056,23 @@ def main() -> None:
         if main_counts[k] <= 0:
             raise AssertionError(f"main path never launched {k}")
 
-    log("[5/8] expand path: LUBM scale 0.1, join expand, backend cuda")
+    log("[5/9] expand path: LUBM scale 0.1, join expand, backend cuda")
     expand_counts = serve_path(0.1, "expand")
     if expand_counts["compat_matrix"] <= 0:
         raise AssertionError("expand path never launched compat_matrix")
 
-    log(f"[6/8] clustering: {UNIVERSITIES * DEPARTMENTS * 14:,} LUBM query "
+    log(f"[6/9] clustering: {UNIVERSITIES * DEPARTMENTS * 14:,} LUBM query "
         "instances")
     cluster_counts = phase_clustering()
     if cluster_counts["jaccard_distance"] <= 0:
         raise AssertionError("clustering never launched jaccard_distance")
 
-    log("[7/8] xDeepFM serving forward, full config")
+    log("[7/9] xDeepFM serving forward, full config")
     xdeepfm_counts = phase_xdeepfm()
+
+    log("[8/9] LM serving: granite-3-8b full config, bf16, random weights "
+        "from seed 0; float32 checks at full width and 4 layers")
+    lm_counts = phase_lm()
 
     rec["scan_hits"]["launches"] = main_counts["scan_hits"]
     rec["join_ranges"]["launches"] = main_counts["join_ranges"]
@@ -771,17 +1080,24 @@ def main() -> None:
     rec["jaccard_distance"]["launches"] = main_counts["jaccard_distance"]
     rec["gather_rows"]["launches"] = xdeepfm_counts["gather_rows"]
     rec["cin_layer"]["launches"] = xdeepfm_counts["cin_layer"]
-    log("[8/8] kernels: " + ", ".join(
+    for name, c in lm_counts.items():
+        rec[f"flash_attention[{name}]"]["launches"] = c["flash_attention"]
+    log("[9/9] kernels: " + ", ".join(
         f"{r['name']} ok launches={r['launches']}" for r in rec.values())
         + f"; main path launches {main_counts}, expand path launches "
         f"{expand_counts}, clustering launches {cluster_counts}, xDeepFM "
-        f"launches {xdeepfm_counts}; total "
+        f"launches {xdeepfm_counts}, LM launches (prefill of "
+        f"{PREFILL_S:,} tokens, {DECODE_STEPS} decode steps) "
+        f"{ {k: c['flash_attention'] for k, c in lm_counts.items()} }; total "
         f"{time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in rec.values()]}))
+    # flash_attention has one record per shape of the LM path, each with the
+    # launches of its own run (the prefill, the decode steps)
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + ("q", "kv", "q_start") if k in r}
+        for r in rec.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -192,6 +192,16 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         XDeepFM.from_jax(smoke(), {})
 
+    from repro_torch.configs import granite_3_8b
+    from repro_torch.models.transformer import Transformer, init_cache
+    lm = granite_3_8b.smoke()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Transformer.random(lm)                   # device defaults to cuda
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Transformer.from_jax(lm, {})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_cache(lm, 1, 8)
+
 
 def test_kernel_ops_raise_off_cpu_instead_of_falling_back():
     """A tensor that is not on the CPU goes to the kernel's launcher, which
@@ -199,6 +209,7 @@ def test_kernel_ops_raise_off_cpu_instead_of_falling_back():
     version instead."""
     from repro_torch.kernels.cin.ops import cin_layer
     from repro_torch.kernels.embedding_bag.ops import gather_rows
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.jaccard.ops import jaccard_distance
     from repro_torch.kernels.kg_join.ops import compat_matrix, join_ranges
     from repro_torch.kernels.kg_scan.ops import scan_hits
@@ -220,6 +231,12 @@ def test_kernel_ops_raise_off_cpu_instead_of_falling_back():
         gather_rows(f32[0], spo[0])
     with pytest.raises(ValueError, match="CUDA tensor"):
         cin_layer(f32, f32, f32[:, :, :3])
+    qkv = torch.zeros((1, 2, 4, 8), dtype=torch.bfloat16, device=meta)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention(qkv, qkv[:, :1], qkv[:, :1])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention(qkv, qkv, qkv, causal=False, q_start=0)
     assert scan_hits.launches == join_ranges.launches \
         == compat_matrix.launches == jaccard_distance.launches \
-        == gather_rows.launches == cin_layer.launches == 0
+        == gather_rows.launches == cin_layer.launches \
+        == flash_attention.launches == 0
