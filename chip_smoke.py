@@ -18,7 +18,16 @@ order; any failure exits non-zero:
    not; q_start 0, T - S and mid-tile; strided cache views) and at the LM
    path's prefill (1 x 32 heads x 8,192 over 8 KV heads) and decode
    (8 x 32 heads over a 32,768-slot cache at q_start 32,760) shapes, each
-   timed in bfloat16 and listed as a kernel record of its own;
+   timed in bfloat16 and listed as a kernel record of its own; bag_sum
+   (an op no path calls) within atol 1e-5 on a ragged sweep and over the
+   full xDeepFM table (26.4M x 10) at 262,144 bags of 39, its launches
+   those of these checks; segment_spmm within tests/test_kernels.py's
+   1e-4 (float32) and 0.15 (bfloat16) on a ragged sweep (E and N off the
+   TPU's blocks, D = 7 and 6,272, 10% and all edges masked, no edges, a
+   hub of half the edges, receivers given sorted), and at the two GNN
+   paths' shapes, GCN layer 2 at ogbn-products (E 64,308,169, D 47,
+   N 2,449,029) and Equiformer-v2's values on the molecule batch (E 8,192,
+   D 6,272), each a kernel record of its own;
 4. main path — LUBM(1) at scale 1.0, WawPart over 3 shards taken from the
    Jaccard kernel's distances (the same partition as the numpy distances),
    served by WorkloadServer(join_impl="sorted") with the kernels: every
@@ -46,7 +55,18 @@ order; any failure exits non-zero:
    8 greedy decode steps of 8 sequences over a 32,768-slot cache (42.9 GB)
    from position 32,760, every logit finite, flash_attention launched 40
    times in the prefill and 40 per step, each profiled;
-9. summary — every kernel's launches on its path.
+9. GNN serving — GCN (gcn_cora.full("ogb_products"): 2 layers, d_in 100,
+   hidden 16, 47 classes) on the full ogbn-products batch (2,449,029
+   nodes, 64,308,169 edges with self loops, built in numpy from seed 0),
+   then EGNN, NequIP and Equiformer-v2 at full() on the molecule batch
+   (128 molecules, 3,840 nodes, 8,192 edges), random weights from seed 0:
+   each forward through segment_spmm within rtol 1e-4 and atol 1e-4 x
+   max |plain| of the same forward on the plain index_add_ path, every
+   output finite, segment_spmm launched 2, 8, 5 and 12 times per forward,
+   ms per forward (CUDA events), peak memory and a profiled breakdown;
+   Equiformer-v2's energies unchanged within 1e-4 relative under a random
+   rotation and translation;
+10. summary — every kernel's launches on its path.
 
 The last three lines are the card's name and power limit, a JSON line of
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -71,20 +91,25 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.configs import egnn as egnn_configs  # noqa: E402
+from repro_torch.configs import equiformer_v2 as eq_configs  # noqa: E402
+from repro_torch.configs import gcn_cora  # noqa: E402
 from repro_torch.configs import granite_3_8b, granite_20b  # noqa: E402
+from repro_torch.configs import nequip as nequip_configs  # noqa: E402
 from repro_torch.configs import xdeepfm as xdeepfm_configs  # noqa: E402
 from repro_torch.core.distance import (feature_matrix,  # noqa: E402
                                        jaccard_distance_matrix)
 from repro_torch.core.hac import LINKAGES, linkage_torch  # noqa: E402
 from repro_torch.core.partitioner import wawpart_partition  # noqa: E402
+from repro_torch.data.graphs import make_graph_batch  # noqa: E402
 from repro_torch.data.recsys import click_batches  # noqa: E402
 from repro_torch.data.tokens import token_batches  # noqa: E402
 from repro_torch.engine.oracle import evaluate_bgp  # noqa: E402
 from repro_torch.kernels.cin import ops as cin_ops  # noqa: E402
 from repro_torch.kernels.cin.ref import cin_layer_ref  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as emb_ops  # noqa: E402
-from repro_torch.kernels.embedding_bag.ref import \
-    gather_rows_ref  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import (bag_sum_ref,  # noqa: E402
+                                                  gather_rows_ref)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
     attention_ref  # noqa: E402
@@ -95,10 +120,19 @@ from repro_torch.kernels.kg_join.ref import (compat_matrix_ref,  # noqa: E402
                                              join_ranges_ref)
 from repro_torch.kernels.kg_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.kg_scan.ref import scan_hits_ref  # noqa: E402
+from repro_torch.kernels.segment_spmm import ops as seg_ops  # noqa: E402
+from repro_torch.kernels.segment_spmm.kernel import (  # noqa: E402
+    INT32_MAX, segment_spmm_kernel)
+from repro_torch.kernels.segment_spmm.ref import \
+    segment_spmm_ref  # noqa: E402
 from repro_torch.kg.generator import generate_lubm  # noqa: E402
 from repro_torch.kg.workloads import lubm_queries  # noqa: E402
 from repro_torch.launch.serve import (WorkloadServer,  # noqa: E402
                                       request_stream)
+from repro_torch.models.gnn.egnn import EGNN  # noqa: E402
+from repro_torch.models.gnn.equiformer_v2 import EquiformerV2  # noqa: E402
+from repro_torch.models.gnn.gcn import GCN  # noqa: E402
+from repro_torch.models.gnn.nequip import NequIP  # noqa: E402
 from repro_torch.models.recsys.xdeepfm import (XDeepFM,  # noqa: E402
                                                field_offsets)
 from repro_torch.models.transformer import Transformer  # noqa: E402
@@ -139,6 +173,25 @@ CHECK_LAYERS, CHECK_B, CHECK_S = 4, 2, 1024
 CHECK_LOGIT_SHARE = 1e-4     # kernel vs plain prefill logits: atol as a
 #                              share of the plain run's largest |logit|
 CHECK_DECODE_ERR = 1e-3      # decode vs forward, tests/test_models_lm.py's
+# segment_spmm against its plain version (index_add_ in float32): on the
+# ragged sweep tests/test_kernels.py's 1e-4 (float32) and 0.15 (bfloat16);
+# at the GNN paths' shapes, and for the GNN forwards, rtol 1e-4 and atol
+# 1e-4 x max |plain|: the kernel sums a node's edges in edge order, the
+# plain version with atomics in an order that changes from run to run, and
+# the error of a float32 sum grows with its range (hubs of up to 459,110
+# edges at ogbn-products) and its partial sums, not with its result
+SPMM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+            torch.bfloat16: dict(atol=0.15, rtol=0.15)}
+GNN_SHARE = 1e-4
+# bag_sum: tests/test_kernels.py's atol 1e-5 in float32; a bfloat16 table
+# one bfloat16 step (both round the same float32 sum once, in other orders)
+BAG_TOL = {torch.float32: dict(atol=1e-5),
+           torch.bfloat16: dict(atol=1e-5, rtol=2 ** -7)}
+# segment_spmm launches per forward: one aggregate per GCN layer, two per
+# EGNN layer (coordinate mean, message sum), one per NequIP and
+# Equiformer-v2 layer
+GNN_LAUNCHES = {"gcn": 2, "egnn": 8, "nequip": 5, "equiformer_v2": 12}
+GNN_REPS = {"gcn": 5, "egnn": 20, "nequip": 20, "equiformer_v2": 10}
 
 
 def log(*a):
@@ -212,7 +265,8 @@ def float_err(out, ref, *, exact: bool = False, atol: float = 0.0,
     err = float(diff.max().item())
     ok = (torch.equal(out.masked_fill(nan, 0).view(torch.int32),
                       ref.masked_fill(nan, 0).view(torch.int32)) if exact
-          else bool((diff <= atol + rtol * ref.abs()).all().item()))
+          else bool((diff <= atol + rtol * ref.abs().masked_fill(nan, 0))
+                    .all().item()))
     if not ok:
         raise AssertionError(
             f"kernel differs from its plain version: max |diff| {err} "
@@ -483,6 +537,197 @@ def flash_record() -> dict:
     return rec
 
 
+_GRAPHS: dict = {}
+
+
+def gnn_graph(shape: str):
+    """The GNN paths' batch for ``shape`` at full size on the card
+    (ogb_products: 2,449,029 nodes, 64,308,169 edges with self loops;
+    molecule: 128 molecules, 3,840 nodes, 8,192 edges), built once from
+    seed 0. Returns (batch, seconds to build it)."""
+    if shape not in _GRAPHS:
+        t0 = time.perf_counter()
+        g = make_graph_batch(shape, **gcn_cora.SHAPE_DIMS[shape], seed=0,
+                             device=DEV)
+        torch.cuda.synchronize()
+        _GRAPHS[shape] = (g, time.perf_counter() - t0)
+    return _GRAPHS[shape]
+
+
+def spmm_case(e: int, d: int, n: int, dt=torch.float32, live: float = 0.9,
+              *, hub: float = 0.0, assume_sorted: bool = False) -> float:
+    """segment_spmm on random (e, d) messages to n nodes against its plain
+    version; ``hub`` sends that share of the edges to node 3, and
+    ``assume_sorted`` hands the op receivers already sorted (the mask then
+    applies inside the kernel). Returns max |diff|."""
+    vals = torch.randn((e, d), device=DEV).to(dt)
+    recv = RNG.integers(0, n, e).astype(np.int32)
+    recv[RNG.uniform(size=e) < hub] = 3
+    if assume_sorted:
+        recv = np.sort(recv)
+    recv = dev(recv)
+    mask = dev(RNG.uniform(size=e) < live)
+    out = seg_ops.segment_spmm(vals, recv, mask, n,
+                               assume_sorted=assume_sorted)
+    torch.cuda.synchronize()
+    ref = segment_spmm_ref(vals, recv, mask, n)
+    if out.dtype != ref.dtype:
+        raise AssertionError(f"segment_spmm returned {out.dtype}, plain "
+                             f"{ref.dtype}")
+    tol = dict(SPMM_TOL[dt])
+    if hub:
+        tol["atol"] = GNN_SHARE * ref.abs().max().item()
+    return float_err(out.float(), ref.float(), **tol)
+
+
+def spmm_sweep() -> None:
+    """E off the TPU's 512-edge blocks and N off its 128-node blocks, D = 7
+    and Equiformer-v2's 6,272, 10% and 100% masked edges, no edges, a hub
+    of half the edges, receivers given sorted, float32 and bfloat16."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = [(100, 16, 50), (1000, 64, 300), (64, 7, 10), (515, 7, 131),
+             (4097, 47, 1000), (3000, 6272, 1000), (0, 8, 5), (7, 33, 1)]
+    n = 0
+    for e, d, nn in cases:
+        for dt in worst:
+            worst[dt] = max(worst[dt], spmm_case(e, d, nn, dt))
+            n += 1
+    for dt in worst:
+        worst[dt] = max(worst[dt], spmm_case(300, 12, 40, dt, live=0.0),
+                        spmm_case(200_000, 47, 1000, dt, hub=0.5),
+                        spmm_case(5000, 40, 700, dt, assume_sorted=True))
+        n += 3
+    log(f"  segment_spmm ragged sweep: {n} cases within float32 atol=rtol "
+        f"1e-4 and bfloat16 atol=rtol 0.15 of the plain version (the hub "
+        f"case at atol {GNN_SHARE} x max |plain|; max |diff| float32 "
+        f"{worst[torch.float32]:.3g}, bfloat16 {worst[torch.bfloat16]:.3g})")
+
+
+def spmm_record(shape: str, d: int) -> dict:
+    """segment_spmm at a GNN path's shape: random float32 (E, d) messages
+    over the path's own receivers (every edge live), checked against the
+    plain version and timed as the path calls it (mask, stable sort, the
+    sorted copy, the kernel), beside the kernel alone on sorted input (and
+    on as many uniformly drawn receivers, which have no hub) and one
+    index_add_ call."""
+    g, _ = gnn_graph(shape)
+    recv, mask = g.receivers, g.edge_mask
+    if not bool(mask.all()):
+        raise AssertionError(f"{shape}: the record expects every edge live")
+    e, n = recv.shape[0], g.node_mask.shape[0]
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    vals = torch.randn((e, d), generator=gen, device=DEV)
+    out = seg_ops.segment_spmm(vals, recv, mask, n)
+    torch.cuda.synchronize()
+    ref = segment_spmm_ref(vals, recv, mask, n)
+    err = float_err(out, ref, atol=GNN_SHARE * ref.abs().max().item(),
+                    rtol=GNN_SHARE)
+    del out, ref
+    n_bytes = 4 * e * d + 4 * e + e + 4 * n * d
+    b_ms, b_by = bound(n_bytes, e * d)
+    rec = dict(
+        name=f"segment_spmm.segment_spmm[{shape}]", route="cuda",
+        source="src/repro_torch/csrc/segment_spmm.cu",
+        replaces="src/repro/kernels/segment_spmm/kernel.py:51",
+        max_abs_err=err,
+        ms=time_ms(lambda: seg_ops.segment_spmm(vals, recv, mask, n),
+                   reps=10),
+        plain_ms=time_ms(lambda: segment_spmm_ref(vals, recv, mask, n),
+                         reps=10),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.zeros(
+            (n, d), device=DEV).index_add_(0, recv, vals), reps=10),
+        shape=[e, d, n])
+    recv_s, order = torch.sort(torch.where(mask, recv, INT32_MAX),
+                               stable=True)
+    vals_s = vals.index_select(0, order)
+    del order
+    rec["kernel_only_ms"] = time_ms(
+        lambda: segment_spmm_kernel(vals_s, recv_s, None, n), reps=10)
+    # the same E, D and N over uniformly drawn receivers: no hub
+    recv_s = torch.sort(torch.randint(0, n, (e,), generator=gen, device=DEV,
+                                      dtype=torch.int32)).values
+    rec["kernel_uniform_ms"] = time_ms(
+        lambda: segment_spmm_kernel(vals_s, recv_s, None, n), reps=10)
+    deg = torch.bincount(recv.long(), minlength=n)
+    log(f"  segment_spmm.segment_spmm {shape} (E {e:,}, D {d}, N {n:,}, "
+        f"float32, largest in-degree {int(deg.max()):,}; within rtol "
+        f"{GNN_SHARE} and atol {GNN_SHARE} x max |plain|): {rec}")
+    del vals, vals_s, recv_s, deg
+    torch.cuda.empty_cache()
+    return rec
+
+
+def bag_case(v: int, d: int, b: int, bag: int, dt=torch.float32,
+             weighted: bool = True, ids_np=None):
+    table = torch.randn((v, d), device=DEV).to(dt)
+    ids = dev((RNG.integers(0, v, (b, bag)) if ids_np is None
+               else ids_np).astype(np.int32))
+    w = dev(RNG.normal(size=ids.shape).astype(np.float32)) if weighted \
+        else None
+    out = emb_ops.bag_sum(table, ids, w)
+    torch.cuda.synchronize()
+    return float_err(out.float(), bag_sum_ref(table, ids, w).float(),
+                     **BAG_TOL[dt])
+
+
+def bag_record() -> dict:
+    """bag_sum, an op with no path: the ragged sweep, then the full
+    xDeepFM table (26,367,531 x 10 float32) under serve_bulk's 262,144
+    requests, each request's 39 field rows one bag with seeded normal
+    weights. Its launches are those of these checks (counts reset before,
+    read before the timing)."""
+    emb_ops.bag_sum.launches = 0
+    worst = 0.0
+    for v, d, b, bag in ((500, 10, 16, 4), (200, 32, 8, 7),
+                         (300, 17, 5, 39), (1000, 300, 33, 3)):
+        for dt in (torch.float32, torch.bfloat16):
+            for weighted in (True, False):
+                worst = max(worst, bag_case(v, d, b, bag, dt, weighted))
+    # jnp.take's semantics: negative ids wrap, ids out of range give NaN
+    bag_case(50, 6, 3, 3, ids_np=np.array([[0, 49, -1], [-50, 7, 7],
+                                           [3, 50, 1]]))
+    log(f"  bag_sum ragged sweep: float32 within atol 1e-5, bfloat16 "
+        f"within one bfloat16 step, NaN where jnp.take fills (max |diff| "
+        f"{worst:.3g})")
+    cfg = xdeepfm_configs.full()
+    bsz = xdeepfm_configs.SERVE_BATCH["serve_bulk"]
+    batch = next(click_batches(cfg.vocab_sizes, cfg.n_dense, bsz, seed=0))
+    ids = dev((batch["sparse"] + field_offsets(cfg)[None, :])
+              .astype(np.int32))
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    table = torch.randn((cfg.total_vocab, cfg.embed_dim), generator=gen,
+                        device=DEV) * 0.01
+    w = torch.randn(ids.shape, generator=gen, device=DEV)
+    out = emb_ops.bag_sum(table, ids, w)
+    torch.cuda.synchronize()
+    err = float_err(out, bag_sum_ref(table, ids, w),
+                    **BAG_TOL[torch.float32])
+    launches = emb_ops.bag_sum.launches
+    b, bag = ids.shape
+    d = cfg.embed_dim
+    rows = torch.unique(ids).numel()
+    b_ms, b_by = bound(4 * b * bag * 2 + 4 * rows * d + 4 * b * d,
+                       2 * b * bag * d)
+    rec = dict(
+        name="embedding_bag.bag_sum", route="cuda",
+        source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag/kernel.py:61",
+        launches=launches, max_abs_err=err,
+        ms=time_ms(lambda: emb_ops.bag_sum(table, ids, w)),
+        plain_ms=time_ms(lambda: bag_sum_ref(table, ids, w)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.nn.functional.embedding_bag(
+            ids, table, per_sample_weights=w, mode="sum")),
+        path=None)
+    log(f"  embedding_bag.bag_sum ({b:,} bags of {bag} into "
+        f"{cfg.total_vocab:,} x {d}, {rows:,} distinct rows; atol 1e-5): "
+        f"{rec}")
+    del table, ids, w, out
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_kernels() -> dict:
     """Check every kernel on the ragged sweep shapes and the main path's
     shapes; time each at its main-path shape. Returns per-kernel records."""
@@ -649,6 +894,22 @@ def phase_kernels() -> dict:
     flash_sweep()
     for name, r in flash_record().items():
         rec[f"flash_attention[{name}]"] = r
+
+    rec["bag_sum"] = bag_record()
+    spmm_sweep()
+    t0 = time.perf_counter()
+    g, build_s = gnn_graph("ogb_products")
+    log(f"  ogb_products batch: {g.node_mask.shape[0]:,} nodes, "
+        f"{g.receivers.shape[0]:,} edges with self loops, built from seed "
+        f"0 in {build_s:.2f} s (numpy, then copied to the card)")
+    # GCN layer 2's messages: (E, n_classes)
+    rec["segment_spmm[ogb_products]"] = spmm_record(
+        "ogb_products", gcn_cora.SHAPE_DIMS["ogb_products"]["n_classes"])
+    # Equiformer-v2's values: (E, (l_max + 1)^2 x d_hidden)
+    eq = eq_configs.full()
+    rec["segment_spmm[molecule]"] = spmm_record(
+        "molecule", (eq.l_max + 1) ** 2 * eq.d_hidden)
+    log(f"  segment_spmm records: {time.perf_counter() - t0:.1f} s")
     return rec
 
 
@@ -662,7 +923,9 @@ OPS = {"scan_hits": scan_ops.scan_hits,
        "jaccard_distance": jac_ops.jaccard_distance,
        "gather_rows": emb_ops.gather_rows,
        "cin_layer": cin_ops.cin_layer,
-       "flash_attention": fa_ops.flash_attention}
+       "flash_attention": fa_ops.flash_attention,
+       "segment_spmm": seg_ops.segment_spmm,
+       "bag_sum": emb_ops.bag_sum}
 
 
 def reset_counts():
@@ -1032,23 +1295,115 @@ def phase_lm() -> dict:
     return {"prefill": prefill_counts, "decode": decode_counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: GNN serving (GCN at ogbn-products, the geometric models)
+# ---------------------------------------------------------------------------
+
+def gnn_check(name: str, model, g) -> int:
+    """One forward of ``model`` on ``g`` through the kernel, counted, then
+    checked against the same forward with `aggregate` on the plain
+    index_add_ path (rtol GNN_SHARE, atol GNN_SHARE x max |plain|), timed
+    beside it, and profiled. Returns its segment_spmm launches."""
+    torch.cuda.reset_peak_memory_stats(DEV)
+    base = torch.cuda.memory_allocated(DEV)
+    with torch.inference_mode():
+        reset_counts()
+        out = model(g)
+        torch.cuda.synchronize()
+        c = counts()
+        peak = torch.cuda.max_memory_allocated(DEV)
+        plain = model(g, use_kernel=False)
+        outs = out if isinstance(out, tuple) else (out,)
+        plains = plain if isinstance(plain, tuple) else (plain,)
+        errs = []
+        for o, p in zip(outs, plains):
+            if not bool(torch.isfinite(o).all()):
+                raise AssertionError(f"{name}: output not finite")
+            errs.append(float_err(o, p, rtol=GNN_SHARE,
+                                  atol=GNN_SHARE * p.abs().max().item()))
+        del out, plain, outs, plains
+        if c["segment_spmm"] != GNN_LAUNCHES[name]:
+            raise AssertionError(f"{name}: forward launched {c}")
+        reps = GNN_REPS[name]
+        ms = time_ms(lambda: model(g), reps=reps)
+        plain_ms = time_ms(lambda: model(g, use_kernel=False), reps=reps)
+        log(f"  {name}: {ms:.3f} ms per forward with the kernel (median of "
+            f"{reps}, CUDA events), plain index_add_ path {plain_ms:.3f} ms; "
+            f"within rtol {GNN_SHARE} and atol {GNN_SHARE} x max |plain| of "
+            f"the plain path (max |diff| {[f'{e:.3g}' for e in errs]}); "
+            f"launches {c['segment_spmm']}; max_memory_allocated {peak:,} "
+            f"bytes ({peak - base:,} above the weights and the batch)")
+        log(f"  {name} forward, profiled: " + device_breakdown(
+            lambda: model(g), share_of="segment_sum_warp"))
+    return c["segment_spmm"]
+
+
+def phase_gnn() -> dict:
+    """GCN (gcn_cora.full("ogb_products")) on the full ogbn-products
+    batch, then EGNN, NequIP and Equiformer-v2 at full() on the molecule
+    batch, random weights from seed 0, each through `forward` with the
+    kernel against the plain path; Equiformer-v2's energies also under a
+    random rotation and translation. Returns each model's launches."""
+    launched = {}
+    g, _ = gnn_graph("ogb_products")
+    cfg = gcn_cora.full("ogb_products")
+    model = GCN.random(cfg, torch.Generator(device=DEV).manual_seed(0))
+    log(f"  {cfg.name} at ogb_products: {cfg.n_layers} layers, d_in "
+        f"{cfg.d_in}, hidden {cfg.d_hidden}, {cfg.n_classes} classes; "
+        f"{g.node_mask.shape[0]:,} nodes, {g.receivers.shape[0]:,} edges; "
+        f"node features {g.node_feat.nbytes:,} bytes, layer-2 messages "
+        f"{g.receivers.shape[0] * cfg.n_classes * 4:,} bytes")
+    launched["gcn"] = gnn_check("gcn", model, g)
+    del model
+    torch.cuda.empty_cache()
+
+    g, build_s = gnn_graph("molecule")
+    log(f"  molecule batch: {g.n_graphs} molecules, {g.node_mask.shape[0]:,} "
+        f"nodes, {g.receivers.shape[0]:,} edges ({build_s:.2f} s to build)")
+    for name, cls, cfg in (("egnn", EGNN, egnn_configs.full()),
+                           ("nequip", NequIP, nequip_configs.full()),
+                           ("equiformer_v2", EquiformerV2, eq_configs.full())):
+        model = cls.random(cfg, torch.Generator(device=DEV).manual_seed(0))
+        log(f"  {cfg.name}: {cfg.n_layers} layers, d_hidden {cfg.d_hidden}, "
+            f"{sum(p.numel() for p in model.parameters()):,} parameters")
+        launched[name] = gnn_check(name, model, g)
+    # the reference's invariance test (tests/test_models_gnn.py) on the card
+    q, _ = np.linalg.qr(np.random.default_rng(3).normal(size=(3, 3)))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    moved = dataclasses.replace(
+        g, positions=g.positions @ dev(q.T.astype(np.float32)) + 1.5)
+    with torch.inference_mode():
+        e1, e2 = model(g), model(moved)
+    top = e1.abs().max().item()
+    diff = (e1 - e2).abs().max().item()
+    if not diff <= 1e-4 * top:
+        raise AssertionError(f"equiformer_v2: energies move by {diff} under "
+                             f"a rotation (max |energy| {top})")
+    log(f"  equiformer_v2 under a random rotation and translation: max "
+        f"|energy diff| {diff:.3g} (<= 1e-4 x {top:.4g})")
+    del model
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/9] device: {card}; torch.cuda.get_device_name: "
+    log(f"[1/10] device: {card}; torch.cuda.get_device_name: "
         f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     # the plain versions' float32 products run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log(f"[2/9] build: {kernels.build():.2f} s (nvcc, "
+    log(f"[2/10] build: {kernels.build():.2f} s (nvcc, "
         f"{' '.join(kernels.NVCC_FLAGS)}; {len(kernels.SOURCES)} libraries)")
 
-    log("[3/9] kernels against their plain versions on the card")
+    log("[3/10] kernels against their plain versions on the card")
     rec = phase_kernels()
 
-    log("[4/9] main path: LUBM(1) scale 1.0, WawPart 3 shards from the "
+    log("[4/10] main path: LUBM(1) scale 1.0, WawPart 3 shards from the "
         f"Jaccard kernel, join sorted, backend cuda, {BATCH} requests per "
         "serve()")
     main_counts = serve_path(1.0, "sorted", kernel_partition=True)
@@ -1056,23 +1411,28 @@ def main() -> None:
         if main_counts[k] <= 0:
             raise AssertionError(f"main path never launched {k}")
 
-    log("[5/9] expand path: LUBM scale 0.1, join expand, backend cuda")
+    log("[5/10] expand path: LUBM scale 0.1, join expand, backend cuda")
     expand_counts = serve_path(0.1, "expand")
     if expand_counts["compat_matrix"] <= 0:
         raise AssertionError("expand path never launched compat_matrix")
 
-    log(f"[6/9] clustering: {UNIVERSITIES * DEPARTMENTS * 14:,} LUBM query "
+    log(f"[6/10] clustering: {UNIVERSITIES * DEPARTMENTS * 14:,} LUBM query "
         "instances")
     cluster_counts = phase_clustering()
     if cluster_counts["jaccard_distance"] <= 0:
         raise AssertionError("clustering never launched jaccard_distance")
 
-    log("[7/9] xDeepFM serving forward, full config")
+    log("[7/10] xDeepFM serving forward, full config")
     xdeepfm_counts = phase_xdeepfm()
 
-    log("[8/9] LM serving: granite-3-8b full config, bf16, random weights "
+    log("[8/10] LM serving: granite-3-8b full config, bf16, random weights "
         "from seed 0; float32 checks at full width and 4 layers")
     lm_counts = phase_lm()
+
+    log("[9/10] GNN serving: GCN at the full ogbn-products size; EGNN, "
+        "NequIP and Equiformer-v2 full configs on the molecule batch; "
+        "random weights from seed 0")
+    gnn_counts = phase_gnn()
 
     rec["scan_hits"]["launches"] = main_counts["scan_hits"]
     rec["join_ranges"]["launches"] = main_counts["join_ranges"]
@@ -1082,21 +1442,41 @@ def main() -> None:
     rec["cin_layer"]["launches"] = xdeepfm_counts["cin_layer"]
     for name, c in lm_counts.items():
         rec[f"flash_attention[{name}]"]["launches"] = c["flash_attention"]
-    log("[9/9] kernels: " + ", ".join(
+    rec["segment_spmm[ogb_products]"]["launches"] = gnn_counts["gcn"]
+    rec["segment_spmm[molecule]"]["launches"] = sum(
+        gnn_counts[k] for k in ("egnn", "nequip", "equiformer_v2"))
+    paths = {"scan_hits": "LUBM main path (phase 4)",
+             "join_ranges": "LUBM main path (phase 4)",
+             "compat_matrix": "LUBM expand path (phase 5)",
+             "jaccard_distance": "WawPart partition (phase 4)",
+             "gather_rows": "xDeepFM forward (phase 7)",
+             "cin_layer": "xDeepFM forward (phase 7)",
+             "flash_attention[prefill]": "granite-3-8b prefill (phase 8)",
+             "flash_attention[decode]": "granite-3-8b decode (phase 8)",
+             "segment_spmm[ogb_products]": "GCN forward (phase 9)",
+             "segment_spmm[molecule]":
+                 "EGNN, NequIP, Equiformer-v2 forwards (phase 9)"}
+    for name, path in paths.items():
+        rec[name]["path"] = path
+    log("[10/10] kernels: " + ", ".join(
         f"{r['name']} ok launches={r['launches']}" for r in rec.values())
         + f"; main path launches {main_counts}, expand path launches "
         f"{expand_counts}, clustering launches {cluster_counts}, xDeepFM "
         f"launches {xdeepfm_counts}, LM launches (prefill of "
         f"{PREFILL_S:,} tokens, {DECODE_STEPS} decode steps) "
-        f"{ {k: c['flash_attention'] for k, c in lm_counts.items()} }; total "
+        f"{ {k: c['flash_attention'] for k, c in lm_counts.items()} }, GNN "
+        f"segment_spmm launches {gnn_counts}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
     print(card)
     # flash_attention has one record per shape of the LM path, each with the
-    # launches of its own run (the prefill, the decode steps)
+    # launches of its own run (the prefill, the decode steps); segment_spmm
+    # one per GNN path; bag_sum has no path (its launches are its checks')
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + ("q", "kv", "q_start") if k in r}
+        {k: r[k] for k in keys + ("q", "kv", "q_start", "shape",
+                                  "kernel_only_ms", "kernel_uniform_ms")
+         if k in r}
         for r in rec.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

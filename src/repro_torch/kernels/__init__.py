@@ -11,9 +11,11 @@ Each kernel package ships:
 Kernels: kg_scan (fused masked triple-pattern scan with its int32 prefix
 sum) and kg_join (merge-join candidate ranges and the expand-join
 compatibility matrix) behind the query engine; jaccard (the WawPart
-query-distance matrix); embedding_bag (the xDeepFM row gather) and cin
-(the fused xDeepFM CIN layer); flash_attention (the dense transformer's
-attention at prefill and decode). Their sources live in
+query-distance matrix); embedding_bag (the xDeepFM row gather, and the
+weighted bag sum as an op) and cin (the fused xDeepFM CIN layer);
+flash_attention (the dense transformer's attention at prefill and
+decode); segment_spmm (the GNNs' scatter-sum of edge messages into
+receiver nodes). Their sources live in
 ``src/repro_torch/csrc/``.
 
 The sources are compiled at first CUDA use by ``nvcc`` into shared
@@ -36,7 +38,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("kg_scan.cu", "kg_join.cu", "jaccard.cu", "embedding_bag.cu",
-           "cin.cu", "flash_attention.cu")
+           "cin.cu", "flash_attention.cu", "segment_spmm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

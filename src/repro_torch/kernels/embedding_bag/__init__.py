@@ -1,1 +1,1 @@
-"""Embedding row gather (the xDeepFM lookup)."""
+"""Embedding row gather (the xDeepFM lookup) and weighted bag sum."""

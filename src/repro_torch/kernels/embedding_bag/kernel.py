@@ -1,4 +1,4 @@
-"""ctypes binding and launch of the row-gather CUDA kernel
+"""ctypes bindings and launches of the row-gather and bag-sum CUDA kernels
 (csrc/embedding_bag.cu)."""
 from __future__ import annotations
 
@@ -11,12 +11,14 @@ from repro_torch.kernels import check, current_stream, library, ptr, require
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _L, _L, _L, _P]
+_BAG_ARGTYPES = [_P, _P, _P, _P, _L, _L, _L, _L, ctypes.c_int, _P]
+_BAG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _entry():
-    fn = library("embedding_bag.cu").embedding_gather_rows
-    if fn.argtypes != _ARGTYPES:
-        fn.argtypes = _ARGTYPES
+def _entry(name: str = "embedding_gather_rows", argtypes=_ARGTYPES):
+    fn = getattr(library("embedding_bag.cu"), name)
+    if fn.argtypes != argtypes:
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -34,4 +36,32 @@ def gather_rows_kernel(table, ids):
     status = _entry()(ptr(table), ptr(ids), ptr(out), v, d, n,
                       current_stream(table.device))
     check(status, "embedding_gather_rows")
+    return out
+
+
+def bag_sum_kernel(table, ids, weights):
+    """(B, D) weighted bag sums in the table's dtype (float32 or bfloat16),
+    accumulated in float32: a contiguous (V, D) CUDA table, contiguous
+    (B, bag) int32 ids and (B, bag) float32 weights, or None for weights
+    of 1. The table is read in place."""
+    if table.dtype not in _BAG_DTYPES:
+        raise ValueError(f"table must be float32 or bfloat16, got "
+                         f"{table.dtype}")
+    require(table, "table", table.dtype, 2)
+    require(ids, "ids", torch.int32, 2)
+    if weights is not None:
+        require(weights, "weights", torch.float32, 2)
+    for name, t in (("ids", ids), ("weights", weights)):
+        if t is not None and t.device != table.device:
+            raise ValueError(f"{name} on {t.device}, table on {table.device}")
+    if weights is not None and weights.shape != ids.shape:
+        raise ValueError(f"weights {tuple(weights.shape)} != ids "
+                         f"{tuple(ids.shape)}")
+    v, d = table.shape
+    b, bag = ids.shape
+    out = torch.empty((b, d), dtype=table.dtype, device=table.device)
+    status = _entry("embedding_bag_sum", _BAG_ARGTYPES)(
+        ptr(table), ptr(ids), ptr(weights), ptr(out), v, d, b, bag,
+        _BAG_DTYPES[table.dtype], current_stream(table.device))
+    check(status, "embedding_bag_sum")
     return out

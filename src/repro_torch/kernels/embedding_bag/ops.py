@@ -1,7 +1,8 @@
-"""Public row-gather op: dispatch on the tensor's device.
+"""Public row-gather and bag-sum ops: dispatch on the tensor's device.
 
-A CPU tensor runs the plain version (`ref.gather_rows_ref`); a CUDA tensor
-launches the gather kernel, and anything the kernel does not take raises.
+A CPU tensor runs the plain version (`ref.gather_rows_ref`,
+`ref.bag_sum_ref`); a CUDA tensor launches the kernel, and anything the
+kernel does not take raises.
 There is no fallback from the card to the plain version. Unlike the TPU op,
 the table is not padded to 128 lanes: at the full xDeepFM width that would
 copy its 26.4M rows on every call.
@@ -10,8 +11,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.embedding_bag.kernel import gather_rows_kernel
-from repro_torch.kernels.embedding_bag.ref import gather_rows_ref
+from repro_torch.kernels.embedding_bag.kernel import (bag_sum_kernel,
+                                                     gather_rows_kernel)
+from repro_torch.kernels.embedding_bag.ref import bag_sum_ref, gather_rows_ref
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -24,3 +26,20 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 gather_rows.launches = 0
+
+
+def bag_sum(table: torch.Tensor, ids: torch.Tensor,
+            weights: torch.Tensor | None = None) -> torch.Tensor:
+    """table: (V, D); ids: (B, bag) integer; weights: (B, bag) or None
+    (all 1) -> (B, D) weighted bag sums in the table's dtype, accumulated in
+    float32. No JAX code path calls the reference op; this is an op only."""
+    if table.device.type == "cpu":
+        return bag_sum_ref(table, ids, weights)
+    w = None if weights is None else \
+        weights.to(torch.float32).contiguous()
+    out = bag_sum_kernel(table, ids.to(torch.int32).contiguous(), w)
+    bag_sum.launches += 1
+    return out
+
+
+bag_sum.launches = 0

@@ -1,0 +1,22 @@
+"""Plain PyTorch version of the segment-sum kernel: the CPU path and the
+yardstick the CUDA kernel is held against on the card."""
+from __future__ import annotations
+
+import torch
+
+
+def segment_spmm_ref(values: torch.Tensor, receivers: torch.Tensor,
+                     edge_mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """values: (E, D) per-edge messages; scatter-sum the live edges into
+    (n_nodes, D) with `index_add_`, in float32, rounded once to the values'
+    dtype. As `jax.ops.segment_sum` does, an edge whose receiver lies
+    outside [0, n_nodes) is dropped: it and every masked edge go to a spare
+    row past the output, so the values are never copied to be masked."""
+    e, d = values.shape
+    recv = receivers.to(torch.int64)
+    live = edge_mask & (recv >= 0) & (recv < n_nodes)
+    out = torch.zeros((n_nodes + 1, d), dtype=torch.float32,
+                      device=values.device)
+    out.index_add_(0, torch.where(live, recv, n_nodes),
+                   values.to(torch.float32))
+    return out[:n_nodes].to(values.dtype)

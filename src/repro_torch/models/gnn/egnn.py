@@ -1,0 +1,95 @@
+"""EGNN (Satorras et al. 2021): E(n)-equivariant GNN without spherical
+harmonics — messages from invariant distances, coordinate updates along
+relative vectors. Assigned config: 4 layers, d_hidden=64.
+
+The serving forward of the reference's `models/gnn/egnn.py`: two
+`aggregate` calls per layer (the coordinate mean and the message sum).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from repro_torch.engine.batch import resolve_device
+from repro_torch.models.gnn.common import (MLP, GraphBatch, aggregate,
+                                           frozen, graph_ids, mlp_apply,
+                                           mlp_init, normal, segment_sum,
+                                           to_tensor)
+
+
+@dataclass(frozen=True)
+class EGNNConfig:
+    name: str = "egnn"
+    n_layers: int = 4
+    d_in: int = 16           # species embedding dim
+    d_hidden: int = 64
+    n_species: int = 16
+    coord_agg: str = "mean"
+    dtype: str = "float32"
+
+
+class EGNNLayer(nn.Module):
+    def __init__(self, phi_e: MLP, phi_x: MLP, phi_h: MLP):
+        super().__init__()
+        self.phi_e, self.phi_x, self.phi_h = phi_e, phi_x, phi_h
+
+
+class EGNN(nn.Module):
+    """EGNN's parameters on one device and its serving forward."""
+
+    def __init__(self, cfg: EGNNConfig, embed: torch.Tensor,
+                 layers: list[EGNNLayer], readout: MLP):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = frozen(embed)                # (n_species, H)
+        self.layers = nn.ModuleList(layers)
+        self.readout = readout
+
+    @classmethod
+    def random(cls, cfg: EGNNConfig, generator: torch.Generator) -> EGNN:
+        """Weights drawn on ``generator.device`` with the reference's
+        distributions (the numbers differ from JAX's for the same seed)."""
+        resolve_device(generator.device)
+        dt = getattr(torch, cfg.dtype)
+        h = cfg.d_hidden
+        layers = [EGNNLayer(mlp_init(generator, [2 * h + 1, h, h], dt),
+                            mlp_init(generator, [h, h, 1], dt),
+                            mlp_init(generator, [2 * h, h, h], dt))
+                  for _ in range(cfg.n_layers)]
+        return cls(cfg, normal(generator, (cfg.n_species, h), 0.1, dt),
+                   layers, mlp_init(generator, [h, h, 1], dt))
+
+    @classmethod
+    def from_jax(cls, cfg: EGNNConfig, params: dict, *, device="cuda"
+                 ) -> EGNN:
+        """Carry the reference's `init_params(cfg, key)` onto ``device``."""
+        dev = resolve_device(device)
+        layers = [EGNNLayer(*(MLP.from_jax(la[k], dev)
+                              for k in ("phi_e", "phi_x", "phi_h")))
+                  for la in params["layers"]]
+        return cls(cfg, to_tensor(params["embed"], dev), layers,
+                   MLP.from_jax(params["readout"], dev))
+
+    def forward(self, g: GraphBatch, *, use_kernel: bool = True):
+        """Returns (per-graph energy (n_graphs,), final positions)."""
+        n = g.positions.shape[0]
+        h = self.embed[g.species]
+        x = g.positions
+        for layer in self.layers:
+            d = x[g.senders] - x[g.receivers]
+            d2 = torch.sum(d * d, dim=-1, keepdim=True)
+            m = mlp_apply(layer.phi_e,
+                          torch.cat([h[g.senders], h[g.receivers], d2], -1),
+                          final_act=True)
+            w = mlp_apply(layer.phi_x, m)                   # (E, 1)
+            x = x + aggregate(d * w, g.receivers, g.edge_mask, n,
+                              reduce=self.cfg.coord_agg,
+                              use_kernel=use_kernel)
+            agg = aggregate(m, g.receivers, g.edge_mask, n,
+                            use_kernel=use_kernel)
+            h = h + mlp_apply(layer.phi_h, torch.cat([h, agg], -1))
+        e_node = mlp_apply(self.readout, h)[:, 0] * g.node_mask
+        energy = segment_sum(e_node, graph_ids(g), g.n_graphs)
+        return energy, x

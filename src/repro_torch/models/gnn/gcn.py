@@ -1,0 +1,81 @@
+"""GCN (Kipf & Welling 2017): 2-layer symmetric-normalized spectral conv.
+
+Assigned config gcn-cora: n_layers=2, d_hidden=16, mean aggregator, sym norm.
+Self-loops are added by the data pipeline. The serving forward (logits per
+node) of the reference's `models/gnn/gcn.py`: dense product first
+(F -> H), then the normalized messages scattered through `aggregate`.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.engine.batch import resolve_device
+from repro_torch.models.gnn.common import (GraphBatch, aggregate, degrees,
+                                           frozen, normal, to_tensor)
+
+
+@dataclass(frozen=True)
+class GCNConfig:
+    name: str = "gcn-cora"
+    n_layers: int = 2
+    d_in: int = 1433
+    d_hidden: int = 16
+    n_classes: int = 7
+    norm: str = "sym"         # sym | mean
+    dtype: str = "float32"
+
+
+class GCN(nn.Module):
+    """GCN's layer weights on one device and its serving forward."""
+
+    def __init__(self, cfg: GCNConfig, weights: list[torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        self.weights = nn.ParameterList([frozen(w) for w in weights])
+
+    @classmethod
+    def random(cls, cfg: GCNConfig, generator: torch.Generator) -> GCN:
+        """Weights drawn on ``generator.device`` with the reference's
+        distribution, normal * sqrt(2 / fan_in)."""
+        resolve_device(generator.device)
+        dims = [cfg.d_in] + [cfg.d_hidden] * (cfg.n_layers - 1) \
+            + [cfg.n_classes]
+        dt = getattr(torch, cfg.dtype)
+        return cls(cfg, [normal(generator, (a, b), np.sqrt(2.0 / a), dt)
+                         for a, b in zip(dims[:-1], dims[1:])])
+
+    @classmethod
+    def from_jax(cls, cfg: GCNConfig, params: dict, *, device="cuda") -> GCN:
+        """Carry the reference's `init_params(cfg, key)` onto ``device``."""
+        dev = resolve_device(device)
+        return cls(cfg, [to_tensor(la["w"], dev) for la in params["layers"]])
+
+    def forward(self, g: GraphBatch, *, use_kernel: bool = True
+                ) -> torch.Tensor:
+        """Logits (N, n_classes). ``use_kernel=False`` aggregates through
+        the plain `index_add_` version on any device."""
+        n = g.node_feat.shape[0]
+        deg = degrees(g.receivers, g.edge_mask, n).clamp_min(1.0)
+        deg_s = degrees(g.senders, g.edge_mask, n).clamp_min(1.0)
+        if self.cfg.norm == "sym":
+            coef = torch.rsqrt(deg_s[g.senders]) * torch.rsqrt(deg[g.receivers])
+        else:
+            coef = 1.0 / deg[g.receivers]
+        x = g.node_feat
+        last = len(self.weights) - 1
+        for i, w in enumerate(self.weights):
+            x = x @ w                                      # dense first: F->H
+            # scaled in place: at ogbn-products the (E, H) messages are
+            # 12.1 GB, and a second copy would double that
+            msg = x.index_select(0, g.senders)
+            msg.mul_(coef[:, None].to(x.dtype))
+            x = aggregate(msg, g.receivers, g.edge_mask, n,
+                          use_kernel=use_kernel)
+            del msg
+            if i < last:
+                x = torch.relu(x)
+        return x
