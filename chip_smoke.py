@@ -15,10 +15,14 @@ order; any failure exits non-zero:
    is exact, the CIN layer is within atol=5e-4, rtol=1e-4; flash_attention
    is within atol=2e-5 in float32 and atol=1e-4 + 2**-7 |plain| (one
    bfloat16 step) in bfloat16, on a ragged sweep (G 1, 4, 48; causal or
-   not; q_start 0, T - S and mid-tile; strided cache views) and at the LM
-   path's prefill (1 x 32 heads x 8,192 over 8 KV heads) and decode
-   (8 x 32 heads over a 32,768-slot cache at q_start 32,760) shapes, each
-   timed in bfloat16 and listed as a kernel record of its own; bag_sum
+   not; q_start 0, T - S and mid-tile; strided cache views), on each route
+   (the split route forced at small T, also against its plain version;
+   the tensor-core route at d 100 and ragged T), with the count of
+   tensor-core instructions in its library (cuobjdump), and at the LM
+   path's prefill (1 x 32 heads x 8,192 over 8 KV heads; route "wgmma") and
+   decode (8 x 32 heads over a 32,768-slot cache at q_start 32,760; route
+   "split") shapes, each timed in bfloat16 and listed as a kernel record
+   of its own; bag_sum
    (an op no path calls) within atol 1e-5 on a ragged sweep and over the
    full xDeepFM table (26.4M x 10) at 262,144 bags of 39, its launches
    those of these checks; segment_spmm within tests/test_kernels.py's
@@ -54,7 +58,8 @@ order; any failure exits non-zero:
    weights from seed 0, 16.7 GB): a prefill of 1 x 8,192 prompt tokens and
    8 greedy decode steps of 8 sequences over a 32,768-slot cache (42.9 GB)
    from position 32,760, every logit finite, flash_attention launched 40
-   times in the prefill and 40 per step, each profiled;
+   times in the prefill (all on the wgmma route) and 40 per step (all on
+   the split route), each profiled;
 9. GNN serving — GCN (gcn_cora.full("ogb_products"): 2 layers, d_in 100,
    hidden 16, 47 classes) on the full ogbn-products batch (2,449,029
    nodes, 64,308,169 edges with self loops, built in numpy from seed 0),
@@ -75,6 +80,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -110,9 +116,11 @@ from repro_torch.kernels.cin.ref import cin_layer_ref  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as emb_ops  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import (bag_sum_ref,  # noqa: E402
                                                   gather_rows_ref)
+from repro_torch.kernels.flash_attention import \
+    kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import \
-    attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref, attention_split_ref)
 from repro_torch.kernels.jaccard import ops as jac_ops  # noqa: E402
 from repro_torch.kernels.jaccard.ref import jaccard_distance_ref  # noqa: E402
 from repro_torch.kernels.kg_join import ops as join_ops  # noqa: E402
@@ -425,11 +433,15 @@ def flash_bound(q, k, q_start: int, causal: bool = True):
 
 
 def flash_case(b, hkv, g, s, t, d, dt, causal: bool, q_start: int, *,
-               cache_layout: bool = False) -> float:
+               cache_layout: bool = False, chunk: int | None = None,
+               route: str | None = None) -> float:
     """Max |diff| of q (b, hkv g, s, d) over k/v (b, hkv, t, d) against
     the plain version; fails beyond FLASH_TOL. ``cache_layout`` hands the
     kernel what the model does: q from (b, s, h, d) storage and k/v from a
-    (b, t, hkv, d) cache, both transposed views."""
+    (b, t, hkv, d) cache, both transposed views. A ``chunk`` forces the
+    split route with chunks of that many keys (launched through the
+    kernel's wrapper, not the op), also held against the split path's
+    plain version; a ``route`` must be the one the plan picks."""
     def randn(*shape):
         return torch.randn(shape, device=DEV).to(dt)
     if cache_layout:
@@ -439,9 +451,23 @@ def flash_case(b, hkv, g, s, t, d, dt, causal: bool, q_start: int, *,
     else:
         q, k, v = randn(b, hkv * g, s, d), randn(b, hkv, t, d), \
             randn(b, hkv, t, d)
-    out = fa_ops.flash_attention(q, k, v, causal=causal, q_start=q_start)
+    plan = fa_kernel.plan(q, k, v, causal=causal, q_start=q_start,
+                          chunk=chunk)
+    if route is not None and plan.route != route:
+        raise AssertionError(f"flash_attention {(b, hkv, g, s, t, d)} "
+                             f"{dt} took {plan}, not route {route}")
+    if chunk is None:
+        out = fa_ops.flash_attention(q, k, v, causal=causal, q_start=q_start)
+    else:
+        out = fa_kernel.flash_attention_kernel(
+            q, k, v, causal=causal, scale=1.0 / math.sqrt(d),
+            q_start=q_start, route=plan)
     torch.cuda.synchronize()
     ref = attention_ref(q, k, v, causal=causal, q_start=q_start)
+    if chunk is not None:
+        float_err(out.float(), attention_split_ref(
+            q, k, v, chunk=chunk, causal=causal, q_start=q_start).float(),
+            **FLASH_TOL[dt])
     if out.dtype != ref.dtype:
         raise AssertionError(f"flash_attention returned {out.dtype}, plain "
                              f"{ref.dtype}")
@@ -479,6 +505,64 @@ def flash_sweep() -> dict:
     return worst
 
 
+def flash_route_cases() -> None:
+    """Each route beyond the ragged sweep. The split route forced at small
+    T: several chunks, the last one ragged (down to 1 key), chunks wholly
+    past the limit of a causal row, d 100 and 7 (8-byte and element
+    copies). The tensor-core routes: "wgmma" at T off the 64-key tile,
+    d 64 and G 48, "mma" at d 100 (zero-filled to 112, 8-byte copies) and
+    at T under one tile."""
+    split = [(2, 2, 4, 1, 300, 128, True, 290, 64),
+             (1, 2, 1, 16, 200, 64, True, 50, 64),
+             (2, 1, 4, 3, 257, 100, False, 0, 64),
+             (1, 1, 16, 1, 130, 7, True, 129, 32),
+             (1, 3, 2, 8, 1000, 128, True, 500, 256)]
+    tc = [(2, 2, 4, 130, 200, 100, True, 70, "mma"),
+          (1, 2, 4, 40, 50, 128, True, 10, "mma"),
+          (1, 1, 2, 300, 333, 128, True, 33, "wgmma"),
+          (1, 2, 4, 77, 77, 128, False, 0, "wgmma"),
+          (1, 1, 48, 5, 300, 64, True, 295, "wgmma"),
+          (2, 2, 1, 200, 200, 128, True, 0, "wgmma")]
+    worst = {}
+    for (b, hkv, g, s, t, d, causal, q_start, chunk) in split:
+        for dt in (torch.float32, torch.bfloat16):
+            for layout in (False, True):
+                err = flash_case(b, hkv, g, s, t, d, dt, causal, q_start,
+                                 cache_layout=layout, chunk=chunk)
+                worst[("split", dt)] = max(worst.get(("split", dt), 0.0),
+                                           err)
+    for (b, hkv, g, s, t, d, causal, q_start, route) in tc:
+        for layout in (False, True):
+            err = flash_case(b, hkv, g, s, t, d, torch.bfloat16, causal,
+                             q_start, cache_layout=layout, route=route)
+            worst[route] = max(worst.get(route, 0.0), err)
+    log(f"  flash_attention route cases: {4 * len(split)} forced split "
+        f"(float32 max |diff| {worst[('split', torch.float32)]:.3g}, "
+        f"bfloat16 {worst[('split', torch.bfloat16)]:.3g}, also against "
+        f"the split path's plain version), {2 * len(tc)} tensor-core (bf16 "
+        f"max |diff| wgmma {worst['wgmma']:.3g}, mma {worst['mma']:.3g}), "
+        f"within FLASH_TOL")
+
+
+def flash_sass() -> str:
+    """Tensor-core instructions in the flash library's SASS (cuobjdump,
+    where the toolkit has it): HMMA is mma.sync, HGMMA wgmma."""
+    tool = Path(kernels._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return "cuobjdump not found: tensor-core instructions not counted"
+    sass = subprocess.run(
+        [str(tool), "-sass", str(kernels._lib_path("flash_attention.cu"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    hmma = sum("HMMA" in line and "HGMMA" not in line
+               for line in sass.splitlines())
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    if hmma + hgmma == 0:
+        raise AssertionError("the flash library has no tensor-core "
+                             "instruction")
+    return (f"flash library SASS: {hmma} HMMA (mma.sync) and {hgmma} HGMMA "
+            f"(wgmma) instructions")
+
+
 def flash_record() -> dict:
     """flash_attention at the LM path's two shapes: the prefill of 1 x 8,192
     tokens (q_start 0 over the prompt's own keys) and a decode step of 8
@@ -511,6 +595,9 @@ def flash_record() -> dict:
                 q, k, v, q_start=q_start).float(), **FLASH_TOL[dt])
             del out
         # q, k, v are the bfloat16 inputs from here on
+        plan = fa_kernel.plan(q, k, v, causal=True, q_start=q_start)
+        log(f"  flash_attention {name} shape, bf16: route {plan.route} "
+            f"({plan})")
         if name == "prefill":
             def library():
                 return sdpa(q, k, v, is_causal=True, enable_gqa=True)
@@ -530,6 +617,7 @@ def flash_record() -> dict:
                              reps=5),
             bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library),
             q=list(q.shape), kv=list(k.shape), q_start=q_start,
+            flash_route=plan.route,
             max_abs_err_float32=errs[torch.float32])
         log(f"  flash_attention.flash_attention {name}: {rec[name]}")
         del q, k, v, library
@@ -891,7 +979,11 @@ def phase_kernels() -> dict:
         f"{rec['cin_layer']}")
     del xk, x0, w
 
+    fa_ops.flash_attention.routes.clear()
     flash_sweep()
+    log(f"  ragged sweep routes: {dict(fa_ops.flash_attention.routes)}")
+    flash_route_cases()
+    log("  " + flash_sass())
     for name, r in flash_record().items():
         rec[f"flash_attention[{name}]"] = r
 
@@ -931,6 +1023,7 @@ OPS = {"scan_hits": scan_ops.scan_hits,
 def reset_counts():
     for op in OPS.values():
         op.launches = 0
+    fa_ops.flash_attention.routes.clear()
 
 
 def counts() -> dict:
@@ -1232,6 +1325,7 @@ def phase_lm() -> dict:
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats(DEV)
+    before = torch.cuda.memory_allocated(DEV)
     reset_counts()
     t0 = time.perf_counter()
     logits, cache = model.prefill(prompt)
@@ -1239,14 +1333,19 @@ def phase_lm() -> dict:
     dt = time.perf_counter() - t0
     prefill_counts = counts()
     peak = torch.cuda.max_memory_allocated(DEV)
-    if prefill_counts["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"prefill launched {prefill_counts}")
+    prefill_routes = dict(fa_ops.flash_attention.routes)
+    if prefill_counts["flash_attention"] != cfg.n_layers \
+            or prefill_routes != {"wgmma": cfg.n_layers}:
+        raise AssertionError(f"prefill launched {prefill_counts}, routes "
+                             f"{prefill_routes}")
     if logits.shape != (1, PREFILL_S, cfg.padded_vocab) \
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError("prefill logits malformed or not finite")
     log(f"  prefill 1 x {PREFILL_S:,} tokens: {dt:.4f} s "
         f"({PREFILL_S / dt:,.1f} tokens/s); logits finite; launches "
-        f"{prefill_counts}; max_memory_allocated {peak:,} bytes")
+        f"{prefill_counts}; flash routes {prefill_routes}; "
+        f"max_memory_allocated {peak:,} bytes ({before:,} allocated before "
+        f"the prefill: the weights and what earlier phases keep)")
     del logits, cache
     log("  prefill, profiled: " + device_breakdown(
         lambda: model.prefill(prompt), share_of="flash_tile"))
@@ -1267,6 +1366,7 @@ def phase_lm() -> dict:
         f"({time.perf_counter() - t0:.2f} s to fill)")
 
     torch.cuda.reset_peak_memory_stats(DEV)
+    before = torch.cuda.memory_allocated(DEV)
     reset_counts()
     steps = []
     t_all = time.perf_counter()
@@ -1280,13 +1380,18 @@ def phase_lm() -> dict:
     dt = time.perf_counter() - t_all
     decode_counts = counts()
     peak = torch.cuda.max_memory_allocated(DEV)
-    if decode_counts["flash_attention"] != cfg.n_layers * DECODE_STEPS:
-        raise AssertionError(f"decode launched {decode_counts}")
+    decode_routes = dict(fa_ops.flash_attention.routes)
+    if decode_counts["flash_attention"] != cfg.n_layers * DECODE_STEPS \
+            or decode_routes != {"split": cfg.n_layers * DECODE_STEPS}:
+        raise AssertionError(f"decode launched {decode_counts}, routes "
+                             f"{decode_routes}")
     log(f"  decode {DECODE_B} x {DECODE_STEPS} steps from position "
         f"{DECODE_CUR:,}: {np.median(steps):.3f} ms per step (median; "
         f"{[round(t, 3) for t in steps]}), "
         f"{DECODE_B * DECODE_STEPS / dt:,.1f} tokens/s; logits finite; "
-        f"launches {decode_counts}; max_memory_allocated {peak:,} bytes")
+        f"launches {decode_counts}; flash routes {decode_routes}; "
+        f"max_memory_allocated {peak:,} bytes ({before:,} allocated before "
+        f"the steps)")
     log("  decode step, profiled: " + device_breakdown(
         lambda: model.decode_step(cache, tok, DECODE_CUR),
         share_of="flash_tile"))
@@ -1474,7 +1579,8 @@ def main() -> None:
     # launches of its own run (the prefill, the decode steps); segment_spmm
     # one per GNN path; bag_sum has no path (its launches are its checks')
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + ("q", "kv", "q_start", "shape",
+        {k: r[k] for k in keys + ("q", "kv", "q_start", "flash_route",
+                                  "shape",
                                   "kernel_only_ms", "kernel_uniform_ms")
          if k in r}
         for r in rec.values()]}))

@@ -1,17 +1,22 @@
 """Public flash-attention op: dispatch on the tensor's device.
 
 A CPU tensor runs the plain version (`ref.attention_ref`); a CUDA tensor
-launches the flash-attention kernel, and anything the kernel does not take
-raises. There is no fallback from the card to the plain version, no
-repeated copy of the KV heads and no padding of S or T.
+launches the route that `kernel.plan` picks by shape (a bf16 tensor-core
+prefill kernel, the split-KV decode pair or the CUDA-core kernel), and
+anything it does not take raises. There is no fallback from the card to the plain
+version, no repeated copy of the KV heads and no padding of S or T.
+``flash_attention.launches`` counts the calls on the card and
+``flash_attention.routes`` the route each one took.
 """
 from __future__ import annotations
 
 import math
+from collections import Counter
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_kernel, plan)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
@@ -36,10 +41,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, scale=scale,
                              q_start=q_start)
+    route = plan(q, k, v, causal=causal, q_start=q_start)
     out = flash_attention_kernel(q, k, v, causal=causal, scale=scale,
-                                 q_start=q_start)
+                                 q_start=q_start, route=route)
     flash_attention.launches += 1
+    flash_attention.routes[route.route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.routes = Counter()

@@ -31,8 +31,12 @@ from repro.models import transformer as jtr  # noqa: E402
 from repro_torch.configs import granite_3_8b, granite_20b  # noqa: E402
 from repro_torch.configs import nemotron_4_15b  # noqa: E402
 from repro_torch.data.tokens import token_batches  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import \
     flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    attention_split_ref  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 
 RNG = np.random.default_rng(11)
@@ -144,6 +148,100 @@ def test_sdpa_matches_reference(chunk, q_start):
                          v.transpose(1, 2), scale=0.25, q_start=q_start)
     np.testing.assert_allclose(fl.transpose(1, 2).numpy(), ref,
                                atol=TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
+# the kernel's route plan and the split-KV path's plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,hkv,rows,t_end,n_sm", [
+    (1, 8, 4 * 8192, 8192, 132),     # granite-3-8b prefill of 8,192
+    (8, 8, 4, 32761, 132),           # its decode step over 32,761 keys
+    (2, 8, 4, 1025, 132),            # the 4-layer float32 check's decode
+    (1, 1, 1, 1, 132),
+    (1, 2, 16, 100_000, 132),
+    (1, 1, 1, 700, 8),
+    (300, 1, 1, 5000, 132),          # the unsplit grid fills the card
+    (4, 2, 17, 5000, 132),           # 17 rows: more than a split block
+])
+def test_split_plan_covers_the_keys(b, hkv, rows, t_end, n_sm):
+    n_split, chunk = fa_kernel.split_plan(b, hkv, rows, t_end, n_sm)
+    assert chunk % fa_kernel.KEY_TILE == 0
+    # chunks [c chunk, min((c + 1) chunk, t_end)) in order, none empty,
+    # their union [0, t_end) once
+    bounds = [min(c * chunk, t_end) for c in range(n_split + 1)]
+    assert bounds[0] == 0 and bounds[-1] == t_end
+    assert all(lo < hi for lo, hi in zip(bounds, bounds[1:]))
+    if rows > fa_kernel.SPLIT_ROWS or b * hkv >= 2 * n_sm:
+        assert n_split == 1
+    if n_split > 1:
+        assert chunk >= fa_kernel.SPLIT_MIN_KEYS
+    if (b, rows, t_end) == (1, 4 * 8192, 8192):
+        assert n_split == 1
+    if (b, rows, t_end) == (8, 4, 32761):
+        assert n_split * b * hkv >= 2 * 132
+
+
+def test_plan_routes_by_shape():
+    """The route is chosen by shape and layout before the launch: the
+    model's bf16 prefill (strided (B, S, H, d) queries) takes wgmma with
+    16-byte (TMA) copies, its decode over a (B, T, Hkv, d) cache the split
+    route, float32 prefill and odd head dims the CUDA-core kernel, d 100
+    and T under one key tile mma.sync."""
+    bf = torch.bfloat16
+
+    def plan(q, k, **kw):
+        return fa_kernel.plan(q, k, k, causal=True, n_sm=132, **kw)
+
+    q = torch.empty(1, 8192, 32, 128, dtype=bf).transpose(1, 2)
+    k = torch.empty(1, 8192, 8, 128, dtype=bf).transpose(1, 2)
+    assert plan(q, k, q_start=0) == ("wgmma", 16, 1, 8192, 8192)
+    assert plan(q.float(), k.float(), q_start=0).route == "tile"
+    cache = torch.empty(8, 2048, 8, 128, dtype=bf).transpose(1, 2)
+    p = plan(torch.empty(8, 32, 1, 128, dtype=bf), cache, q_start=2040)
+    assert p.route == "split" and p.vec == 16 and p.t_end == 2041
+    assert (p.n_split, p.chunk) == fa_kernel.split_plan(8, 8, 4, 2041)
+    assert plan(torch.empty(1, 8, 50, 7, dtype=bf),
+                torch.empty(1, 2, 90, 7, dtype=bf), q_start=0).route \
+        == "tile"
+    assert plan(torch.empty(2, 8, 130, 100, dtype=bf),
+                torch.empty(2, 2, 130, 100, dtype=bf), q_start=0)[:2] \
+        == ("mma", 8)
+    assert plan(torch.empty(1, 8, 40, 128, dtype=bf),
+                torch.empty(1, 2, 50, 128, dtype=bf), q_start=10)[:2] \
+        == ("mma", 16)
+    forced = plan(torch.empty(1, 2, 16, 64, dtype=bf),
+                  torch.empty(1, 2, 200, 64, dtype=bf), q_start=50,
+                  chunk=64)
+    assert forced == ("split", 16, 2, 64, 66)
+
+
+@pytest.mark.parametrize("chunk", [64, 7])
+@pytest.mark.parametrize("causal,at", [(True, "0"), (True, "mid"),
+                                       (True, "end"), (False, "0")])
+@pytest.mark.parametrize("B,Hkv,G,S,T,d", [
+    (1, 2, 1, 33, 70, 16),
+    (2, 2, 4, 9, 130, 16),
+    (1, 1, 48, 5, 100, 8),           # MQA, G 48
+    (2, 3, 4, 1, 77, 32),            # a decode row
+])
+def test_split_ref_matches_jax_reference(B, Hkv, G, S, T, d, causal, at,
+                                         chunk):
+    """The split path's plain version, chunk by chunk and merged in chunk
+    order, equals the JAX package's reference op. At q_start 0 the chunks
+    past key q_start + s lie wholly beyond row s's limit; chunks of 7 keys
+    do not divide T. The reference takes the bottom-right diagonal, so it
+    sees the cache cut to q_start + S slots."""
+    q_start = {"0": 0, "mid": (T - S) // 2 + 3, "end": T - S}[at]
+    jq, q = _pair((B, Hkv * G, S, d), "float32")
+    jk, k = _pair((B, Hkv, T, d), "float32")
+    jv, v = _pair((B, Hkv, T, d), "float32")
+    out = attention_split_ref(q, k, v, chunk=chunk, causal=causal,
+                              q_start=q_start)
+    n = q_start + S if causal else T
+    ref = np.asarray(flash_attention_reference(jq, jk[:, :, :n],
+                                               jv[:, :, :n], causal=causal))
+    np.testing.assert_allclose(_np(out), ref, atol=TOL["float32"])
 
 
 # ---------------------------------------------------------------------------
