@@ -27,11 +27,18 @@ order; any failure exits non-zero:
    full xDeepFM table (26.4M x 10) at 262,144 bags of 39, its launches
    those of these checks; segment_spmm within tests/test_kernels.py's
    1e-4 (float32) and 0.15 (bfloat16) on a ragged sweep (E and N off the
-   TPU's blocks, D = 7 and 6,272, 10% and all edges masked, no edges, a
-   hub of half the edges, receivers given sorted), and at the two GNN
-   paths' shapes, GCN layer 2 at ogbn-products (E 64,308,169, D 47,
-   N 2,449,029) and Equiformer-v2's values on the molecule batch (E 8,192,
-   D 6,272), each a kernel record of its own;
+   TPU's blocks, D from 1 to 6,272 across the narrow and wide mappings,
+   10% and all edges masked, no edges, a hub of half the edges, every edge
+   on one node, nodes of 1, 3 and 40 PIECEs and of PIECE and PIECE + 1
+   edges, receivers given sorted, one segment plan for two value tensors
+   of different D; hubs at atol 1e-4 x max |plain|), two calls on the
+   same inputs bit-identical, and at the two GNN paths' shapes, GCN layer
+   2 at ogbn-products (E 64,308,169, D 47, N 2,449,029) and Equiformer-v2's
+   values on the molecule batch (E 8,192, D 6,272), each a kernel record of
+   its own with the plan's time, the op's with the plan built and without,
+   and the kernel's alone; gather_rows also exact on a ragged sweep (D 1, 3, 10,
+   16, 33; negative and out-of-range ids; the table in place and one row
+   into a larger one);
 4. main path — LUBM(1) at scale 1.0, WawPart over 3 shards taken from the
    Jaccard kernel's distances (the same partition as the numpy distances),
    served by WorkloadServer(join_impl="sorted") with the kernels: every
@@ -67,8 +74,10 @@ order; any failure exits non-zero:
    (128 molecules, 3,840 nodes, 8,192 edges), random weights from seed 0:
    each forward through segment_spmm within rtol 1e-4 and atol 1e-4 x
    max |plain| of the same forward on the plain index_add_ path, every
-   output finite, segment_spmm launched 2, 8, 5 and 12 times per forward,
-   ms per forward (CUDA events), peak memory and a profiled breakdown;
+   output finite, segment_spmm launched 2, 8, 5 and 12 times and one
+   segment plan built per forward, ms per forward (CUDA events), peak
+   memory (GCN's beside its peak with a sorted copy of the messages per
+   call) and a profiled breakdown;
    Equiformer-v2's energies unchanged within 1e-4 relative under a random
    rotation and translation;
 10. summary — every kernel's launches on its path.
@@ -130,7 +139,7 @@ from repro_torch.kernels.kg_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.kg_scan.ref import scan_hits_ref  # noqa: E402
 from repro_torch.kernels.segment_spmm import ops as seg_ops  # noqa: E402
 from repro_torch.kernels.segment_spmm.kernel import (  # noqa: E402
-    INT32_MAX, segment_spmm_kernel)
+    PIECE, segment_spmm_kernel)
 from repro_torch.kernels.segment_spmm.ref import \
     segment_spmm_ref  # noqa: E402
 from repro_torch.kg.generator import generate_lubm  # noqa: E402
@@ -191,6 +200,8 @@ CHECK_DECODE_ERR = 1e-3      # decode vs forward, tests/test_models_lm.py's
 SPMM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
             torch.bfloat16: dict(atol=0.15, rtol=0.15)}
 GNN_SHARE = 1e-4
+# segment_spmm's kernels (the profiles' share)
+SPMM_KERNELS = ("segment_sum_", "segment_combine")
 # bag_sum: tests/test_kernels.py's atol 1e-5 in float32; a bfloat16 table
 # one bfloat16 step (both round the same float32 sum once, in other orders)
 BAG_TOL = {torch.float32: dict(atol=1e-5),
@@ -200,6 +211,10 @@ BAG_TOL = {torch.float32: dict(atol=1e-5),
 # Equiformer-v2 layer
 GNN_LAUNCHES = {"gcn": 2, "egnn": 8, "nequip": 5, "equiformer_v2": 12}
 GNN_REPS = {"gcn": 5, "egnn": 20, "nequip": 20, "equiformer_v2": 10}
+# GCN's forward peak on the ogbn-products batch when the op sorted a copy
+# of the messages on every call (this script on an NVIDIA H100 80GB HBM3 at
+# 700 W): 28.08 GB, 12.1 GB of it the sorted copy of layer 2's messages
+GCN_PEAK_SORTED_COPY = 28_075_147_776
 
 
 def log(*a):
@@ -289,10 +304,10 @@ def bound(n_bytes: float, n_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_breakdown(fn, share_of: str | None = None) -> str:
+def device_breakdown(fn, share_of: tuple[str, ...] = ()) -> str:
     """One run of fn() under torch.profiler: the device-busy share of its
     wall and the kernels with the most device time (and the share of the
-    device time spent in kernels whose name holds ``share_of``)."""
+    device time spent in kernels whose name holds one of ``share_of``)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -308,9 +323,11 @@ def device_breakdown(fn, share_of: str | None = None) -> str:
     top = "; ".join(f"{e.key[:70]} x{e.count} "
                     f"{e.self_device_time_total / 1e3:.3f} ms"
                     for e in rows[:6])
-    share = "" if share_of is None else (
-        f"; {share_of} "
-        f"{sum(e.self_device_time_total for e in rows if share_of in e.key) / busy_us:.1%}"
+    mine = [e for e in rows if any(k in e.key for k in share_of)]
+    share = "" if not share_of else (
+        f"; {' + '.join(share_of)} "
+        f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms, "
+        f"{sum(e.self_device_time_total for e in mine) / busy_us:.1%}"
         " of device time")
     return (f"device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
             f"profiled wall ({busy_us / wall_us:.1%}); {top}{share}")
@@ -642,62 +659,126 @@ def gnn_graph(shape: str):
     return _GRAPHS[shape]
 
 
-def spmm_case(e: int, d: int, n: int, dt=torch.float32, live: float = 0.9,
-              *, hub: float = 0.0, assume_sorted: bool = False) -> float:
-    """segment_spmm on random (e, d) messages to n nodes against its plain
-    version; ``hub`` sends that share of the edges to node 3, and
-    ``assume_sorted`` hands the op receivers already sorted (the mask then
-    applies inside the kernel). Returns max |diff|."""
-    vals = torch.randn((e, d), device=DEV).to(dt)
-    recv = RNG.integers(0, n, e).astype(np.int32)
-    recv[RNG.uniform(size=e) < hub] = 3
-    if assume_sorted:
-        recv = np.sort(recv)
-    recv = dev(recv)
-    mask = dev(RNG.uniform(size=e) < live)
-    out = seg_ops.segment_spmm(vals, recv, mask, n,
+def spmm_check(vals, recv, mask, n: int, *, plan=None,
+               hub: bool = False, assume_sorted: bool = False) -> float:
+    """segment_spmm (with ``plan``, or building its own) against its plain
+    version within SPMM_TOL of the values' dtype, with ``hub`` at atol
+    GNN_SHARE x max |plain|. Returns max |diff|."""
+    out = seg_ops.segment_spmm(vals, recv, mask, n, plan=plan,
                                assume_sorted=assume_sorted)
     torch.cuda.synchronize()
     ref = segment_spmm_ref(vals, recv, mask, n)
     if out.dtype != ref.dtype:
         raise AssertionError(f"segment_spmm returned {out.dtype}, plain "
                              f"{ref.dtype}")
-    tol = dict(SPMM_TOL[dt])
+    tol = dict(SPMM_TOL[vals.dtype])
     if hub:
         tol["atol"] = GNN_SHARE * ref.abs().max().item()
     return float_err(out.float(), ref.float(), **tol)
 
 
+def spmm_inputs(e: int, d: int, n: int, dt=torch.float32, live: float = 0.9,
+                *, hub: float = 0.0, node_edges: tuple[int, int] = (0, 0),
+                assume_sorted: bool = False):
+    """Random (E, d) messages to n nodes: ``hub`` sends that share of the
+    edges to node 3; ``node_edges`` = (v, k) gives node v exactly k live
+    edges among the others (and some masked ones); ``assume_sorted`` sorts
+    the receivers."""
+    recv = RNG.integers(0, n, e).astype(np.int32)
+    recv[RNG.uniform(size=e) < hub] = 3
+    mask = RNG.uniform(size=e) < live
+    v, k = node_edges
+    if k:
+        recv = np.concatenate([np.where(recv == v, (v + 1) % n, recv),
+                               np.full(k + 5, v, np.int32)])
+        mask = np.concatenate([mask, np.ones(k + 5, bool)])
+        mask[np.flatnonzero(recv == v)[:5]] = False
+        perm = RNG.permutation(recv.shape[0])
+        recv, mask = recv[perm], mask[perm]
+    if assume_sorted:
+        recv = np.sort(recv)
+    vals = torch.randn((recv.shape[0], d), device=DEV).to(dt)
+    return vals, dev(recv), dev(mask)
+
+
+def spmm_case(e: int, d: int, n: int, dt=torch.float32, live: float = 0.9,
+              *, hub: float = 0.0, node_edges: tuple[int, int] = (0, 0),
+              assume_sorted: bool = False) -> float:
+    """`spmm_check` on `spmm_inputs`; a hub or a node of more than PIECE
+    edges is held at the GNN paths' tolerance. Returns max |diff|."""
+    vals, recv, mask = spmm_inputs(e, d, n, dt, live, hub=hub,
+                                   node_edges=node_edges,
+                                   assume_sorted=assume_sorted)
+    return spmm_check(vals, recv, mask, n, assume_sorted=assume_sorted,
+                      hub=bool(hub) or node_edges[1] > PIECE)
+
+
 def spmm_sweep() -> None:
     """E off the TPU's 512-edge blocks and N off its 128-node blocks, D = 7
     and Equiformer-v2's 6,272, 10% and 100% masked edges, no edges, a hub
-    of half the edges, receivers given sorted, float32 and bfloat16."""
+    of half the edges, every edge on one node, nodes of 1, 3 and 40
+    PIECEs and of PIECE and PIECE + 1 edges, receivers given sorted, one
+    plan for two value tensors of different D, float32 and bfloat16; then
+    two calls on the same inputs give the same bits."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     cases = [(100, 16, 50), (1000, 64, 300), (64, 7, 10), (515, 7, 131),
-             (4097, 47, 1000), (3000, 6272, 1000), (0, 8, 5), (7, 33, 1)]
+             (4097, 47, 1000), (3000, 6272, 1000), (0, 8, 5), (7, 33, 1),
+             (3000, 3, 500), (5000, 1, 64), (2000, 288, 300),
+             (3001, 129, 200), (2000, 1001, 90)]
     n = 0
     for e, d, nn in cases:
         for dt in worst:
             worst[dt] = max(worst[dt], spmm_case(e, d, nn, dt))
             n += 1
     for dt in worst:
-        worst[dt] = max(worst[dt], spmm_case(300, 12, 40, dt, live=0.0),
-                        spmm_case(200_000, 47, 1000, dt, hub=0.5),
-                        spmm_case(5000, 40, 700, dt, assume_sorted=True))
-        n += 3
+        worst[dt] = max(
+            worst[dt], spmm_case(300, 12, 40, dt, live=0.0),
+            spmm_case(200_000, 47, 1000, dt, hub=0.5),
+            spmm_case(20_000, 16, 1, dt, live=1.0),
+            spmm_case(5000, 40, 700, dt, assume_sorted=True),
+            *(spmm_case(3000, d, 300, dt, node_edges=(5, k))
+              for k in (PIECE, PIECE + 1, 3 * PIECE, 40 * PIECE)
+              for d in (16, 47, 6272 if k < 40 * PIECE else 300)))
+        n += 4 + 12
+        vals, recv, mask = spmm_inputs(4000, 16, 200, dt,
+                                       node_edges=(7, 3 * PIECE + 1))
+        plan = seg_ops.segment_plan(recv, mask, 200)
+        worst[dt] = max(worst[dt], spmm_check(vals, recv, mask, 200,
+                                              plan=plan, hub=True))
+        worst[dt] = max(worst[dt], spmm_check(
+            torch.randn((vals.shape[0], 300), device=DEV).to(dt), recv,
+            mask, 200, plan=plan, hub=True))
+        n += 2
     log(f"  segment_spmm ragged sweep: {n} cases within float32 atol=rtol "
-        f"1e-4 and bfloat16 atol=rtol 0.15 of the plain version (the hub "
-        f"case at atol {GNN_SHARE} x max |plain|; max |diff| float32 "
+        f"1e-4 and bfloat16 atol=rtol 0.15 of the plain version (hubs and "
+        f"nodes of more than PIECE = {PIECE} edges at atol {GNN_SHARE} x "
+        f"max |plain|; max |diff| float32 "
         f"{worst[torch.float32]:.3g}, bfloat16 {worst[torch.bfloat16]:.3g})")
+    # two calls on the same inputs: the same bits (no atomics, pieces added
+    # in piece order)
+    same = 0
+    for d, k in ((47, 40 * PIECE), (6272, 3 * PIECE), (3, 40 * PIECE)):
+        vals, recv, mask = spmm_inputs(5000, d, 300,
+                                       node_edges=(5, k))
+        a = seg_ops.segment_spmm(vals, recv, mask, 300)
+        b = seg_ops.segment_spmm(vals, recv, mask, 300)
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"segment_spmm is not deterministic at D "
+                                 f"{d}")
+        same += 1
+    log(f"  segment_spmm determinism: {same} pairs of calls bit-identical "
+        f"(hubs of 40 and 3 PIECEs, D 47, 6,272 and 3)")
 
 
 def spmm_record(shape: str, d: int) -> dict:
     """segment_spmm at a GNN path's shape: random float32 (E, d) messages
     over the path's own receivers (every edge live), checked against the
-    plain version and timed as the path calls it (mask, stable sort, the
-    sorted copy, the kernel), beside the kernel alone on sorted input (and
-    on as many uniformly drawn receivers, which have no hub) and one
-    index_add_ call."""
+    plain version, twice through one plan (the two must be bit-identical).
+    Timed: the op given the plan built (as the forward calls it, ``ms``),
+    the op that builds its own plan (``ms_with_plan``), the plan alone,
+    the kernel alone through the plan's order (on the path's receivers and
+    on as many uniformly drawn ones, which have no hub), the plain version
+    and one index_add_ call."""
     g, _ = gnn_graph(shape)
     recv, mask = g.receivers, g.edge_mask
     if not bool(mask.all()):
@@ -705,12 +786,18 @@ def spmm_record(shape: str, d: int) -> dict:
     e, n = recv.shape[0], g.node_mask.shape[0]
     gen = torch.Generator(device=DEV).manual_seed(3)
     vals = torch.randn((e, d), generator=gen, device=DEV)
-    out = seg_ops.segment_spmm(vals, recv, mask, n)
+    plan = seg_ops.segment_plan(recv, mask, n)
+    out = seg_ops.segment_spmm(vals, recv, mask, n, plan=plan)
+    again = seg_ops.segment_spmm(vals, recv, mask, n, plan=plan)
     torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"{shape}: two calls differ")
+    del again
     ref = segment_spmm_ref(vals, recv, mask, n)
     err = float_err(out, ref, atol=GNN_SHARE * ref.abs().max().item(),
                     rtol=GNN_SHARE)
     del out, ref
+    # the function's own inputs: messages, receivers and mask, the output
     n_bytes = 4 * e * d + 4 * e + e + 4 * n * d
     b_ms, b_by = bound(n_bytes, e * d)
     rec = dict(
@@ -718,30 +805,34 @@ def spmm_record(shape: str, d: int) -> dict:
         source="src/repro_torch/csrc/segment_spmm.cu",
         replaces="src/repro/kernels/segment_spmm/kernel.py:51",
         max_abs_err=err,
-        ms=time_ms(lambda: seg_ops.segment_spmm(vals, recv, mask, n),
-                   reps=10),
+        ms=time_ms(lambda: seg_ops.segment_spmm(vals, recv, mask, n,
+                                                plan=plan), reps=10),
+        ms_with_plan=time_ms(lambda: seg_ops.segment_spmm(vals, recv, mask,
+                                                          n), reps=10),
+        plan_ms=time_ms(lambda: seg_ops.segment_plan(recv, mask, n),
+                        reps=10),
+        kernel_only_ms=time_ms(lambda: segment_spmm_kernel(vals, plan, n),
+                               reps=10),
         plain_ms=time_ms(lambda: segment_spmm_ref(vals, recv, mask, n),
                          reps=10),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: torch.zeros(
             (n, d), device=DEV).index_add_(0, recv, vals), reps=10),
-        shape=[e, d, n])
-    recv_s, order = torch.sort(torch.where(mask, recv, INT32_MAX),
-                               stable=True)
-    vals_s = vals.index_select(0, order)
-    del order
-    rec["kernel_only_ms"] = time_ms(
-        lambda: segment_spmm_kernel(vals_s, recv_s, None, n), reps=10)
+        shape=[e, d, n], piece=PIECE, n_pieces=plan.n_pieces,
+        n_split=plan.n_split)
     # the same E, D and N over uniformly drawn receivers: no hub
-    recv_s = torch.sort(torch.randint(0, n, (e,), generator=gen, device=DEV,
-                                      dtype=torch.int32)).values
+    uniform = seg_ops.segment_plan(
+        torch.randint(0, n, (e,), generator=gen, device=DEV,
+                      dtype=torch.int32), mask, n)
     rec["kernel_uniform_ms"] = time_ms(
-        lambda: segment_spmm_kernel(vals_s, recv_s, None, n), reps=10)
+        lambda: segment_spmm_kernel(vals, uniform, n), reps=10)
+    del uniform
     deg = torch.bincount(recv.long(), minlength=n)
     log(f"  segment_spmm.segment_spmm {shape} (E {e:,}, D {d}, N {n:,}, "
         f"float32, largest in-degree {int(deg.max()):,}; within rtol "
-        f"{GNN_SHARE} and atol {GNN_SHARE} x max |plain|): {rec}")
-    del vals, vals_s, recv_s, deg
+        f"{GNN_SHARE} and atol {GNN_SHARE} x max |plain|; two calls "
+        f"bit-identical): {rec}")
+    del vals, plan, deg
     torch.cuda.empty_cache()
     return rec
 
@@ -835,12 +926,28 @@ def phase_kernels() -> dict:
                     RNG.integers(0, v, n))
     # jnp.take's semantics: negative ids wrap, ids out of range give NaN
     gather_case(small, np.array([0, 999, -1, -1000, 1000, -1001, 7]))
+    # ragged sweep: D 1, 3, 10, 16, 33 (1-, 2- and 4-float vectors); full
+    # and partial 32-row tiles; negative and
+    # out-of-range ids among the others; the table in place and one row
+    # into a larger one (its start then aligned to 4 d bytes only)
+    n_gather = 0
+    for d in (1, 3, 10, 16, 33):
+        big = dev(RNG.normal(size=(778, d)).astype(np.float32))
+        for table in (big[:777], big[1:]):
+            v = table.shape[0]
+            ids = np.concatenate([RNG.integers(0, v, 1000),
+                                  [-1, -v, v, -v - 1, 3 * v],
+                                  RNG.integers(-v, 0, 20),
+                                  RNG.integers(v, 2 * v, 20)])
+            gather_case(table, RNG.permutation(ids))
+            n_gather += 1
     for shape in ((12, 20, 39, 10, 50), (8, 39, 39, 10, 200),
                   (16, 7, 13, 8, 20), (3, 1, 1, 1, 1), (33, 200, 39, 10, 200)):
         cin_case(*shape)
-    log("  ragged sweep shapes: the query kernels and jaccard "
-        "bit-identical, gather_rows exact (NaN where jnp.take fills), cin "
-        "within tolerance")
+    log(f"  ragged sweep shapes: the query kernels and jaccard "
+        f"bit-identical, gather_rows exact (NaN where jnp.take fills; "
+        f"{n_gather} cases of D 1, 3, 10, 16, 33 with negative and "
+        f"out-of-range ids), cin within tolerance")
 
     rec = {}
     # kg_scan at the merge-path scan of bucket 4: 8 padded requests x 3
@@ -1024,6 +1131,7 @@ def reset_counts():
     for op in OPS.values():
         op.launches = 0
     fa_ops.flash_attention.routes.clear()
+    seg_ops.segment_plan.builds = 0
 
 
 def counts() -> dict:
@@ -1348,7 +1456,7 @@ def phase_lm() -> dict:
         f"the prefill: the weights and what earlier phases keep)")
     del logits, cache
     log("  prefill, profiled: " + device_breakdown(
-        lambda: model.prefill(prompt), share_of="flash_tile"))
+        lambda: model.prefill(prompt), share_of=("flash_tile",)))
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1394,7 +1502,7 @@ def phase_lm() -> dict:
         f"the steps)")
     log("  decode step, profiled: " + device_breakdown(
         lambda: model.decode_step(cache, tok, DECODE_CUR),
-        share_of="flash_tile"))
+        share_of=("flash_tile",)))
     del model, cache, logits
     torch.cuda.empty_cache()
     return {"prefill": prefill_counts, "decode": decode_counts}
@@ -1416,6 +1524,7 @@ def gnn_check(name: str, model, g) -> int:
         out = model(g)
         torch.cuda.synchronize()
         c = counts()
+        builds = seg_ops.segment_plan.builds
         peak = torch.cuda.max_memory_allocated(DEV)
         plain = model(g, use_kernel=False)
         outs = out if isinstance(out, tuple) else (out,)
@@ -1429,6 +1538,9 @@ def gnn_check(name: str, model, g) -> int:
         del out, plain, outs, plains
         if c["segment_spmm"] != GNN_LAUNCHES[name]:
             raise AssertionError(f"{name}: forward launched {c}")
+        if builds != 1:
+            raise AssertionError(f"{name}: forward built {builds} segment "
+                                 f"plans")
         reps = GNN_REPS[name]
         ms = time_ms(lambda: model(g), reps=reps)
         plain_ms = time_ms(lambda: model(g, use_kernel=False), reps=reps)
@@ -1436,10 +1548,15 @@ def gnn_check(name: str, model, g) -> int:
             f"{reps}, CUDA events), plain index_add_ path {plain_ms:.3f} ms; "
             f"within rtol {GNN_SHARE} and atol {GNN_SHARE} x max |plain| of "
             f"the plain path (max |diff| {[f'{e:.3g}' for e in errs]}); "
-            f"launches {c['segment_spmm']}; max_memory_allocated {peak:,} "
-            f"bytes ({peak - base:,} above the weights and the batch)")
+            f"launches {c['segment_spmm']}, segment plans built {builds}; "
+            f"max_memory_allocated {peak:,} bytes ({peak - base:,} above "
+            f"the weights and the batch)"
+            + (f"; with a sorted copy per call it peaked at "
+               f"{GCN_PEAK_SORTED_COPY:,} bytes, "
+               f"{(GCN_PEAK_SORTED_COPY - peak) / 1e9:.2f} GB more"
+               if name == "gcn" else ""))
         log(f"  {name} forward, profiled: " + device_breakdown(
-            lambda: model(g), share_of="segment_sum_warp"))
+            lambda: model(g), share_of=SPMM_KERNELS))
     return c["segment_spmm"]
 
 
@@ -1580,8 +1697,9 @@ def main() -> None:
     # one per GNN path; bag_sum has no path (its launches are its checks')
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("q", "kv", "q_start", "flash_route",
-                                  "shape",
-                                  "kernel_only_ms", "kernel_uniform_ms")
+                                  "shape", "ms_with_plan", "plan_ms",
+                                  "kernel_only_ms", "kernel_uniform_ms",
+                                  "piece", "n_pieces", "n_split")
          if k in r}
         for r in rec.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,21 @@
 // Embedding row gather: out[n, :] = table[ids[n], :], and the weighted bag
 // sum out[b, :] = sum_j w[b, j] * table[ids[b, j], :].
 //
-// Replaces src/repro/kernels/embedding_bag/kernel.py, gather_rows_kernel
-// (body _gather_kernel) with its lane padding in
+// The gather replaces src/repro/kernels/embedding_bag/kernel.py,
+// gather_rows_kernel (body _gather_kernel) with its lane padding in
 // src/repro/kernels/embedding_bag/ops.py (gather_rows). The TPU kernel walks
 // the ids one grid step at a time and DMAs one (1, D) row per step, after
-// the op pads the whole table to 128 lanes. Here one thread per output
-// element: neighbouring threads write neighbouring floats, so stores are
-// coalesced whatever D is (a row is 40 bytes at D = 10), and the table is
-// read in place, unpadded.
-// Ids follow jnp.take: -V <= id < 0 counts from the end, and an id outside
-// [-V, V) gives a row of NaN. The kernel never reads outside the table.
+// the op pads the whole table to 128 lanes. Here the table is read in
+// place, unpadded, and a warp moves a tile of 32 rows: each lane loads one
+// id, once, and the lanes that copy a row take its table row from that lane
+// by shuffle. The lanes walk the tile's 32 x D elements in vectors of W
+// floats, the widest access that the row's alignment allows (W = 4 where
+// D % 4 == 0, 2 where D is even: 8-byte loads of the 40-byte rows at
+// D = 10, else 1), with 32-bit index arithmetic inside the tile, and store
+// them straight into the tile's output, one contiguous span of 32 x D
+// floats. Ids follow jnp.take: -V <= id < 0 counts from the end, and an id
+// outside [-V, V) gives a row of NaN. The kernel never reads outside the
+// table (the row is 64-bit: V may exceed 2^31).
 // Bound on the H100: bytes. The ids, the rows they name and the output.
 //
 // The bag sum replaces src/repro/kernels/embedding_bag/kernel.py,
@@ -29,18 +34,62 @@
 
 namespace {
 
-__global__ void gather_rows_tile(const float* __restrict__ table,
-                                 const int32_t* __restrict__ ids,
-                                 float* __restrict__ out, int64_t v,
-                                 int64_t d, int64_t total) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x
-           + threadIdx.x; t < total; t += stride) {
-    const int64_t n = t / d;
-    const int64_t c = t - n * d;
-    int64_t id = ids[n];
+constexpr int kGatherWarps = 4;      // warps per block, a 32-row tile each
+constexpr int kGatherUnroll = 4;     // vectors in flight per lane
+
+template <int W> struct FloatVec;
+template <> struct FloatVec<1> { using type = float; };
+template <> struct FloatVec<2> { using type = float2; };
+template <> struct FloatVec<4> { using type = float4; };
+
+template <int W>
+__device__ __forceinline__ typename FloatVec<W>::type nan_vec() {
+  typename FloatVec<W>::type x;
+  float* el = reinterpret_cast<float*>(&x);
+#pragma unroll
+  for (int q = 0; q < W; ++q) el[q] = NAN;
+  return x;
+}
+
+template <int W>
+__global__ void __launch_bounds__(kGatherWarps * 32)
+gather_rows_warp(const float* __restrict__ table,
+                 const int32_t* __restrict__ ids, float* __restrict__ out,
+                 int64_t v, int d, int64_t n) {
+  using Vec = typename FloatVec<W>::type;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t base =
+      (static_cast<int64_t>(blockIdx.x) * kGatherWarps + warp) * 32;
+  if (base >= n) return;             // whole warps leave together
+  const int rows = n - base < 32 ? static_cast<int>(n - base) : 32;
+  // this lane's table row, from its id loaded once; -1 for no row
+  int64_t row = -1;
+  if (lane < rows) {
+    int64_t id = ids[base + lane];
     if (id < 0) id += v;
-    out[t] = (id >= 0 && id < v) ? __ldg(table + id * d + c) : NAN;
+    if (id >= 0 && id < v) row = id;
+  }
+  const int per = d / W;             // vectors per row
+  const int total = rows * per;      // vectors in the tile
+  Vec* dst = reinterpret_cast<Vec*>(out + base * d);
+  for (int s0 = 0; s0 < total; s0 += 32 * kGatherUnroll) {
+    Vec x[kGatherUnroll];
+#pragma unroll
+    for (int u = 0; u < kGatherUnroll; ++u) {
+      const int s = s0 + u * 32 + lane;
+      const int r = s < total ? s / per : 0;
+      const int64_t rr = __shfl_sync(0xffffffffu, row, r);
+      const int c = s - r * per;
+      x[u] = s < total && rr >= 0
+                 ? __ldg(reinterpret_cast<const Vec*>(table + rr * d) + c)
+                 : nan_vec<W>();
+    }
+#pragma unroll
+    for (int u = 0; u < kGatherUnroll; ++u) {
+      const int s = s0 + u * 32 + lane;
+      if (s < total) dst[s] = x[u];
+    }
   }
 }
 
@@ -100,15 +149,31 @@ extern "C" {
 int embedding_gather_rows(const void* table, const void* ids, void* out,
                           long long v, long long d, long long n,
                           void* stream) {
-  const int64_t total = static_cast<int64_t>(n) * d;
-  if (total <= 0) return 0;
-  const int threads = 256;
-  int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;   // grid-stride beyond
-  gather_rows_tile<<<static_cast<unsigned>(blocks), threads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), static_cast<const int32_t*>(ids),
-      static_cast<float*>(out), v, d, total);
+  if (n <= 0 || d <= 0) return 0;
+  if (d > 0x7fffffffLL / 32) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t t = reinterpret_cast<uintptr_t>(table);
+  const uintptr_t o = reinterpret_cast<uintptr_t>(out);
+  const int w = d % 4 == 0 && t % 16 == 0 && o % 16 == 0   ? 4
+                : d % 2 == 0 && t % 8 == 0 && o % 8 == 0 ? 2
+                                                           : 1;
+  const int64_t tiles = (n + 31) / 32;
+  const int64_t blocks = (tiles + kGatherWarps - 1) / kGatherWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* tb = static_cast<const float*>(table);
+  const int32_t* id = static_cast<const int32_t*>(ids);
+  float* ob = static_cast<float*>(out);
+  const int di = static_cast<int>(d);
+  if (w == 4)
+    gather_rows_warp<4><<<grid, kGatherWarps * 32, 0, s>>>(tb, id, ob, v, di,
+                                                           n);
+  else if (w == 2)
+    gather_rows_warp<2><<<grid, kGatherWarps * 32, 0, s>>>(tb, id, ob, v, di,
+                                                           n);
+  else
+    gather_rows_warp<1><<<grid, kGatherWarps * 32, 0, s>>>(tb, id, ob, v, di,
+                                                           n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,3 +20,22 @@ def segment_spmm_ref(values: torch.Tensor, receivers: torch.Tensor,
     out.index_add_(0, torch.where(live, recv, n_nodes),
                    values.to(torch.float32))
     return out[:n_nodes].to(values.dtype)
+
+
+def segment_spmm_plan_ref(values: torch.Tensor, order: torch.Tensor,
+                          offsets: torch.Tensor) -> torch.Tensor:
+    """The plain version that reads a segment plan as the kernel does:
+    out[v] = sum of values[order[offsets[v]:offsets[v + 1]]], by
+    `index_add_` in float32 of each sorted position's row into the node
+    that owns it, rounded once to the values' dtype. A wrong plan gives a
+    wrong sum."""
+    n = offsets.shape[0] - 1
+    counts = offsets[1:] - offsets[:-1]
+    lo, hi = int(offsets[0].item()), int(offsets[-1].item())
+    node = torch.repeat_interleave(
+        torch.arange(n, device=values.device), counts, output_size=hi - lo)
+    rows = values.index_select(0, order[lo:hi].to(torch.int64))
+    out = torch.zeros((n, values.shape[1]), dtype=torch.float32,
+                      device=values.device)
+    out.index_add_(0, node, rows.to(torch.float32))
+    return out.to(values.dtype)

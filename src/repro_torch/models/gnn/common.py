@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.segment_spmm.kernel import SegmentPlan
 from repro_torch.kernels.segment_spmm.ops import segment_spmm
 from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
 
@@ -50,13 +51,18 @@ class GraphBatch:
 
 def aggregate(messages: torch.Tensor, receivers: torch.Tensor,
               edge_mask: torch.Tensor, n_nodes: int, *, reduce: str = "sum",
-              use_kernel: bool = True) -> torch.Tensor:
+              use_kernel: bool = True,
+              plan: SegmentPlan | None = None) -> torch.Tensor:
     """Scatter edge messages to receiver nodes. messages: (E, ...); ranks
-    above 2 are flattened to (E, prod(...)) for one segment-sum call."""
+    above 2 are flattened to (E, prod(...)) for one segment-sum call.
+    ``plan`` is the receivers' `segment_plan` under ``edge_mask``, which a
+    forward builds once for all its calls; it is passed on to the op."""
     e = messages.shape[0]
     flat = messages.reshape(e, -1)
-    scatter = segment_spmm if use_kernel else segment_spmm_ref
-    out = scatter(flat, receivers, edge_mask, n_nodes)
+    if use_kernel:
+        out = segment_spmm(flat, receivers, edge_mask, n_nodes, plan=plan)
+    else:
+        out = segment_spmm_ref(flat, receivers, edge_mask, n_nodes)
     out = out.reshape(n_nodes, *messages.shape[1:])
     if reduce == "mean":
         deg = degrees(receivers, edge_mask, n_nodes, messages.dtype)

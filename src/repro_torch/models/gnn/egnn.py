@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from repro_torch.engine.batch import resolve_device
+from repro_torch.kernels.segment_spmm.ops import segment_plan
 from repro_torch.models.gnn.common import (MLP, GraphBatch, aggregate,
                                            frozen, graph_ids, mlp_apply,
                                            mlp_init, normal, segment_sum,
@@ -77,6 +78,7 @@ class EGNN(nn.Module):
         n = g.positions.shape[0]
         h = self.embed[g.species]
         x = g.positions
+        plan = segment_plan(g.receivers, g.edge_mask, n) if use_kernel else None
         for layer in self.layers:
             d = x[g.senders] - x[g.receivers]
             d2 = torch.sum(d * d, dim=-1, keepdim=True)
@@ -86,9 +88,9 @@ class EGNN(nn.Module):
             w = mlp_apply(layer.phi_x, m)                   # (E, 1)
             x = x + aggregate(d * w, g.receivers, g.edge_mask, n,
                               reduce=self.cfg.coord_agg,
-                              use_kernel=use_kernel)
+                              use_kernel=use_kernel, plan=plan)
             agg = aggregate(m, g.receivers, g.edge_mask, n,
-                            use_kernel=use_kernel)
+                            use_kernel=use_kernel, plan=plan)
             h = h + mlp_apply(layer.phi_h, torch.cat([h, agg], -1))
         e_node = mlp_apply(self.readout, h)[:, 0] * g.node_mask
         energy = segment_sum(e_node, graph_ids(g), g.n_graphs)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.engine.batch import resolve_device
+from repro_torch.kernels.segment_spmm.ops import segment_plan
 from repro_torch.models.gnn.common import (MLP, GraphBatch, aggregate,
                                            edge_softmax, frozen, graph_ids,
                                            mlp_apply, mlp_init, normal,
@@ -230,6 +231,7 @@ class EquiformerV2(nn.Module):
         r = torch.sqrt(torch.sum(vec * vec, -1) + 1e-12)
         # degenerate (zero-length / self-loop) edges have no edge frame: mask them
         emask = g.edge_mask & (r > 1e-5)
+        plan = segment_plan(g.receivers, emask, n) if use_kernel else None
         rot = rotation_to_z(vec).to(dt)
         d_blocks = wigner_d_blocks(rot, cfg.l_max)
         rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff).to(dt)
@@ -252,7 +254,7 @@ class EquiformerV2(nn.Module):
                                     transpose=True)                 # (E,49,C)
             val = val.reshape(-1, dim, H, C // H) * alpha[:, None, :, None]
             msg = aggregate(val.reshape(-1, dim, C), g.receivers, emask, n,
-                            use_kernel=use_kernel)
+                            use_kernel=use_kernel, plan=plan)
 
             upd = []
             for l in range(cfg.l_max + 1):

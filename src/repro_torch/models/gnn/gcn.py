@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from repro_torch.engine.batch import resolve_device
+from repro_torch.kernels.segment_spmm.ops import segment_plan
 from repro_torch.models.gnn.common import (GraphBatch, aggregate, degrees,
                                            frozen, normal, to_tensor)
 
@@ -65,6 +66,7 @@ class GCN(nn.Module):
             coef = torch.rsqrt(deg_s[g.senders]) * torch.rsqrt(deg[g.receivers])
         else:
             coef = 1.0 / deg[g.receivers]
+        plan = segment_plan(g.receivers, g.edge_mask, n) if use_kernel else None
         x = g.node_feat
         last = len(self.weights) - 1
         for i, w in enumerate(self.weights):
@@ -74,7 +76,7 @@ class GCN(nn.Module):
             msg = x.index_select(0, g.senders)
             msg.mul_(coef[:, None].to(x.dtype))
             x = aggregate(msg, g.receivers, g.edge_mask, n,
-                          use_kernel=use_kernel)
+                          use_kernel=use_kernel, plan=plan)
             del msg
             if i < last:
                 x = torch.relu(x)

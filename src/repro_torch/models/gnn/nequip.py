@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.engine.batch import resolve_device
+from repro_torch.kernels.segment_spmm.ops import segment_plan
 from repro_torch.models.gnn.common import (MLP, GraphBatch, aggregate,
                                            frozen, graph_ids, mlp_apply,
                                            mlp_init, normal, segment_sum,
@@ -146,13 +147,15 @@ class NequIP(nn.Module):
         r = torch.sqrt(torch.sum(vec * vec, -1) + 1e-12)
         # zero-length edges have no direction: mask them out of message passing
         emask = g.edge_mask & (r > 1e-5)
+        plan = segment_plan(g.receivers, emask, n) if use_kernel else None
         Y = spherical_harmonics(vec, cfg.l_max).to(h.dtype)
         rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff).to(h.dtype)
 
         for layer in self.layers:
             w = mlp_apply(layer.radial, rbf).reshape(-1, n_paths, C)
             msg = _tensor_product(h[g.senders], Y, w, cfg)
-            agg = aggregate(msg, g.receivers, emask, n, use_kernel=use_kernel)
+            agg = aggregate(msg, g.receivers, emask, n, use_kernel=use_kernel,
+                            plan=plan)
 
             # per-l linear self + message mix
             new = []

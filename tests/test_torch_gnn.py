@@ -38,7 +38,10 @@ from repro_torch.configs import gcn_cora as gcn_cfg  # noqa: E402
 from repro_torch.configs import nequip as nequip_cfg  # noqa: E402
 from repro_torch.data import graphs  # noqa: E402
 from repro_torch.kernels.embedding_bag.ops import bag_sum  # noqa: E402
-from repro_torch.kernels.segment_spmm.ops import segment_spmm  # noqa: E402
+from repro_torch.kernels.segment_spmm import ops as seg_ops  # noqa: E402
+from repro_torch.kernels.segment_spmm.kernel import PIECE  # noqa: E402
+from repro_torch.kernels.segment_spmm.ops import (segment_plan,  # noqa: E402
+                                                  segment_spmm)
 from repro_torch.models.gnn import common, so3  # noqa: E402
 from repro_torch.models.gnn.egnn import EGNN  # noqa: E402
 from repro_torch.models.gnn.equiformer_v2 import EquiformerV2  # noqa: E402
@@ -68,6 +71,9 @@ MODELS = {
     "equiformer-v2": (EquiformerV2, j_eq, eq_cfg.smoke, j_eq_cfg.smoke,
                       "molecule"),
 }
+# segment sums per forward, per layer: GCN one per layer, EGNN two (the
+# coordinate mean and the message sum), NequIP and Equiformer-v2 one
+AGGREGATES_PER_LAYER = {"gcn": 1, "egnn": 2, "nequip": 1, "equiformer-v2": 1}
 
 
 def _share_close(out, ref, share=FWD_SHARE, what=""):
@@ -123,6 +129,126 @@ def test_segment_spmm_drops_receivers_out_of_range():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
 
 
+def _plan_case(case: str):
+    """(receivers, mask, n_nodes) for a segment plan case, from numpy."""
+    n = 40
+    if case == "no_edges":
+        return np.zeros(0, np.int32), np.zeros(0, bool), n
+    e = 600
+    recv = RNG.integers(0, n, e).astype(np.int32)
+    mask = RNG.uniform(size=e) < 0.9
+    if case == "all_masked":
+        mask[:] = False
+    elif case == "out_of_range":
+        recv = RNG.integers(-5, n + 5, e).astype(np.int32)
+        recv[:4] = [-1, n, np.iinfo(np.int32).min, np.iinfo(np.int32).max]
+    elif case == "hub":
+        # node 7 gets 3 PIECEs and a ragged tail of live edges
+        recv = np.concatenate([recv, np.full(3 * PIECE + 17, 7, np.int32)])
+        mask = np.concatenate([mask, np.ones(3 * PIECE + 17, bool)])
+    elif case in ("degree_piece", "degree_piece_plus_1"):
+        # node 5 gets exactly PIECE (or PIECE + 1) live edges, interleaved
+        # with the others and with masked edges to it
+        k = PIECE + (case == "degree_piece_plus_1")
+        recv = np.where(recv == 5, 6, recv)
+        recv = np.concatenate([recv, np.full(k + 9, 5, np.int32)])
+        mask = np.concatenate([mask, np.ones(k + 9, bool)])
+        mask[np.flatnonzero(recv == 5)[:9]] = False
+        perm = RNG.permutation(recv.shape[0])
+        recv, mask = recv[perm], mask[perm]
+    elif case == "sorted":
+        recv = np.sort(np.concatenate([recv, np.full(2 * PIECE, 3, np.int32)]))
+        mask = RNG.uniform(size=recv.shape[0]) < 0.9
+    return recv, mask, n
+
+
+def _assert_pieces(plan, offsets, piece):
+    """The plan's pieces cover every range longer than ``piece`` once, in
+    edge order, each of at most ``piece`` edges."""
+    split = np.flatnonzero(np.diff(offsets) > piece)
+    np.testing.assert_array_equal(plan.split_node.numpy(), split)
+    sp = plan.split_pieces.numpy()
+    assert sp[0] == 0 and sp[-1] == plan.n_pieces
+    starts, nodes = plan.piece_start.numpy(), plan.piece_node.numpy()
+    for s, v in enumerate(split):
+        at = offsets[v]
+        for p in range(sp[s], sp[s + 1]):
+            assert nodes[p] == v and starts[p] == at
+            end = min(at + piece, offsets[v + 1])
+            assert 0 < end - at <= piece
+            at = end
+        assert at == offsets[v + 1]
+
+
+PLAN_CASES = ["masked_10pct", "all_masked", "no_edges", "out_of_range", "hub",
+              "degree_piece", "degree_piece_plus_1", "sorted"]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_segment_plan_matches_numpy(case):
+    """The plan's order is numpy's stable argsort of the live receivers
+    (masked and out-of-range edges last), its offsets numpy's searchsorted
+    of the sorted live receivers, and its pieces cover every range longer
+    than PIECE once, in edge order, each of at most PIECE edges."""
+    recv, mask, n = _plan_case(case)
+    builds = segment_plan.builds
+    plan = segment_plan(torch.from_numpy(recv), torch.from_numpy(mask), n,
+                        assume_sorted=case == "sorted")
+    assert segment_plan.builds == builds + 1
+    assert (plan.n_edges, plan.n_nodes, plan.piece) == (recv.shape[0], n,
+                                                        PIECE)
+    live = mask & (recv >= 0) & (recv < n)
+    keys = np.where(live, recv, np.iinfo(np.int32).max)
+    order = np.argsort(keys, kind="stable")
+    assert plan.order.dtype == torch.int32
+    np.testing.assert_array_equal(plan.order.numpy(), order)
+    offsets = np.searchsorted(keys[order][:live.sum()], np.arange(n + 1))
+    assert plan.offsets.dtype == torch.int64
+    np.testing.assert_array_equal(plan.offsets.numpy(), offsets)
+    _assert_pieces(plan, offsets, PIECE)
+    deg = np.diff(offsets)
+    if case == "hub":
+        assert plan.n_split == 1 and plan.n_pieces == 4
+    if case.startswith("degree_piece"):
+        assert deg[5] == PIECE + (case == "degree_piece_plus_1")
+        assert plan.n_split == (case == "degree_piece_plus_1")
+
+
+@pytest.mark.parametrize("piece", [1, 5, 64])
+def test_piece_table_cuts_ranges_at_any_piece(piece):
+    """`piece_table` (which the plan cuts at PIECE, and which the tuning
+    sweep cuts at other sizes) covers each longer range once, in order."""
+    recv, mask, n = _plan_case("hub")
+    plan = segment_plan(torch.from_numpy(recv), torch.from_numpy(mask), n)
+    table = seg_ops.piece_table(plan.offsets, piece)
+    assert table["piece"] == piece
+    _assert_pieces(dataclasses.replace(plan, **table),
+                   plan.offsets.numpy(), piece)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_segment_spmm_with_plan_equals_pallas_op(case):
+    """`segment_spmm(..., plan=segment_plan(...))` on the CPU runs the
+    plain version that reads the plan as the kernel does: it equals the
+    Pallas op in interpret mode and `segment_spmm_reference` within 1e-4."""
+    recv, mask, n = _plan_case(case)
+    vals = RNG.normal(size=(recv.shape[0], 12)).astype(np.float32)
+    tr, tm = torch.from_numpy(recv), torch.from_numpy(mask)
+    plan = segment_plan(tr, tm, n, assume_sorted=case == "sorted")
+    out = segment_spmm(torch.from_numpy(vals), tr, tm, n, plan=plan)
+    assert out.dtype == torch.float32 and out.shape == (n, 12)
+    refs = [segment_spmm_reference(vals, recv, mask, n)]
+    if recv.shape[0]:      # the Pallas op's grid needs an edge block
+        refs.append(j_segment_spmm(vals, recv, mask, n,
+                                   assume_sorted=case == "sorted"))
+    else:
+        assert not out.any()
+    for ref in refs:
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                   atol=SPMM_TOL["float32"],
+                                   rtol=SPMM_TOL["float32"])
+
+
 @pytest.mark.parametrize("V,D,B,bag,weighted", [
     (500, 10, 16, 4, True), (200, 32, 8, 7, True), (300, 17, 5, 39, False)])
 def test_bag_sum_equals_pallas_op(V, D, B, bag, weighted):
@@ -158,6 +284,23 @@ def test_kernel_ops_raise_off_cpu_instead_of_falling_back():
     mask = torch.ones((8,), dtype=torch.bool, device=meta)
     with pytest.raises(ValueError, match="CUDA tensor"):
         segment_spmm(vals, recv, mask, 3)
+    # a plan is taken only for its E and N, with the very receivers and
+    # mask it was built from, on any device
+    r = torch.zeros((8,), dtype=torch.int32)
+    m = torch.ones((8,), dtype=torch.bool)
+    plan = segment_plan(r, m, 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        segment_spmm(vals, r, m, 3, plan=plan)
+    for e, n in ((9, 3), (8, 4)):
+        for device in (meta, torch.device("cpu")):
+            with pytest.raises(ValueError, match="segment plan built for"):
+                segment_spmm(torch.zeros((e, 4), device=device), r, m, n,
+                             plan=plan)
+    for other in ((r, m.clone()), (r.clone(), m), (r, m & (r > 0))):
+        for device in (meta, torch.device("cpu")):
+            with pytest.raises(ValueError, match="built from other"):
+                segment_spmm(torch.zeros((8, 4), device=device), *other, 3,
+                             plan=plan)
     ids = torch.zeros((2, 3), dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="CUDA tensor"):
         bag_sum(vals, ids)
@@ -323,7 +466,9 @@ def test_forward_matches_reference(case):
     model = cls.from_jax(cfg, params, device="cpu")
     # jit: the reference's eager op-by-op dispatch takes 10 s here
     ref = jax.jit(jmod.forward, static_argnums=1)(params, jcfg, jg)
+    builds = segment_plan.builds
     outs = [model(g), model(g, use_kernel=False)]
+    assert segment_plan.builds == builds + 1, name   # one per forward
     for out in outs:
         if name == "egnn":
             _share_close(out[0].numpy(), ref[0], what=f"{name} energy")
@@ -336,6 +481,26 @@ def test_forward_matches_reference(case):
         assert outs[0][0].shape == (g.n_graphs,)
     else:
         assert outs[0].shape == (g.n_graphs,)
+
+
+def test_forward_builds_one_plan_for_its_segment_sums(case, monkeypatch):
+    """With the kernel, a forward builds one segment plan and hands it to
+    every `aggregate` call (each sums through the plain version that reads
+    the plan); the plain path builds none."""
+    name, cls, _, cfg, _, g, _, params = case
+    model = cls.from_jax(cfg, params, device="cpu")
+    calls = []
+    plain = seg_ops.segment_spmm_plan_ref
+    monkeypatch.setattr(seg_ops, "segment_spmm_plan_ref",
+                        lambda *a: calls.append(1) or plain(*a))
+    expected = AGGREGATES_PER_LAYER[
+        "gcn" if name.startswith("gcn") else name] * cfg.n_layers
+    builds = segment_plan.builds
+    model(g)
+    assert segment_plan.builds == builds + 1, name
+    assert len(calls) == expected, name
+    model(g, use_kernel=False)
+    assert segment_plan.builds == builds + 1 and len(calls) == expected
 
 
 def test_random_init_follows_the_reference_shapes(case):

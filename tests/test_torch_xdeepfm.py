@@ -101,16 +101,25 @@ def test_random_init_follows_the_reference_shapes():
 
 
 @pytest.mark.parametrize("V,D,N", [(500, 10, 64), (128, 128, 16),
-                                   (1000, 17, 200)])
+                                   (1000, 17, 200), (300, 1, 70),
+                                   (300, 3, 70), (300, 16, 70),
+                                   (300, 33, 70)])
 def test_gather_rows_equals_pallas_kernel(V, D, N):
+    """Random ids in [0, V) and, after them, negative and out-of-range ids:
+    the in-range rows equal the Pallas kernel's, and every row equals the
+    reference's `jnp.take` (a negative id counts from the end, an id
+    outside [-V, V) gives a row of NaN)."""
     table = RNG.normal(size=(V, D)).astype(np.float32)
-    ids = RNG.integers(0, V, N).astype(np.int32)
+    wild = np.array([-1, -V, V, -V - 1, 2 * V + 3, RNG.integers(-V, 0)])
+    ids = np.concatenate([RNG.integers(0, V, N), wild]).astype(np.int32)
     out = gather_rows(torch.from_numpy(table), torch.from_numpy(ids))
-    np.testing.assert_array_equal(out.numpy(),
-                                  np.asarray(j_gather_rows(table, ids)))
+    assert out.shape == (N + wild.shape[0], D)
+    np.testing.assert_array_equal(out.numpy()[:N],
+                                  np.asarray(j_gather_rows(table, ids[:N])))
     np.testing.assert_array_equal(out.numpy(),
                                   np.asarray(gather_rows_reference(table,
                                                                    ids)))
+    assert np.isnan(out.numpy()[N + 2:N + 5]).all()
 
 
 def test_gather_rows_out_of_range_ids_follow_jnp_take():
