@@ -11,8 +11,18 @@ order; any failure exits non-zero:
    its path's shapes, with its median CUDA-event time (L2 flushed before
    each run), its bound, the plain version's time and, where one exists, a
    PyTorch library call's. The query kernels and Jaccard (at a production
-   workload of 16,380 LUBM query instances) are bit-identical, gather_rows
-   is exact, the CIN layer is within atol=5e-4, rtol=1e-4; flash_attention
+   workload of 16,380 LUBM query instances: 8,256 tiles of the triangle,
+   4,864 packed columns; and on a ragged sweep of Q 1, 127, 129, 257 x F 1,
+   15, 17, 4,859 with empty and duplicated rows) are bit-identical and
+   Jaccard exactly symmetric, gather_rows is exact, the CIN layer is within
+   atol=5e-4, rtol=1e-4 of the plain layer (and on its ragged sweep of the
+   plain version of its split bf16 arithmetic too), timed over the xDeepFM
+   forward's three layers at serve_p99 and at serve_bulk (each a record,
+   its plan asserted: blocks of 128 rows by 72 columns at serve_p99, by
+   200 at serve_bulk), with the bf16 and int8 wgmma instructions of the
+   cin and jaccard libraries counted (cuobjdump), and join_ranges timed
+   against two
+   torch.searchsorted calls in alternation over 5 rounds; flash_attention
    is within atol=2e-5 in float32 and atol=1e-4 + 2**-7 |plain| (one
    bfloat16 step) in bfloat16, on a ragged sweep (G 1, 4, 48; causal or
    not; q_start 0, T - S and mid-tile; strided cache views), on each route
@@ -120,8 +130,10 @@ from repro_torch.data.graphs import make_graph_batch  # noqa: E402
 from repro_torch.data.recsys import click_batches  # noqa: E402
 from repro_torch.data.tokens import token_batches  # noqa: E402
 from repro_torch.engine.oracle import evaluate_bgp  # noqa: E402
+from repro_torch.kernels.cin import kernel as cin_kernel  # noqa: E402
 from repro_torch.kernels.cin import ops as cin_ops  # noqa: E402
-from repro_torch.kernels.cin.ref import cin_layer_ref  # noqa: E402
+from repro_torch.kernels.cin.ref import (cin_layer_ref,  # noqa: E402
+                                         cin_layer_split_ref)
 from repro_torch.kernels.embedding_bag import ops as emb_ops  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import (bag_sum_ref,  # noqa: E402
                                                   gather_rows_ref)
@@ -130,6 +142,7 @@ from repro_torch.kernels.flash_attention import \
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref, attention_split_ref)
+from repro_torch.kernels.jaccard import kernel as jac_kernel  # noqa: E402
 from repro_torch.kernels.jaccard import ops as jac_ops  # noqa: E402
 from repro_torch.kernels.jaccard.ref import jaccard_distance_ref  # noqa: E402
 from repro_torch.kernels.kg_join import ops as join_ops  # noqa: E402
@@ -172,6 +185,10 @@ CIN_TOL = dict(atol=5e-4, rtol=1e-4)       # tests/test_kernels.py's
 LOGIT_TOL = dict(atol=1e-3, rtol=1e-4)     # tests/test_models_recsys.py's
 XDEEPFM_REPS = {"serve_p99": 20, "serve_bulk": 3}
 PLAIN_CHUNK = 8192           # plain forward's batch chunk at serve_bulk
+# cin_layer's plan (rows, columns per block) at the forward's layers:
+# serve_p99 splits K = 200 into three column tiles of 72 (43 row tiles of
+# 12 examples: 129 blocks for 132 SMs), serve_bulk keeps one of 200
+CIN_PLANS = {"serve_p99": (128, 72), "serve_bulk": (128, 200)}
 # flash_attention against attention_ref: float32 at tests/test_kernels.py's
 # 2e-5; bfloat16 at one bfloat16 step of the plain output (2**-7 of |out|),
 # since both round float32 results that differ only in summation order,
@@ -401,6 +418,8 @@ def jaccard_case(m_np: np.ndarray):
     out = jac_ops.jaccard_distance(m)
     torch.cuda.synchronize()
     err = float_err(out, jaccard_distance_ref(m), exact=True)
+    if not torch.equal(out, out.T):
+        raise AssertionError("jaccard_distance is not exactly symmetric")
     q, f = m.shape
     # Q x F read, Q x Q written; the product of 0/1 operands is exact on
     # int8 tensor cores and its output symmetric: Q (Q + 1) / 2 dot
@@ -420,15 +439,93 @@ def gather_case(table: torch.Tensor, ids_np: np.ndarray):
     return ids, err, bound(4 * n + 4 * rows * d + 4 * n * d, 0)
 
 
-def cin_case(b: int, h: int, f: int, d: int, k: int):
-    xk = dev(RNG.normal(size=(b, h, d)).astype(np.float32))
-    x0 = dev(RNG.normal(size=(b, f, d)).astype(np.float32))
-    w = dev((RNG.normal(size=(k, h, f)) / np.sqrt(h * f)).astype(np.float32))
+def cin_plain(xk, x0, w, layer=cin_layer_ref) -> torch.Tensor:
+    """A plain CIN layer over batch chunks of PLAIN_CHUNK, as plain_forward
+    runs it: the plain version materializes (chunk, H, F, D)."""
+    return torch.cat([layer(xk[i:i + PLAIN_CHUNK], x0[i:i + PLAIN_CHUNK], w)
+                      for i in range(0, xk.shape[0], PLAIN_CHUNK)])
+
+
+def cin_inputs(b: int, h: int, f: int, d: int, k: int):
+    """xk (b, h, d), x0 (b, f, d) normal, w (k, h, f) normal / sqrt(h f):
+    from the numpy RNG, or made on the card (seed 3) past 10^7 values."""
+    if b * h * d <= 10**7:
+        return (dev(RNG.normal(size=(b, h, d)).astype(np.float32)),
+                dev(RNG.normal(size=(b, f, d)).astype(np.float32)),
+                dev((RNG.normal(size=(k, h, f))
+                     / np.sqrt(h * f)).astype(np.float32)))
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    return (torch.randn((b, h, d), generator=gen, device=DEV),
+            torch.randn((b, f, d), generator=gen, device=DEV),
+            torch.randn((k, h, f), generator=gen, device=DEV)
+            / math.sqrt(h * f))
+
+
+def cin_case(b: int, h: int, f: int, d: int, k: int, split: bool = False):
+    """One CIN layer on random inputs against its plain version (chunked)
+    at CIN_TOL, and with ``split`` also against the plain version of the
+    kernel's split arithmetic. The bound: three bf16 products of
+    2 B K D H F operations each at the bf16 tensor-core rate (the least
+    float32-accurate work at this tolerance), or the bytes."""
+    xk, x0, w = cin_inputs(b, h, f, d, k)
     out = cin_ops.cin_layer(xk, x0, w)
     torch.cuda.synchronize()
-    err = float_err(out, cin_layer_ref(xk, x0, w), **CIN_TOL)
+    err = float_err(out, cin_plain(xk, x0, w), **CIN_TOL)
+    if split:
+        float_err(out, cin_layer_split_ref(xk, x0, w), **CIN_TOL)
     n_bytes = 4 * (b * h * d + b * f * d + k * h * f + b * k * d)
-    return (xk, x0, w), err, bound(n_bytes, 2 * b * k * d * h * f)
+    return (xk, x0, w), err, bound(n_bytes, 3 * 2 * b * k * d * h * f,
+                                   BF16_TC_OPS_PER_S)
+
+
+def cin_record(shape: str) -> dict:
+    """cin_layer at the xDeepFM forward's three layers at one served batch:
+    each checked (cin_case), its plan asserted (CIN_PLANS), and timed
+    against the plain layer and one einsum, both over PLAIN_CHUNK-row
+    chunks; returns the three layers summed."""
+    cfg = xdeepfm_configs.full()
+    b, d = xdeepfm_configs.SERVE_BATCH[shape], cfg.embed_dim
+    reps, plain_reps = (REPS, REPS) if shape == "serve_p99" else (5, 3)
+
+    def einsum(xk, x0, w):
+        return torch.einsum("bhd,khf,bfd->bkd", xk, w, x0)
+
+    layers, h_prev = [], cfg.n_sparse
+    for k in cfg.cin_layers:
+        f = cfg.n_sparse
+        p = cin_kernel.plan(b, h_prev, f, d, k)
+        if (p.rows, p.cols) != CIN_PLANS[shape]:
+            raise AssertionError(f"cin at {shape} layer {len(layers) + 1} "
+                                 f"took {p}, not {CIN_PLANS[shape]}")
+        (xk, x0, w), err, (b_ms, b_by) = cin_case(b, h_prev, f, d, k)
+        layer = dict(
+            err=err, ms=time_ms(lambda: cin_ops.cin_layer(xk, x0, w), reps),
+            plain_ms=time_ms(lambda: cin_plain(xk, x0, w), plain_reps),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: cin_plain(xk, x0, w, einsum),
+                               plain_reps),
+            float32_bound_ms=2 * b * k * d * h_prev * f / OPS_PER_S * 1e3)
+        log(f"  cin.cin_layer {shape} layer {len(layers) + 1} (B {b:,}, H "
+            f"{h_prev}, F {f}, D {d}, K {k}; rows {p.rows}, cols {p.cols}, "
+            f"{p.blocks:,} blocks, {p.stages} stages): {layer}")
+        layers.append(layer)
+        h_prev = k
+        del xk, x0, w
+    by = {la["bound_by"] for la in layers}
+    rec = dict(
+        name=f"cin.cin_layer[{shape}]", route="cuda",
+        source="src/repro_torch/csrc/cin.cu",
+        replaces="src/repro/kernels/cin/kernel.py:42",
+        max_abs_err=max(la["err"] for la in layers),
+        **{key: sum(la[key] for la in layers)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                       "float32_bound_ms")},
+        bound_by=by.pop() if len(by) == 1 else "operations")
+    log(f"  cin.cin_layer, {shape}'s three layers summed (bound: three bf16 "
+        f"products at 989 TFLOP/s; float32_bound_ms: one product at the "
+        f"float32 CUDA-core rate): {rec}")
+    torch.cuda.empty_cache()
+    return rec
 
 
 def flash_bound(q, k, q_start: int, causal: bool = True):
@@ -561,23 +658,45 @@ def flash_route_cases() -> None:
         f"within FLASH_TOL")
 
 
-def flash_sass() -> str:
-    """Tensor-core instructions in the flash library's SASS (cuobjdump,
-    where the toolkit has it): HMMA is mma.sync, HGMMA wgmma."""
+def sass_counts(source: str) -> dict | None:
+    """Tensor-core instructions in one library's SASS (cuobjdump, where the
+    toolkit has it): HMMA is bf16 mma.sync, HGMMA bf16 wgmma, IGMMA int8
+    wgmma. None without cuobjdump."""
     tool = Path(kernels._nvcc()).parent / "cuobjdump"
     if not tool.exists():
-        return "cuobjdump not found: tensor-core instructions not counted"
+        return None
     sass = subprocess.run(
-        [str(tool), "-sass", str(kernels._lib_path("flash_attention.cu"))],
+        [str(tool), "-sass", str(kernels._lib_path(source))],
         capture_output=True, text=True, check=True, timeout=300).stdout
-    hmma = sum("HMMA" in line and "HGMMA" not in line
-               for line in sass.splitlines())
-    hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    if hmma + hgmma == 0:
+    lines = sass.splitlines()
+    return {"HMMA": sum("HMMA" in ln and "HGMMA" not in ln for ln in lines),
+            "HGMMA": sum("HGMMA" in ln for ln in lines),
+            "IGMMA": sum("IGMMA" in ln for ln in lines)}
+
+
+def flash_sass() -> str:
+    c = sass_counts("flash_attention.cu")
+    if c is None:
+        return "cuobjdump not found: tensor-core instructions not counted"
+    if c["HMMA"] + c["HGMMA"] == 0:
         raise AssertionError("the flash library has no tensor-core "
                              "instruction")
-    return (f"flash library SASS: {hmma} HMMA (mma.sync) and {hgmma} HGMMA "
-            f"(wgmma) instructions")
+    return (f"flash library SASS: {c['HMMA']} HMMA (mma.sync) and "
+            f"{c['HGMMA']} HGMMA (wgmma) instructions")
+
+
+def wgmma_sass() -> str:
+    """The cin library's bf16 wgmma (HGMMA) and the jaccard library's int8
+    wgmma (IGMMA) instructions; fails if either has none."""
+    out = []
+    for source, kind in (("cin.cu", "HGMMA"), ("jaccard.cu", "IGMMA")):
+        c = sass_counts(source)
+        if c is None:
+            return "cuobjdump not found: tensor-core instructions not counted"
+        if c[kind] == 0:
+            raise AssertionError(f"the {source} library has no {kind}")
+        out.append(f"{source} {c[kind]} {kind} ({c})")
+    return "wgmma SASS: " + "; ".join(out)
 
 
 def flash_record() -> dict:
@@ -920,6 +1039,19 @@ def phase_kernels() -> dict:
         compat_case(3, r, v, c)
     for q, f in ((3, 5), (14, 23), (130, 257), (1000, 77)):
         jaccard_case((RNG.uniform(size=(q, f)) < 0.3).astype(np.float32))
+    # ragged sweep of the triangle's tiles and the packed width: Q off the
+    # 128-row tiles, F off the 16-byte rows and the 128-feature stages,
+    # empty rows (distance 0 to each other) and duplicated rows
+    n_jac = 0
+    for q in (1, 127, 129, 257):
+        for f in (1, 15, 17, 4859):
+            m_np = (RNG.uniform(size=(q, f)) < 0.3).astype(np.float32)
+            m_np[::5] = 0.0
+            if q > 2:
+                m_np[1::7] = m_np[2]
+                m_np[-1] = m_np[0]
+            jaccard_case(m_np)
+            n_jac += 1
     small = dev(RNG.normal(size=(1000, 17)).astype(np.float32))
     for v, d, n in ((500, 10, 64), (128, 128, 16), (1000, 17, 200)):
         gather_case(dev(RNG.normal(size=(v, d)).astype(np.float32)),
@@ -941,13 +1073,26 @@ def phase_kernels() -> dict:
                                   RNG.integers(v, 2 * v, 20)])
             gather_case(table, RNG.permutation(ids))
             n_gather += 1
-    for shape in ((12, 20, 39, 10, 50), (8, 39, 39, 10, 200),
-                  (16, 7, 13, 8, 20), (3, 1, 1, 1, 1), (33, 200, 39, 10, 200)):
-        cin_case(*shape)
+    # cin: ragged B, H, F, D, K (H odd, F off 8, D past a row tile, K past
+    # a column tile, H + F too large for a 128-row tile), against the plain
+    # layer and the split arithmetic's plain version
+    cin_shapes = ((12, 20, 39, 10, 50), (8, 39, 39, 10, 200),
+                  (16, 7, 13, 8, 20), (3, 1, 1, 1, 1), (33, 200, 39, 10, 200),
+                  (9, 13, 1, 3, 7), (2, 1, 7, 5, 3), (7, 5, 17, 3, 260),
+                  (5, 3, 4, 300, 9), (1, 39, 39, 10, 200),
+                  (6, 300, 120, 10, 210))
+    if {cin_kernel.plan(*shape).rows for shape in cin_shapes} != {64, 128}:
+        raise AssertionError("the cin sweep misses a row tile")
+    for shape in cin_shapes:
+        cin_case(*shape, split=True)
     log(f"  ragged sweep shapes: the query kernels and jaccard "
-        f"bit-identical, gather_rows exact (NaN where jnp.take fills; "
+        f"bit-identical (jaccard also at Q 1, 127, 129, 257 x F 1, 15, 17, "
+        f"4,859 with empty and duplicated rows, {n_jac} cases, each exactly "
+        f"symmetric), gather_rows exact (NaN where jnp.take fills; "
         f"{n_gather} cases of D 1, 3, 10, 16, 33 with negative and "
-        f"out-of-range ids), cin within tolerance")
+        f"out-of-range ids), cin within {CIN_TOL} of the plain layer and of "
+        f"the split arithmetic's plain version ({len(cin_shapes)} shapes)")
+    log("  " + wgmma_sass())
 
     rec = {}
     # kg_scan at the merge-path scan of bucket 4: 8 padded requests x 3
@@ -990,6 +1135,21 @@ def phase_kernels() -> dict:
             torch.searchsorted(keys, rk, side="right", out_int32=True))))
     log(f"  kg_join.join_ranges (24 x 3 x 16384 keys, 32768 rows): "
         f"{rec['join_ranges']}")
+    # spread: the kernel and the two searchsorted calls in alternation,
+    # 5 rounds of 25 calls each
+    spread = {"join_ranges": [], "searchsorted x2": []}
+    for _ in range(5):
+        spread["join_ranges"].append(
+            time_ms(lambda: join_ops.join_ranges(keys, rkey)))
+        spread["searchsorted x2"].append(time_ms(lambda: (
+            torch.searchsorted(keys, rk, side="left", out_int32=True),
+            torch.searchsorted(keys, rk, side="right", out_int32=True))))
+    log("  join_ranges spread over 5 rounds of 25 calls, in alternation: "
+        + "; ".join(f"{name} median {np.median(v):.4f} ms, rounds "
+                    f"{[round(x, 4) for x in v]}, spread (max - min) / median "
+                    f"{(max(v) - min(v)) / np.median(v):.1%}"
+                    for name, v in spread.items())
+        + f"; kernel / library {np.median(spread['join_ranges']) / np.median(spread['searchsorted x2']):.3f}")
     # the PPN-local merge steps: one key block
     (k1, r1), err, (b1, _) = ranges_case(24, 1, 16384, 32768)
     log(f"  kg_join.join_ranges S_b=1: err={err} "
@@ -1019,6 +1179,13 @@ def phase_kernels() -> dict:
     m_np, _ = feature_matrix(production_queries())
     m, err, (b_ms, b_by) = jaccard_case(m_np)
     q, f = m.shape
+    tiles = jac_kernel.n_tiles(q)
+    if tiles != 128 * 129 // 2 or jac_kernel.packed_width(f) != 4864:
+        raise AssertionError(f"jaccard at {q} x {f}: {tiles} tiles, packed "
+                             f"width {jac_kernel.packed_width(f)}")
+    log(f"  jaccard at {q} x {f}: {tiles} tiles of 128 x 128 (the upper "
+        f"triangle of 128 x 128), packed to {jac_kernel.packed_width(f)} "
+        f"int8 columns")
     rec["jaccard_distance"] = dict(
         name="jaccard.jaccard_distance", route="cuda",
         source="src/repro_torch/csrc/jaccard.cu",
@@ -1030,7 +1197,7 @@ def phase_kernels() -> dict:
         f"bit-identical): {rec['jaccard_distance']}; byte bound "
         f"{(4 * q * f + 4 * q * q) / HBM_BYTES_PER_S * 1e3:.4f} ms, the "
         f"symmetric product on int8 tensor cores "
-        f"{q * (q + 1) * f / INT8_TC_OPS_PER_S * 1e3:.4f} ms, the kernel's "
+        f"{q * (q + 1) * f / INT8_TC_OPS_PER_S * 1e3:.4f} ms, the full "
         f"dense product at the float32 rate "
         f"{2 * q * q * f / OPS_PER_S * 1e3:.4f} ms")
     del m
@@ -1058,33 +1225,8 @@ def phase_kernels() -> dict:
         f"{rec['gather_rows']}")
     del table, ids
 
-    layers = []
-    h_prev = cfg.n_sparse
-    b = xdeepfm_configs.SERVE_BATCH["serve_p99"]
-    for k in cfg.cin_layers:
-        (xk, x0, w), err, (b_ms, b_by) = cin_case(b, h_prev, cfg.n_sparse,
-                                                  cfg.embed_dim, k)
-        layer = dict(
-            err=err, ms=time_ms(lambda: cin_ops.cin_layer(xk, x0, w)),
-            plain_ms=time_ms(lambda: cin_layer_ref(xk, x0, w)),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(lambda: torch.einsum("bhd,khf,bfd->bkd",
-                                                    xk, w, x0)))
-        log(f"  cin.cin_layer layer {len(layers) + 1} (B {b}, H {h_prev}, "
-            f"F {cfg.n_sparse}, D {cfg.embed_dim}, K {k}): {layer}")
-        layers.append(layer)
-        h_prev = k
-    by = {la["bound_by"] for la in layers}
-    rec["cin_layer"] = dict(
-        name="cin.cin_layer", route="cuda", source="src/repro_torch/csrc/cin.cu",
-        replaces="src/repro/kernels/cin/kernel.py:42",
-        max_abs_err=max(la["err"] for la in layers),
-        **{key: sum(la[key] for la in layers)
-           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
-        bound_by=by.pop() if len(by) == 1 else "operations")
-    log(f"  cin.cin_layer, serve_p99's three layers summed: "
-        f"{rec['cin_layer']}")
-    del xk, x0, w
+    rec["cin_layer"] = cin_record("serve_p99")
+    rec["cin_layer[serve_bulk]"] = cin_record("serve_bulk")
 
     fa_ops.flash_attention.routes.clear()
     flash_sweep()
@@ -1314,10 +1456,7 @@ def check_cin_layers(model: XDeepFM, sparse) -> list[float]:
     xk, errs = x0, []
     for w in model.cin:
         out = cin_ops.cin_layer(xk, x0, w)
-        ref = torch.cat([cin_layer_ref(xk[i:i + PLAIN_CHUNK],
-                                       x0[i:i + PLAIN_CHUNK], w)
-                         for i in range(0, x0.shape[0], PLAIN_CHUNK)])
-        errs.append(float_err(out, ref, **CIN_TOL))
+        errs.append(float_err(out, cin_plain(xk, x0, w), **CIN_TOL))
         xk = out
     return errs
 
@@ -1325,7 +1464,7 @@ def check_cin_layers(model: XDeepFM, sparse) -> list[float]:
 def phase_xdeepfm() -> dict:
     """The full config served at serve_p99 and serve_bulk through the
     kernels; logits against the plain forward. Returns the launch counts
-    of the two checked forwards."""
+    of each checked forward, by shape."""
     cfg = xdeepfm_configs.full()
     t0 = time.perf_counter()
     model = XDeepFM.random(cfg, torch.Generator(device=DEV).manual_seed(0))
@@ -1335,7 +1474,7 @@ def phase_xdeepfm() -> dict:
         f"D {cfg.embed_dim}, CIN {cfg.cin_layers}, MLP {cfg.mlp_layers}, "
         f"{cfg.total_vocab:,} embedding rows, {n_params:,} parameters "
         f"({time.perf_counter() - t0:.2f} s to init on the card)")
-    launched = {"gather_rows": 0, "cin_layer": 0}
+    launched = {}
     for shape, bsz in xdeepfm_configs.SERVE_BATCH.items():
         batch = next(click_batches(cfg.vocab_sizes, cfg.n_dense, bsz, seed=0))
         sparse, dense = dev(batch["sparse"]), dev(batch["dense"])
@@ -1347,8 +1486,7 @@ def phase_xdeepfm() -> dict:
             c = counts()
             if c["gather_rows"] != 1 or c["cin_layer"] != len(cfg.cin_layers):
                 raise AssertionError(f"{shape}: forward launched {c}")
-            for k in launched:
-                launched[k] += c[k]
+            launched[shape] = {k: c[k] for k in ("gather_rows", "cin_layer")}
             peak = torch.cuda.max_memory_allocated(DEV)
             if logits.shape != (bsz,) or not bool(torch.isfinite(logits).all()):
                 raise AssertionError(f"{shape}: logits malformed")
@@ -1365,8 +1503,7 @@ def phase_xdeepfm() -> dict:
             f"mean logit {logits.mean().item():.4f}); each CIN layer on "
             f"unit-variance embeddings within {CIN_TOL} of the plain layer "
             f"(max |diff| {[f'{e:.3g}' for e in cin_errs]}); launches "
-            f"{ {k: c[k] for k in launched} }; "
-            f"max_memory_allocated {peak:,} bytes")
+            f"{launched[shape]}; max_memory_allocated {peak:,} bytes")
         with torch.inference_mode():
             log(f"  {shape} forward with the kernels, profiled: "
                 + device_breakdown(lambda: model(sparse, dense,
@@ -1660,8 +1797,11 @@ def main() -> None:
     rec["join_ranges"]["launches"] = main_counts["join_ranges"]
     rec["compat_matrix"]["launches"] = expand_counts["compat_matrix"]
     rec["jaccard_distance"]["launches"] = main_counts["jaccard_distance"]
-    rec["gather_rows"]["launches"] = xdeepfm_counts["gather_rows"]
-    rec["cin_layer"]["launches"] = xdeepfm_counts["cin_layer"]
+    rec["gather_rows"]["launches"] = sum(
+        c["gather_rows"] for c in xdeepfm_counts.values())
+    rec["cin_layer"]["launches"] = xdeepfm_counts["serve_p99"]["cin_layer"]
+    rec["cin_layer[serve_bulk]"]["launches"] = \
+        xdeepfm_counts["serve_bulk"]["cin_layer"]
     for name, c in lm_counts.items():
         rec[f"flash_attention[{name}]"]["launches"] = c["flash_attention"]
     rec["segment_spmm[ogb_products]"]["launches"] = gnn_counts["gcn"]
@@ -1672,7 +1812,8 @@ def main() -> None:
              "compat_matrix": "LUBM expand path (phase 5)",
              "jaccard_distance": "WawPart partition (phase 4)",
              "gather_rows": "xDeepFM forward (phase 7)",
-             "cin_layer": "xDeepFM forward (phase 7)",
+             "cin_layer": "xDeepFM forward at serve_p99 (phase 7)",
+             "cin_layer[serve_bulk]": "xDeepFM forward at serve_bulk (phase 7)",
              "flash_attention[prefill]": "granite-3-8b prefill (phase 8)",
              "flash_attention[decode]": "granite-3-8b decode (phase 8)",
              "segment_spmm[ogb_products]": "GCN forward (phase 9)",

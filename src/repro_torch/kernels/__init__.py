@@ -21,8 +21,10 @@ receiver nodes). Their sources live in
 The sources are compiled at first CUDA use by ``nvcc`` into shared
 libraries with a plain C interface under ``build/repro_torch/`` at the
 repository root, one library per source, all sources compiled in
-parallel. Nothing here is imported or compiled when the package is
-imported, so the CPU-only test suite never needs a CUDA toolchain.
+parallel; ``csrc/wgmma.cuh`` holds the Hopper helpers (wgmma, mbarriers,
+bulk and tensor copies) that cin and jaccard include. Nothing here is
+imported or compiled when the package is imported, so the CPU-only test
+suite never needs a CUDA toolchain.
 """
 from __future__ import annotations
 
@@ -60,7 +62,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    digest = hashlib.sha1((CSRC / source).read_bytes()
+    """The library's path, named by a hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1((CSRC / source).read_bytes() + headers
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
 

@@ -1,8 +1,10 @@
 """Public Jaccard-distance op: dispatch on the tensor's device.
 
 A CPU tensor runs the plain version (`ref.jaccard_distance_ref`); a CUDA
-tensor launches the jaccard kernel, and anything the kernel does not take
-raises. There is no fallback from the card to the plain version.
+tensor launches the jaccard kernels (int8 pack, then the product over one
+triangle of tiles), and anything they do not take raises, such as a value
+other than 0 or 1. There is no fallback from the card to the plain
+version.
 """
 from __future__ import annotations
 

@@ -24,7 +24,9 @@ from repro_torch.core.distance import (feature_matrix,  # noqa: E402
                                        jaccard_distance_matrix)
 from repro_torch.core.hac import LINKAGES, linkage_torch  # noqa: E402
 from repro_torch.core.partitioner import wawpart_partition  # noqa: E402
+from repro_torch.kernels.jaccard import kernel as jaccard_kernel  # noqa: E402
 from repro_torch.kernels.jaccard.ops import jaccard_distance  # noqa: E402
+from repro_torch.kernels.jaccard.ref import jaccard_pack_ref  # noqa: E402
 from repro_torch.kg import generator, workloads  # noqa: E402
 
 RNG = np.random.default_rng(7)
@@ -50,6 +52,59 @@ def test_jaccard_op_equals_pallas_kernel_and_reference(q, f):
     np.testing.assert_array_equal(out.numpy(), np.asarray(j_jaccard(m)))
     np.testing.assert_array_equal(out.numpy(),
                                   np.asarray(jaccard_distance_reference(m)))
+
+
+def _rows_with_ties(q: int, f: int, seed: int) -> np.ndarray:
+    """A 0/1 matrix with empty rows and duplicated rows."""
+    m = (np.random.default_rng(seed).uniform(size=(q, f)) < 0.3)
+    m = m.astype(np.float32)
+    m[::5] = 0.0
+    if q > 2:
+        m[1::7] = m[2]
+        m[-1] = m[0]
+    return m
+
+
+@pytest.mark.parametrize("q,f", [(1, 1), (9, 15), (40, 17), (130, 33)])
+def test_jaccard_op_with_empty_and_duplicate_rows_equals_pallas(q, f):
+    """Empty feature sets (distance 0 to each other, 1 to any other set)
+    and identical rows (distance 0): bit-equal to the Pallas kernel in
+    interpret mode, and symmetric."""
+    m = _rows_with_ties(q, f, seed=q)
+    out = jaccard_distance(torch.from_numpy(m)).numpy()
+    np.testing.assert_array_equal(out, np.asarray(j_jaccard(m)))
+    np.testing.assert_array_equal(out, out.T)
+    if q >= 9:
+        assert out[0, 5] == 0.0 and out[2, 1] == 0.0 and out[0, -1] == 0.0
+
+
+@pytest.mark.parametrize("f", [1, 15, 17, 4859])
+def test_jaccard_pack_ref_matches_numpy(f):
+    """The pack pass: an int8 copy zero-padded to 16-byte rows (4,864
+    columns at F = 4,859) and the int32 row counts."""
+    m = _rows_with_ties(23, f, seed=f)
+    packed, counts = jaccard_pack_ref(torch.from_numpy(m))
+    fp = -(-f // 16) * 16
+    assert jaccard_kernel.packed_width(f) == fp
+    assert packed.dtype == torch.int8 and packed.shape == (23, fp)
+    want = np.zeros((23, fp), np.int8)
+    want[:, :f] = m
+    np.testing.assert_array_equal(packed.numpy(), want)
+    assert counts.dtype == torch.int32
+    np.testing.assert_array_equal(counts.numpy(), m.sum(axis=1))
+    assert jaccard_kernel.packed_width(4859) == 4864
+
+
+@pytest.mark.parametrize("q", [1, 127, 128, 129, 16380])
+def test_jaccard_triangle_covers_each_upper_tile_once(q):
+    """The product's blocks map to the tiles (i, j), i <= j, of the
+    (Q / 128)^2 grid, each once, consecutive blocks sharing tile j."""
+    t = -(-q // jaccard_kernel.TILE)
+    n = jaccard_kernel.n_tiles(q)
+    assert n == t * (t + 1) // 2
+    tiles = [jaccard_kernel.triangle_tile(b) for b in range(n)]
+    assert sorted(tiles) == [(i, j) for i in range(t) for j in range(i, t)]
+    assert all(a[1] <= b[1] for a, b in zip(tiles, tiles[1:]))
 
 
 @pytest.mark.parametrize("name", sorted(WORKLOADS))

@@ -24,7 +24,9 @@ from repro.models.recsys import xdeepfm as jxd  # noqa: E402
 
 from repro_torch.configs import xdeepfm as configs  # noqa: E402
 from repro_torch.data.recsys import click_batches  # noqa: E402
+from repro_torch.kernels.cin import kernel as cin_kernel  # noqa: E402
 from repro_torch.kernels.cin.ops import cin_layer  # noqa: E402
+from repro_torch.kernels.cin.ref import cin_layer_split_ref  # noqa: E402
 from repro_torch.kernels.embedding_bag.ops import gather_rows  # noqa: E402
 from repro_torch.models.recsys import xdeepfm as xd  # noqa: E402
 
@@ -146,6 +148,71 @@ def test_cin_layer_matches_pallas_kernel(B, H, F, D, K):
     np.testing.assert_allclose(out, np.asarray(cin_layer_reference(xk, x0,
                                                                    w)),
                                **CIN_TOL)
+
+
+@pytest.mark.parametrize("B,H,F,D,K", [(4, 39, 39, 10, 200),
+                                       (4, 200, 39, 10, 200),
+                                       (16, 7, 13, 8, 20)])
+def test_cin_split_arithmetic_matches_jax(B, H, F, D, K):
+    """The CUDA kernel's arithmetic (z and w split into bf16 hi and lo,
+    three products into float32) at the served widths and at ragged ones,
+    on inputs made as the on-card checks make them, against the JAX plain
+    version and the Pallas kernel in interpret mode at the op's
+    tolerance."""
+    xk = RNG.normal(size=(B, H, D)).astype(np.float32)
+    x0 = RNG.normal(size=(B, F, D)).astype(np.float32)
+    w = (RNG.normal(size=(K, H, F)) / np.sqrt(H * F)).astype(np.float32)
+    out = cin_layer_split_ref(*(torch.from_numpy(a)
+                                for a in (xk, x0, w))).numpy()
+    assert out.shape == (B, K, D) and out.dtype == np.float32
+    np.testing.assert_allclose(out, np.asarray(cin_layer_reference(xk, x0,
+                                                                   w)),
+                               **CIN_TOL)
+    np.testing.assert_allclose(out, np.asarray(j_cin_layer(xk, x0, w)),
+                               **CIN_TOL)
+
+
+@pytest.mark.parametrize("B,H,F,D,K", [(512, 39, 39, 10, 200),
+                                       (512, 200, 39, 10, 200),
+                                       (33, 200, 39, 10, 200),
+                                       (16, 7, 13, 8, 20), (3, 1, 1, 1, 1),
+                                       (5, 3, 4, 300, 9),
+                                       (7, 5, 17, 3, 260),
+                                       (6, 300, 120, 10, 210)])
+def test_cin_plan_covers_every_output_once(B, H, F, D, K):
+    """The blocks of `kernel.plan` (row tiles of whole examples, or of one
+    example's dims when D exceeds the row tile, by column tiles; 64-row
+    tiles where H + F leave no room for 128) cover every (b, d, k) of the
+    output exactly once, each block within its row tile and the
+    shared-memory limit."""
+    p = cin_kernel.plan(B, H, F, D, K)
+    assert p.rows in cin_kernel.ROWS and p.cols in cin_kernel.COLS
+    assert p.examples * p.d_span <= p.rows
+    assert p.smem == cin_kernel.smem_bytes(p.rows, p.cols, p.stages, H, F)
+    assert p.smem <= cin_kernel.SMEM_LIMIT and p.stages >= 2
+    hits = np.zeros((B, D, K), np.int32)
+    for r in range(p.row_tiles):
+        for c in range(p.col_tiles):
+            b0, d0, k0 = p.tile(r, c)
+            hits[b0:b0 + p.examples, d0:d0 + p.d_span, k0:k0 + p.cols] += 1
+    assert (hits == 1).all()
+
+
+def test_cin_plan_at_the_served_batches():
+    """serve_p99 (512 requests) splits K = 200 into three column tiles of
+    72, so that the 43 row tiles of 12 examples fill the card; serve_bulk
+    (262,144) keeps one column tile of 200, so each z value is built once.
+    A shape whose staged rows fit no block raises."""
+    for h in (39, 200):
+        p99 = cin_kernel.plan(512, h, 39, 10, 200)
+        assert (p99.rows, p99.cols, p99.row_tiles, p99.col_tiles) == \
+            (128, 72, 43, 3)
+        assert p99.blocks >= 0.95 * cin_kernel.SMS
+        bulk = cin_kernel.plan(262144, h, 39, 10, 200)
+        assert (bulk.rows, bulk.cols, bulk.col_tiles) == (128, 200, 1)
+        assert bulk.row_tiles == -(-262144 // 12)
+    with pytest.raises(ValueError, match="fits in"):
+        cin_kernel.plan(4, 900, 39, 10, 200)
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
