@@ -10,7 +10,26 @@ order; any failure exits non-zero:
 3. kernels — each kernel against its plain PyTorch version on the card at
    its path's shapes, with its median CUDA-event time (L2 flushed before
    each run), its bound, the plain version's time and, where one exists, a
-   PyTorch library call's. The query kernels and Jaccard (at a production
+   PyTorch library call's. kg_scan (one-pass look-back scan) in each of
+   its forms: scan_hits with a pattern (with its prefix sum, and the hit
+   mask alone as the expand path calls it), scan_hits over a mask (its
+   prefix sum; torch.cumsum beside it) and scan_select (the compaction
+   without a prefix sum, with and without the hit mask; the route without
+   it, the prefix sum then join_ranges over it, beside it), bit-identical
+   to the plain versions on a ragged sweep (N 1, 9, 1,000, 4,096 and
+   around the 8,192-row tile; 1, 3, 24 and 192 instances as (requests,
+   shards) with the triples broadcast over the requests, the mask dense or
+   expanded; an all-false and an all-true instance; caps 1, below, at and
+   above an instance's count, N, N + 7; five leading dims, folded by a
+   copy; three larger N that take 2, 4 and 8 loads a thread), at the main
+   path's shapes (scan_select over bucket 4's pair masks, 24 x 201,326,592
+   and 24 x 33,554,432 at k 32,768, and its first scan, 24 x 36,800 at k
+   1,024) and over 100
+   back-to-back launches each at 24 x 201,326,592, 3 x 201,326,592 (the
+   prefix mode) and 192 x 36,800 rows, every output equal to the first
+   launch's; the prefix and select modes also at one request's 3 x
+   201,326,592 rows. The
+   query kernels and Jaccard (at a production
    workload of 16,380 LUBM query instances: 8,256 tiles of the triangle,
    4,864 packed columns; and on a ragged sweep of Q 1, 127, 129, 257 x F 1,
    15, 17, 4,859 with empty and duplicated rows) are bit-identical and
@@ -53,9 +72,11 @@ order; any failure exits non-zero:
    Jaccard kernel's distances (the same partition as the numpy distances),
    served by WorkloadServer(join_impl="sorted") with the kernels: every
    result equals the oracle, no overflow flag is set, jaccard_distance,
-   scan_hits and join_ranges launched;
+   scan_select and join_ranges launched, join_ranges exactly once per
+   merge join (the compactions run in scan_select);
 5. expand path — LUBM at scale 0.1 under join_impl="expand": the same
-   checks, and compat_matrix launched;
+   checks, compat_matrix, scan_hits and scan_select launched and
+   join_ranges not;
 6. clustering — the production workload's distances through
    jaccard_distance_matrix(use_kernel=True), linkage_torch on the card over
    its first 4,096 instances, and over its first 1,024 on the card and on
@@ -148,8 +169,11 @@ from repro_torch.kernels.jaccard.ref import jaccard_distance_ref  # noqa: E402
 from repro_torch.kernels.kg_join import ops as join_ops  # noqa: E402
 from repro_torch.kernels.kg_join.ref import (compat_matrix_ref,  # noqa: E402
                                              join_ranges_ref)
+from repro_torch.engine import batch as engine_batch  # noqa: E402
+from repro_torch.kernels.kg_scan import kernel as scan_kernel  # noqa: E402
 from repro_torch.kernels.kg_scan import ops as scan_ops  # noqa: E402
-from repro_torch.kernels.kg_scan.ref import scan_hits_ref  # noqa: E402
+from repro_torch.kernels.kg_scan.ref import (scan_hits_ref,  # noqa: E402
+                                             scan_select_ref)
 from repro_torch.kernels.segment_spmm import ops as seg_ops  # noqa: E402
 from repro_torch.kernels.segment_spmm.kernel import (  # noqa: E402
     PIECE, segment_spmm_kernel)
@@ -175,6 +199,19 @@ INT8_TC_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate: exact
 #                              for products of 0/1 operands
 BF16_TC_OPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core rate
 REPS = 25
+# kg_scan: the pattern and gate of instance b are row b % 4; bucket 4's
+# pair masks per (request, shard) instance at LUBM(1) over its 8 padded
+# requests x 3 shards, R x S_b x K pairs of which its compaction keeps R:
+# step 3 gathers the 3 shards' matches (32,768 x 3 x 2,048), step 2 takes
+# its own shard's (32,768 x 1 x 1,024); the ragged sweep's instance
+# counts, as (requests, shards), and the stress runs' launches
+SCAN_PATS = np.array([[5, -1, 7], [-1, -1, -1], [-2, 3, -1], [4, -1, -1]],
+                     np.int32)
+SCAN_GATES = np.array([[0, 0, 0], [1, 0, 0], [0, 0, 0], [0, 1, 1]], bool)
+PAIR_LEAD, PAIR_K = (8, 3), 32768
+PAIR_ROWS, PAIR_ROWS_STEP2 = 32768 * 3 * 2048, 32768 * 1 * 1024
+SCAN_LEADS = ((1, 1), (1, 3), (8, 3), (64, 3))
+SCAN_STRESS = 100
 RNG = np.random.default_rng(0)
 BATCH = 14                   # requests per serve(): one per LUBM template
 # the production clustering workload: every (university, department)
@@ -252,13 +289,14 @@ def dev(a) -> torch.Tensor:
 _FLUSH = None
 
 
-def time_ms(fn, reps: int = REPS) -> float:
-    """Median milliseconds of fn() over ``reps`` CUDA-event-timed runs, each
-    after a 256 MiB write that evicts the 50 MB L2."""
+def time_ms(fn, reps: int = REPS, warm: int = 3) -> float:
+    """Median milliseconds of fn() over ``reps`` CUDA-event-timed runs
+    after ``warm`` untimed ones, each after a 256 MiB write that evicts the
+    50 MB L2."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(64 << 20, dtype=torch.int32, device=DEV)
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
@@ -359,25 +397,288 @@ def production_queries():
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def scan_case(n_inst: int, n: int, mask_only: bool = False):
-    va = dev(RNG.uniform(size=(n_inst, n)) < 0.8)
+def scan_args(lead: tuple[int, int], n: int, *, mask_only: bool = False,
+              gates: bool = True, expand_valid: bool = False,
+              p_valid: float = 0.8):
+    """kg_scan's arguments over (requests, shards) instances as the engine
+    passes them: triples (S, N, 3) broadcast over the requests, spo and eq
+    (B, 1, 3) broadcast over the shards; valid (B, S, N), or (S, N)
+    expanded over the requests. The first instance's mask is all false and
+    the last one's all true."""
+    b, s = lead
+    va = RNG.uniform(size=(s if expand_valid else b * s, n)) < p_valid
+    va[0] = False
+    if va.shape[0] > 1:
+        va[-1] = True
+    va = dev(va)
+    va = (va[None].expand(b, s, n) if expand_valid else va.reshape(b, s, n))
     if mask_only:
-        args = (None, va, None, None)
-    else:
-        tr = dev(RNG.integers(-1, 30, (n_inst, n, 3)).astype(np.int32))
-        pats = np.array([[5, -1, 7], [-1, -1, -1], [-2, 3, -1], [4, -1, -1]],
-                        np.int32)
-        gates = np.array([[0, 0, 0], [1, 0, 0], [0, 0, 0], [0, 1, 1]], bool)
-        args = (tr, va, dev(pats[np.arange(n_inst) % 4]),
-                dev(gates[np.arange(n_inst) % 4]))
-    out = scan_ops.scan_hits(*args)
+        return (None, va, None, None)
+    tr = dev(RNG.integers(-1, 30, (s, n, 3)).astype(np.int32))
+    spo = dev(SCAN_PATS[np.arange(b) % 4][:, None])
+    eq = dev(SCAN_GATES[np.arange(b) % 4][:, None]) if gates else None
+    return (tr, va, spo, eq)
+
+
+def pair_mask(lead: tuple[int, int], n: int,
+              p_valid: float = 0.8) -> torch.Tensor:
+    """A (requests, shards, n) bool mask made on the card from seed 0 (one
+    instance at a time), the first instance all false and the last all
+    true, as scan_args makes its masks."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(0)
+    mask = torch.empty((*lead, n), dtype=torch.bool, device=DEV)
+    flat = mask.view(-1, n)
+    for i in range(flat.shape[0]):
+        flat[i] = torch.rand(n, generator=g, device=DEV) < p_valid
+    flat[0] = False
+    flat[-1] = True
+    return mask
+
+
+def scan_bytes(args, k: int | None = None, *, cum: bool = True,
+               hit: bool = True) -> float:
+    """Bytes the op must move: each input read once (a broadcast input's
+    storage once), each output written once (hit only when ``hit`` and the
+    triples are given; cum only when ``cum`` and k is None)."""
+    tr, va, spo, eq = args
+    rows = va.numel()
+    lead = va.numel() // va.shape[-1]
+    n_bytes = va.untyped_storage().nbytes() if va.stride(0) == 0 else rows
+    if tr is not None:
+        n_bytes += tr.numel() * 4 + spo.numel() * 4 + (rows if hit else 0)
+        n_bytes += 0 if eq is None else eq.numel()
+    if k is None:
+        return n_bytes + (rows * 4 if cum else 0)
+    return n_bytes + lead * (k * 5 + 4)                       # idx, sel, total
+
+
+def same_outputs(out, ref) -> int:
+    """max_err over the outputs that kg_scan and its plain version give;
+    fails unless both give the same ones (None alike)."""
+    if [x is None for x in out] != [x is None for x in ref]:
+        raise AssertionError("kg_scan gives other outputs than its plain "
+                             "version")
+    return max_err([x for x in out if x is not None],
+                   [x for x in ref if x is not None])
+
+
+def scan_check(args, caps=()) -> int:
+    """scan_hits (with the triples also its hit-mask-only form) and
+    scan_select at each cap (with the triples also without the hit mask)
+    against their plain versions, bit for bit; returns the number of calls
+    checked."""
+    forms = [(dict(), dict())]
+    if args[0] is not None:
+        forms.append((dict(with_cum=False), dict(with_hit=False)))
+    calls = 0
+    for hits_kw, _ in forms:
+        out = scan_ops.scan_hits(*args, **hits_kw)
+        torch.cuda.synchronize()
+        same_outputs(out, scan_hits_ref(*args, **hits_kw))
+        calls += 1
+    for cap in caps:
+        for _, sel_kw in forms:
+            o = scan_ops.scan_select(args[0], args[1], cap, *args[2:],
+                                     **sel_kw)
+            torch.cuda.synchronize()
+            same_outputs(o, scan_select_ref(args[0], args[1], cap, *args[2:],
+                                            **sel_kw))
+            calls += 1
+    return calls
+
+
+def cum_route(mask, k: int):
+    """The compaction of ``mask`` as the port's engine made it before
+    scan_select: the prefix sum (scan_hits), then join_ranges over it for
+    1..k (the first row whose count reaches j), clamped."""
+    n = mask.shape[-1]
+    cum = scan_ops.scan_hits(None, mask)[1]
+    want = torch.arange(1, k + 1, dtype=torch.int32, device=mask.device)
+    idx = join_ops.join_ranges(cum, want.expand(*mask.shape[:-1], k))[0]
+    total = cum[..., -1]
+    return (idx.clamp(0, n - 1),
+            torch.arange(k, device=mask.device) < total[..., None], total)
+
+
+def scan_sweep() -> int:
+    """The ragged sweep: N around the plan's tile, 1 to 192 instances,
+    broadcast and expanded leading dims, all-false and all-true masks,
+    caps below, at and above an instance's hit count."""
+    tile = scan_kernel.plan(36800, 24).tile_rows
+    if tile != 8192:
+        raise AssertionError(f"kg_scan's tile at 36,800 rows is {tile}")
+    variants = (dict(), dict(gates=False, expand_valid=True),
+                dict(mask_only=True), dict(mask_only=True, expand_valid=True))
+    # ragged N at every instance count; then instances large enough that
+    # the plan takes 2, 4 and 8 loads a thread
+    cases = [(n, lead, kw)
+             for n in (1, 9, 1000, 4096, tile - 1, tile, tile + 1,
+                       3 * tile + 5)
+             for lead in SCAN_LEADS for kw in variants]
+    cases += [(n, (64, 3), kw) for n in (100003, 300007, 700001)
+              for kw in variants[1:3]]
+    vecs = {scan_kernel.plan(n, b * s).rows_per_thread // 16
+            for n, (b, s), _ in cases}
+    if vecs != {1, 2, 4, 8}:
+        raise AssertionError(f"the kg_scan sweep takes {sorted(vecs)} loads "
+                             f"a thread, not 1, 2, 4 and 8")
+    checks = 0
+    for n, lead, kw in cases:
+        args = scan_args(lead, n, **kw)
+        if lead == (8, 3) and n in (1000, tile + 1):
+            # five leading dims: folded into one by a copy
+            tr, va, spo, eq = args
+            args = (tr, va.reshape(2, 2, 2, 1, 3, n),
+                    None if spo is None else spo.reshape(2, 2, 2, 1, 1, 3),
+                    None if eq is None else eq.reshape(2, 2, 2, 1, 1, 3))
+        totals = scan_hits_ref(*args)[1][..., -1].reshape(-1)
+        t = int(totals[totals.numel() // 2].item())
+        checks += scan_check(args, sorted({1, max(t - 1, 1), max(t, 1),
+                                           t + 1, n, n + 7}))
+    return checks
+
+
+def scan_stress(fn, what: str) -> None:
+    """SCAN_STRESS launches of fn back to back, each output equal to the
+    first launch's: a race in the look-back would show as a difference."""
+    first = [x for x in fn() if x is not None]
+    diff = torch.zeros((), dtype=torch.int64, device=DEV)
+    for _ in range(SCAN_STRESS - 1):
+        for a, b in zip([x for x in fn() if x is not None], first):
+            diff += (a != b).sum()
+    if int(diff.item()) != 0:
+        raise AssertionError(f"kg_scan {what}: {int(diff.item())} values "
+                             f"differ between {SCAN_STRESS} launches")
+    log(f"  kg_scan stress, {what}: {SCAN_STRESS} launches, each equal to "
+        f"the first")
+
+
+def scan_records() -> dict:
+    """kg_scan's checks and timings: the sweep, the stress runs, each form
+    at its path's shapes, and the earlier records' shapes for comparison."""
+    t0 = time.perf_counter()
+    checks = scan_sweep()
+    log(f"  kg_scan ragged sweep: {checks} calls of scan_hits and "
+        f"scan_select bit-identical to their plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
+    rec = {}
+    # the expand path's scans (phase 5, LUBM scale 0.1): the hit mask
+    # alone, as the step's cap covers the shard, over 8 padded requests x
+    # 3 shards of 512 rows
+    args = scan_args((8, 3), 512)
+    err = same_outputs(scan_ops.scan_hits(*args, with_cum=False),
+                       scan_hits_ref(*args, with_cum=False))
+    b_ms, b_by = bound(scan_bytes(args, cum=False), args[1].numel() * 20)
+    rec["scan_hits"] = dict(
+        name="kg_scan.scan_hits", route="cuda",
+        source="src/repro_torch/csrc/kg_scan.cu",
+        replaces="src/repro/kernels/kg_scan/kernel.py:51",
+        max_abs_err=err,
+        ms=time_ms(lambda: scan_ops.scan_hits(*args, with_cum=False)),
+        plain_ms=time_ms(lambda: scan_hits_ref(*args, with_cum=False)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"  kg_scan.scan_hits, hit mask only (24 x 512 rows): "
+        f"{rec['scan_hits']}")
+    # predicate mode with its prefix sum at bucket 4's first scan at
+    # LUBM(1), the earlier records' shape: 8 padded requests x 3 shards of
+    # 36,800 rows
+    args = scan_args((8, 3), 36800)
+    err = same_outputs(scan_ops.scan_hits(*args), scan_hits_ref(*args))
+    log(f"  kg_scan.scan_hits predicate mode (24 x 36800 rows): err={err} "
+        f"ms={time_ms(lambda: scan_ops.scan_hits(*args)):.4f} "
+        f"plain_ms={time_ms(lambda: scan_hits_ref(*args)):.4f} "
+        f"bound_ms="
+        f"{bound(scan_bytes(args), args[1].numel() * 20)[0]:.4f}")
+    # the main path's select there, at the step's cap, without the hit mask
+    k = 1024
+    tr, va, spo, eq = args
+    err = same_outputs(
+        scan_ops.scan_select(tr, va, k, spo, eq, with_hit=False),
+        scan_select_ref(tr, va, k, spo, eq, with_hit=False))
+    sel_ms = time_ms(lambda: scan_ops.scan_select(tr, va, k, spo, eq,
+                                                  with_hit=False))
+    plain_ms = time_ms(lambda: scan_select_ref(tr, va, k, spo, eq,
+                                               with_hit=False))
+    b_ms, _ = bound(scan_bytes(args, k, hit=False), va.numel() * 20)
+    log(f"  kg_scan.scan_select (24 x 36800 rows, k {k}, no hit mask): "
+        f"err={err} ms={sel_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={b_ms:.4f}")
+    big = scan_args((64, 3), 36800)
+    scan_stress(lambda: scan_ops.scan_hits(*big),
+                "scan_hits, predicate mode, 192 x 36800")
+    scan_stress(lambda: scan_ops.scan_select(big[0], big[1], 16384,
+                                             *big[2:]),
+                "scan_select, predicate mode, 192 x 36800, k 16384")
+    del big
+
+    # bucket 4's pair masks as the main path compacts them: 8 padded
+    # requests x 3 shards, R = 32,768 kept of each; beside it the route the
+    # engine took before (the prefix sum, then join_ranges over it)
+    mask = pair_mask(PAIR_LEAD, PAIR_ROWS)
+    args = (None, mask, None, None)
+    out = scan_ops.scan_select(None, mask, PAIR_K)
     torch.cuda.synchronize()
-    ref = scan_hits_ref(*args)
-    err = max_err(out, ref)
-    rows = n_inst * n
-    n_bytes = rows * (1 + 4) + (0 if mask_only else rows * (12 + 1))
-    n_ops = rows * (2 if mask_only else 20)
-    return args, err, bound(n_bytes, n_ops)
+    err = same_outputs(out, scan_select_ref(None, mask, PAIR_K))
+    max_err(cum_route(mask, PAIR_K), out[1:])
+    del out
+    b_ms, b_by = bound(scan_bytes(args, PAIR_K), mask.numel() * 2)
+    rec["scan_select"] = dict(
+        name="kg_scan.scan_select", route="cuda",
+        source="src/repro_torch/csrc/kg_scan.cu",
+        replaces="src/repro/kernels/kg_scan/kernel.py:51",
+        max_abs_err=err,
+        ms=time_ms(lambda: scan_ops.scan_select(None, mask, PAIR_K)),
+        plain_ms=time_ms(lambda: scan_select_ref(None, mask, PAIR_K),
+                         reps=2, warm=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"  kg_scan.scan_select ({PAIR_LEAD[0] * PAIR_LEAD[1]} x "
+        f"{PAIR_ROWS}, k {PAIR_K}): {rec['scan_select']}")
+    cum_route_ms = time_ms(lambda: cum_route(mask, PAIR_K), reps=10)
+    log(f"  the cum route at the same shape (scan_hits prefix mode, then "
+        f"join_ranges over cum for 1..k; equal to scan_select): "
+        f"ms={cum_route_ms:.4f}; scan_select / cum route "
+        f"{rec['scan_select']['ms'] / cum_route_ms:.3f}")
+    scan_stress(lambda: scan_ops.scan_select(None, mask, PAIR_K),
+                f"scan_select, mask, {PAIR_LEAD[0] * PAIR_LEAD[1]} x "
+                f"{PAIR_ROWS}, k {PAIR_K}")
+    # bucket 4's other pair mask (step 2): checked and timed
+    step2 = pair_mask(PAIR_LEAD, PAIR_ROWS_STEP2)
+    err = same_outputs(scan_ops.scan_select(None, step2, PAIR_K),
+                       scan_select_ref(None, step2, PAIR_K))
+    ms = time_ms(lambda: scan_ops.scan_select(None, step2, PAIR_K))
+    b_ms, _ = bound(scan_bytes((None, step2, None, None), PAIR_K),
+                    step2.numel() * 2)
+    log(f"  kg_scan.scan_select ({PAIR_LEAD[0] * PAIR_LEAD[1]} x "
+        f"{PAIR_ROWS_STEP2}, k {PAIR_K}): err={err} ms={ms:.4f} "
+        f"bound_ms={b_ms:.4f}")
+    del step2
+
+    # the prefix mode over one request's pair masks (the earlier records')
+    one = mask[:1]
+    args = (None, one, None, None)
+    err = same_outputs(scan_ops.scan_hits(*args), scan_hits_ref(*args))
+    b_ms, _ = bound(scan_bytes(args), one.numel() * 2)
+    ms = time_ms(lambda: scan_ops.scan_hits(*args))
+    plain_ms = time_ms(lambda: scan_hits_ref(*args), reps=5, warm=1)
+    lib_ms = time_ms(lambda: torch.cumsum(one, -1, dtype=torch.int32),
+                     reps=5, warm=1)
+    log(f"  kg_scan.scan_hits prefix mode (3 x {PAIR_ROWS}): err={err} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} torch.cumsum_ms={lib_ms:.4f} "
+        f"bound_ms={b_ms:.4f}")
+    scan_stress(lambda: scan_ops.scan_hits(*args),
+                f"scan_hits, prefix mode, 3 x {PAIR_ROWS}")
+    # the select mode there too, beside the route without it
+    err = same_outputs(scan_ops.scan_select(None, one, PAIR_K),
+                       scan_select_ref(None, one, PAIR_K))
+    ms = time_ms(lambda: scan_ops.scan_select(None, one, PAIR_K))
+    route_ms = time_ms(lambda: cum_route(one, PAIR_K), reps=10)
+    b_ms, _ = bound(scan_bytes(args, PAIR_K), one.numel() * 2)
+    log(f"  kg_scan.scan_select (3 x {PAIR_ROWS}, k {PAIR_K}): err={err} "
+        f"ms={ms:.4f} bound_ms={b_ms:.4f}; the cum route ms={route_ms:.4f}")
+    del mask, one, args
+    torch.cuda.empty_cache()
+    return rec
 
 
 def ranges_case(n_inst: int, sb: int, c: int, r: int):
@@ -1029,9 +1330,6 @@ def bag_record() -> dict:
 def phase_kernels() -> dict:
     """Check every kernel on the ragged sweep shapes and the main path's
     shapes; time each at its main-path shape. Returns per-kernel records."""
-    for n in (9, 64, 1000, 4096, 36800):
-        for mask_only in (False, True):
-            scan_case(3, n, mask_only)
     for sb, c, r in ((1, 64, 32), (3, 1000, 200), (8, 128, 513),
                      (1, 16384, 32768), (3, 16384, 32768)):
         ranges_case(2, sb, c, r)
@@ -1094,29 +1392,7 @@ def phase_kernels() -> dict:
         f"the split arithmetic's plain version ({len(cin_shapes)} shapes)")
     log("  " + wgmma_sass())
 
-    rec = {}
-    # kg_scan at the merge-path scan of bucket 4: 8 padded requests x 3
-    # shards, 36,800 rows per LUBM(1) shard
-    args, err, (b_ms, b_by) = scan_case(24, 36800)
-    rec["scan_hits"] = dict(
-        name="kg_scan.scan_hits", route="cuda",
-        source="src/repro_torch/csrc/kg_scan.cu",
-        replaces="src/repro/kernels/kg_scan/kernel.py:51",
-        max_abs_err=err, ms=time_ms(lambda: scan_ops.scan_hits(*args)),
-        plain_ms=time_ms(lambda: scan_hits_ref(*args)), bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
-    log(f"  kg_scan.scan_hits (24 x 36800 rows): {rec['scan_hits']}")
-    # the same kernel as the prefix sum of bucket 4's step-3 pair mask
-    # (R x S_b x K = 32768 x 3 x 2048 per instance; one request's 3 shards)
-    args, err, (b_ms, _) = scan_case(3, 32768 * 3 * 2048, mask_only=True)
-    mask = args[1]
-    log(f"  kg_scan.scan_hits prefix mode (3 x {mask.shape[1]}): err={err} "
-        f"ms={time_ms(lambda: scan_ops.scan_hits(*args)):.4f} "
-        f"plain_ms={time_ms(lambda: scan_hits_ref(*args)):.4f} "
-        f"torch.cumsum_ms="
-        f"{time_ms(lambda: torch.cumsum(mask, -1, dtype=torch.int32)):.4f} "
-        f"bound_ms={b_ms:.4f}")
-    del args, mask
+    rec = scan_records()
 
     # kg_join.join_ranges at bucket 4's gathered merge steps: 24 instances,
     # 3 key blocks of C = 16,384, R = 32,768 table rows
@@ -1259,6 +1535,7 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 OPS = {"scan_hits": scan_ops.scan_hits,
+       "scan_select": scan_ops.scan_select,
        "join_ranges": join_ops.join_ranges,
        "compat_matrix": join_ops.compat_matrix,
        "jaccard_distance": jac_ops.jaccard_distance,
@@ -1325,18 +1602,30 @@ def serve_path(scale: float, join_impl: str, passes: int = 2, *,
                                    order=server.plans[q.name].meta["order"])
               for q in queries}
 
+    # each merge join makes one join_ranges call: count the engine's
+    merge_join, merges = engine_batch._join_merge, [0]
+
+    def counted_merge(*a, **kw):
+        merges[0] += 1
+        return merge_join(*a, **kw)
+
     server.reset_stats()
     torch.cuda.reset_peak_memory_stats(DEV)
     reset_counts()
-    t_all = time.perf_counter()
-    results, per_call = [], []
-    for chunk in chunks:
-        t0 = time.perf_counter()
-        results += server.serve(chunk)
-        torch.cuda.synchronize()
-        per_call.append(time.perf_counter() - t0)
-    dt = time.perf_counter() - t_all
+    engine_batch._join_merge = counted_merge
+    try:
+        t_all = time.perf_counter()
+        results, per_call = [], []
+        for chunk in chunks:
+            t0 = time.perf_counter()
+            results += server.serve(chunk)
+            torch.cuda.synchronize()
+            per_call.append(time.perf_counter() - t0)
+        dt = time.perf_counter() - t_all
+    finally:
+        engine_batch._join_merge = merge_join
     launched = counts()
+    launched["merge_joins"] = merges[0]
     launched["jaccard_distance"] = jaccard_launches
     peak = torch.cuda.max_memory_allocated(DEV)
 
@@ -1766,14 +2055,26 @@ def main() -> None:
         f"Jaccard kernel, join sorted, backend cuda, {BATCH} requests per "
         "serve()")
     main_counts = serve_path(1.0, "sorted", kernel_partition=True)
-    for k in ("jaccard_distance", "scan_hits", "join_ranges"):
+    for k in ("jaccard_distance", "scan_select", "join_ranges"):
         if main_counts[k] <= 0:
             raise AssertionError(f"main path never launched {k}")
+    # the compactions run in scan_select: join_ranges only in merge joins
+    if main_counts["join_ranges"] != main_counts["merge_joins"]:
+        raise AssertionError(f"main path launched join_ranges "
+                             f"{main_counts['join_ranges']} times for "
+                             f"{main_counts['merge_joins']} merge joins")
+    log(f"  main path launches: scan_hits {main_counts['scan_hits']}, "
+        f"scan_select {main_counts['scan_select']}, join_ranges "
+        f"{main_counts['join_ranges']} (merge joins "
+        f"{main_counts['merge_joins']})")
 
     log("[5/10] expand path: LUBM scale 0.1, join expand, backend cuda")
     expand_counts = serve_path(0.1, "expand")
-    if expand_counts["compat_matrix"] <= 0:
-        raise AssertionError("expand path never launched compat_matrix")
+    for k in ("compat_matrix", "scan_hits", "scan_select"):
+        if expand_counts[k] <= 0:
+            raise AssertionError(f"expand path never launched {k}")
+    if expand_counts["join_ranges"] != 0:
+        raise AssertionError("expand path launched join_ranges")
 
     log(f"[6/10] clustering: {UNIVERSITIES * DEPARTMENTS * 14:,} LUBM query "
         "instances")
@@ -1793,7 +2094,8 @@ def main() -> None:
         "random weights from seed 0")
     gnn_counts = phase_gnn()
 
-    rec["scan_hits"]["launches"] = main_counts["scan_hits"]
+    rec["scan_hits"]["launches"] = expand_counts["scan_hits"]
+    rec["scan_select"]["launches"] = main_counts["scan_select"]
     rec["join_ranges"]["launches"] = main_counts["join_ranges"]
     rec["compat_matrix"]["launches"] = expand_counts["compat_matrix"]
     rec["jaccard_distance"]["launches"] = main_counts["jaccard_distance"]
@@ -1807,7 +2109,8 @@ def main() -> None:
     rec["segment_spmm[ogb_products]"]["launches"] = gnn_counts["gcn"]
     rec["segment_spmm[molecule]"]["launches"] = sum(
         gnn_counts[k] for k in ("egnn", "nequip", "equiformer_v2"))
-    paths = {"scan_hits": "LUBM main path (phase 4)",
+    paths = {"scan_hits": "LUBM expand path (phase 5)",
+             "scan_select": "LUBM main path (phase 4)",
              "join_ranges": "LUBM main path (phase 4)",
              "compat_matrix": "LUBM expand path (phase 5)",
              "jaccard_distance": "WawPart partition (phase 4)",

@@ -46,8 +46,8 @@ from repro_torch.engine.planner import PhysicalPlan, pad_plan
 from repro_torch.engine.primitives import (EQ_PAIRS, INT_MAX, KernelBlocks,
                                            check_backend, compact,
                                            compat_matrix, join_ranges,
-                                           scan_hits, select_cap,
-                                           select_from_cum, take, take_rows)
+                                           scan_hits, scan_select,
+                                           select_cap, take, take_rows)
 
 _INT_MAX = int(INT_MAX)
 
@@ -236,13 +236,16 @@ def _zeros_flag(like: torch.Tensor) -> torch.Tensor:
     return torch.zeros(like.shape[:-1], dtype=torch.bool, device=like.device)
 
 
-def _materialize(triples, hit, cum, cap: int, *, backend: str):
-    """Compact matching rows to (…, min(cap, N), 3) in shard order; when
-    the static cap covers the whole shard the selection is skipped. `cum`
-    is the hit mask's inclusive int32 prefix sum."""
+def _materialize(triples, valid, spo, eq, cap: int, *, backend: str):
+    """Scan the pattern and compact matching rows to (…, min(cap, N), 3) in
+    shard order; when the static cap covers the whole shard the selection
+    is skipped and the hit mask itself is the match mask."""
     if cap >= triples.shape[-2]:
+        hit, _ = scan_hits(triples, valid, spo, eq, backend=backend,
+                           with_cum=False)
         return triples, hit, _zeros_flag(hit)
-    idx, mm, total = select_from_cum(cum, cap, backend=backend)
+    _, idx, mm, total = scan_select(triples, valid, cap, spo, eq,
+                                    backend=backend, with_hit=False)
     return take_rows(triples, idx), mm, total > cap
 
 
@@ -449,11 +452,11 @@ def make_batched_engine(sig: BucketSignature, *, join_impl: str = "expand",
     max_per_row: ceiling on the merge-join window width (default: the
     signature's data-sized per-step fan-out caps).
     backend: "torch" runs the plain primitives; "cuda" routes the scan
-    (fused predicate + prefix sum), the compactions, the candidate-range
-    search and the compat matrix through the kg_scan / kg_join kernels
-    (plain versions on CPU tensors), bit-identically. On "cuda" the merge
-    path scans the permuted view directly, so the kernel's fused prefix sum
-    is the compaction's.
+    (fused predicate with its compaction), the compactions, the
+    candidate-range search and the compat matrix through the kg_scan /
+    kg_join kernels (plain versions on CPU tensors), bit-identically. On
+    "cuda" the merge path scans the permuted view directly, so one
+    select launch of the scan both matches and compacts it.
     """
     check_gather_cap(gather_cap)
     check_backend(backend, kernel_blocks)
@@ -496,10 +499,9 @@ def make_batched_engine(sig: BucketSignature, *, join_impl: str = "expand",
                 perm = perms[shard[None, :], pos0[:, None]]      # (B, S, N)
                 if backend == "cuda":
                     tp = take_rows(tr, perm)
-                    _, cum = scan_hits(tp, torch.gather(va, -1, perm), spo,
-                                       eq, backend=backend)
-                    idx, mm, total = select_from_cum(cum, min(cap, N),
-                                                     backend=backend)
+                    _, idx, mm, total = scan_select(
+                        tp, torch.gather(va, -1, perm), min(cap, N), spo, eq,
+                        backend=backend, with_hit=False)
                     m = take_rows(tp, idx)
                     step_ovf = (total > cap) if cap < N \
                         else _zeros_flag(mm)
@@ -519,8 +521,7 @@ def make_batched_engine(sig: BucketSignature, *, join_impl: str = "expand",
                     col, sig.new_modes[i], max_per_row=K,
                     verify_mask=sig.verify_masks[i], backend=backend)
             else:
-                hit, cum = scan_hits(tr, va, spo, eq, backend=backend)
-                m, mm, step_ovf = _materialize(tr, hit, cum, cap,
+                m, mm, step_ovf = _materialize(tr, va, spo, eq, cap,
                                                backend=backend)
                 if gather:
                     C = m.shape[-2]

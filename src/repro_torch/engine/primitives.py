@@ -10,8 +10,9 @@ Every function takes ``backend`` ("torch" | "cuda"): "torch" runs the plain
 PyTorch formulation below on any device; "cuda" goes through the kernel ops
 (`kernels/kg_scan`, `kernels/kg_join`), which launch the hand-written CUDA
 kernels on CUDA tensors and use the same plain formulation on CPU tensors.
-On the "cuda" backend the compactions take their prefix sums from the
-kg_scan kernel and their selections from the kg_join range search, so the
+On the "cuda" backend a compaction is one launch of the kg_scan kernel's
+select epilogue, which writes the selected positions without an (…, n)
+prefix sum; the kg_join range search serves only the merge joins. The
 engine's CUDA path calls no library scan or search. The two backends are
 bit-identical on every value that is ever read through a mask.
 """
@@ -32,9 +33,10 @@ BACKENDS = ("torch", "cuda")
 class KernelBlocks:
     """Tile sizes of the query kernels — part of every engine cache key.
 
-    The CUDA kernels of this package fix their own tiles (1024-row scan
-    tiles, 64 x 128 compat tiles, one thread per range search), so these
-    fields only key the cache and are validated as in the JAX package.
+    The CUDA kernels of this package fix their own tiles (the scan's by
+    `kernels/kg_scan/kernel.plan`, 64 x 128 compat tiles, one thread per
+    range search), so these fields only key the cache and are validated as
+    in the JAX package.
     """
     scan_rows: int = 1024
     join_rows: int = 256
@@ -129,16 +131,19 @@ def scan_predicate(triples, valid, spo, eq=None):
     return hit
 
 
-def scan_hits(triples, valid, spo=None, eq=None, *, backend: str = "torch"):
+def scan_hits(triples, valid, spo=None, eq=None, *, backend: str = "torch",
+              with_cum: bool = True):
     """(hit, cum): the fused pattern predicate plus its inclusive int32
-    hit-count prefix sum along the last dim. With ``triples=None`` the
-    predicate is ``valid`` itself (a plain mask prefix sum). Under "cuda"
-    both run fused in the kg_scan kernel."""
+    hit-count prefix sum along the last dim (None unless ``with_cum``).
+    With ``triples=None`` the predicate is ``valid`` itself (a plain mask
+    prefix sum). Under "cuda" both run fused in the kg_scan kernel."""
     if backend == "cuda":
         from repro_torch.kernels.kg_scan.ops import scan_hits as kernel_scan
-        return kernel_scan(triples, valid, spo, eq)
+        return kernel_scan(triples, valid, spo, eq, with_cum=with_cum)
     hit = valid if triples is None else scan_predicate(triples, valid, spo,
                                                        eq)
+    if not with_cum:
+        return hit, None
     return hit, torch.cumsum(hit, dim=-1, dtype=torch.int32)
 
 
@@ -146,31 +151,43 @@ def scan_hits(triples, valid, spo=None, eq=None, *, backend: str = "torch"):
 # stable compaction
 # ---------------------------------------------------------------------------
 
-def select_from_cum(cum, cap: int, *, backend: str = "torch"):
+def select_from_cum(cum, cap: int):
     """Stable compaction from an inclusive prefix sum (…, n): (idx, sel,
     total) where idx[…, j] is the position of the j-th set entry (clamped
-    past ``total``), sel = arange < total; idx int32 (…, k), total (…,)."""
+    past ``total``), sel = arange < total; idx int32 (…, k), total (…,).
+    The plain formulation; on the card `scan_select` compacts without a
+    prefix sum."""
     n = cum.shape[-1]
     k = min(cap, n)
     total = cum[..., -1]
     want = torch.arange(1, k + 1, dtype=torch.int32, device=cum.device)
-    want = want.expand(*cum.shape[:-1], k)
-    if backend == "cuda":
-        from repro_torch.kernels.kg_join.ops import join_ranges as kr
-        idx, _ = kr(cum, want)                   # lo = #{cum < j}
-    else:
-        idx = torch.searchsorted(cum, want.contiguous(), side="left",
-                                 out_int32=True)
+    want = want.expand(*cum.shape[:-1], k).contiguous()
+    idx = torch.searchsorted(cum, want, side="left", out_int32=True)
     idx = idx.clamp(0, n - 1)
     sel = torch.arange(k, device=cum.device) < total[..., None]
     return idx, sel, total
 
 
+def scan_select(triples, valid, cap: int, spo=None, eq=None, *,
+                backend: str = "torch", with_hit: bool = True):
+    """(hit or None, idx, sel, total): the stable compaction of the fused
+    pattern predicate's hits, ``select_from_cum(scan_hits(…)[1], cap)``;
+    hit is None when ``triples`` is None (the compaction of ``valid``) or
+    not ``with_hit``. Under "cuda" one kg_scan launch writes the selection
+    directly, with no (…, n) prefix sum."""
+    if backend == "cuda":
+        from repro_torch.kernels.kg_scan.ops import scan_select as kernel_sel
+        return kernel_sel(triples, valid, cap, spo, eq, with_hit=with_hit)
+    hit, cum = scan_hits(triples, valid, spo, eq, backend=backend)
+    idx, sel, total = select_from_cum(cum, cap)
+    keep = triples is not None and with_hit
+    return (hit if keep else None), idx, sel, total
+
+
 def select_cap(mask, cap: int, *, backend: str = "torch"):
     """Stable compaction: (idx, sel, total) for the first ``cap`` set
-    entries of ``mask`` (…, n), from its int32 prefix sum."""
-    _, cum = scan_hits(None, mask, backend=backend)
-    return select_from_cum(cum, cap, backend=backend)
+    entries of ``mask`` (…, n): `scan_select` of the mask itself."""
+    return scan_select(None, mask, cap, backend=backend)[1:]
 
 
 def compact(matches, mask, cap: int, *, backend: str = "torch"):

@@ -272,6 +272,15 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def kernel_ops() -> dict:
+    """The engine's kernel ops by name; each counts its launches in its
+    ``launches`` attribute."""
+    from repro_torch.kernels.kg_join import ops as join_ops
+    from repro_torch.kernels.kg_scan import ops as scan_ops
+    return {name: fn for mod in (scan_ops, join_ops)
+            for name, fn in vars(mod).items() if hasattr(fn, "launches")}
+
+
 def _profiler(device: torch.device):
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -367,19 +376,34 @@ def main(argv: list[str] | None = None) -> None:
         server.warmup(stream[i:i + args.batch])
     _sync(device)
     server.reset_stats()
+    ops = kernel_ops()
+    for op in ops.values():
+        op.launches = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     prof = _profiler(device) if args.profile else nullcontext()
     with prof:
         t0 = time.perf_counter()
         n_solutions = overflows = 0
+        per_call = []
         for i in range(0, len(stream), args.batch):
+            t_call = time.perf_counter()
             for res in server.serve(stream[i:i + args.batch]):
                 n_solutions += res[1]
                 overflows += bool(res[2])
-        _sync(device)
+            _sync(device)
+            per_call.append(time.perf_counter() - t_call)
         dt = time.perf_counter() - t0
     st = server.stats
     print(f"served {len(stream)} requests in {dt * 1e3:.1f} ms  "
           f"({len(stream) / dt:,.0f} queries/sec, batch={args.batch})")
+    print(f"  per serve() call: median {np.median(per_call) * 1e3:.3f} ms "
+          f"of {len(per_call)} {[round(t * 1e3, 3) for t in per_call]}")
+    print(f"  kernel launches {({k: op.launches for k, op in ops.items()})}")
+    if device.type == "cuda":
+        print(f"  peak device memory "
+              f"{torch.cuda.max_memory_allocated(device):,} bytes "
+              f"(torch.cuda.max_memory_allocated)")
     print(f"  solutions={n_solutions:,}  overflows={overflows}  "
           f"engines={server.n_compiles} (<= {server.n_buckets} buckets)  "
           f"dedup: {st['executed']}/{st['served']} instances executed")

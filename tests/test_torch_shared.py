@@ -212,7 +212,7 @@ def test_kernel_ops_raise_off_cpu_instead_of_falling_back():
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.jaccard.ops import jaccard_distance
     from repro_torch.kernels.kg_join.ops import compat_matrix, join_ranges
-    from repro_torch.kernels.kg_scan.ops import scan_hits
+    from repro_torch.kernels.kg_scan.ops import scan_hits, scan_select
 
     meta = torch.device("meta")
     tr = torch.zeros((2, 8, 3), dtype=torch.int32, device=meta)
@@ -220,6 +220,14 @@ def test_kernel_ops_raise_off_cpu_instead_of_falling_back():
     spo = torch.zeros((2, 3), dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="CUDA tensor"):
         scan_hits(tr, va, spo)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        scan_select(tr, va, 4, spo)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        scan_select(None, va, 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        scan_hits(tr, va, spo, with_cum=False)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        scan_select(tr, va, 4, spo, with_hit=False)
     with pytest.raises(ValueError, match="CUDA tensor"):
         join_ranges(spo, spo)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -236,7 +244,7 @@ def test_kernel_ops_raise_off_cpu_instead_of_falling_back():
         flash_attention(qkv, qkv[:, :1], qkv[:, :1])
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention(qkv, qkv, qkv, causal=False, q_start=0)
-    assert scan_hits.launches == join_ranges.launches \
-        == compat_matrix.launches == jaccard_distance.launches \
-        == gather_rows.launches == cin_layer.launches \
-        == flash_attention.launches == 0
+    assert scan_hits.launches == scan_select.launches \
+        == join_ranges.launches == compat_matrix.launches \
+        == jaccard_distance.launches == gather_rows.launches \
+        == cin_layer.launches == flash_attention.launches == 0
