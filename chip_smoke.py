@@ -39,9 +39,18 @@ order; any failure exits non-zero:
    forward's three layers at serve_p99 and at serve_bulk (each a record,
    its plan asserted: blocks of 128 rows by 72 columns at serve_p99, by
    200 at serve_bulk), with the bf16 and int8 wgmma instructions of the
-   cin and jaccard libraries counted (cuobjdump), and join_ranges timed
-   against two
-   torch.searchsorted calls in alternation over 5 rounds; flash_attention
+   cin and jaccard libraries counted (cuobjdump); kg_join's range search
+   (a tree of each key block in shared memory, or its top levels past the
+   budget) and its select epilogue join_select (the merge join's pair
+   compaction) bit-identical on a ragged sweep
+   (C 1, 9, 1,000, around the 16,384-key budget and 65,536; S_b 1 and 3;
+   R 77 to 4,097; keys broadcast over the requests or every instance;
+   fan-out caps 1, 3, 64; caps 1, around an instance's total, R, R S_b K)
+   and at bucket 4's step-3 and step-2 shapes, 100 launches of join_select
+   at step 3 each equal to the first, join_ranges timed against two
+   torch.searchsorted calls in alternation over 5 rounds and join_select
+   beside the mask route it replaces, each with its device time by
+   torch.profiler; flash_attention
    is within atol=2e-5 in float32 and atol=1e-4 + 2**-7 |plain| (one
    bfloat16 step) in bfloat16, on a ragged sweep (G 1, 4, 48; causal or
    not; q_start 0, T - S and mid-tile; strided cache views), on each route
@@ -72,11 +81,12 @@ order; any failure exits non-zero:
    Jaccard kernel's distances (the same partition as the numpy distances),
    served by WorkloadServer(join_impl="sorted") with the kernels: every
    result equals the oracle, no overflow flag is set, jaccard_distance,
-   scan_select and join_ranges launched, join_ranges exactly once per
-   merge join (the compactions run in scan_select);
+   scan_select, join_ranges and join_select launched, join_ranges +
+   join_select once per merge join and join_select once per merge join
+   that expands without verifying a second column (no pair mask there);
 5. expand path — LUBM at scale 0.1 under join_impl="expand": the same
-   checks, compat_matrix, scan_hits and scan_select launched and
-   join_ranges not;
+   checks, compat_matrix, scan_hits and scan_select launched, join_ranges
+   and join_select not;
 6. clustering — the production workload's distances through
    jaccard_distance_matrix(use_kernel=True), linkage_torch on the card over
    its first 4,096 instances, and over its first 1,024 on the card and on
@@ -166,10 +176,13 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.jaccard import kernel as jac_kernel  # noqa: E402
 from repro_torch.kernels.jaccard import ops as jac_ops  # noqa: E402
 from repro_torch.kernels.jaccard.ref import jaccard_distance_ref  # noqa: E402
+from repro_torch.kernels.kg_join import kernel as join_kernel  # noqa: E402
 from repro_torch.kernels.kg_join import ops as join_ops  # noqa: E402
 from repro_torch.kernels.kg_join.ref import (compat_matrix_ref,  # noqa: E402
-                                             join_ranges_ref)
+                                             join_ranges_ref,
+                                             join_select_ref)
 from repro_torch.engine import batch as engine_batch  # noqa: E402
+from repro_torch.engine.primitives import pair_mask  # noqa: E402
 from repro_torch.kernels.kg_scan import kernel as scan_kernel  # noqa: E402
 from repro_torch.kernels.kg_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.kg_scan.ref import (scan_hits_ref,  # noqa: E402
@@ -212,6 +225,18 @@ PAIR_LEAD, PAIR_K = (8, 3), 32768
 PAIR_ROWS, PAIR_ROWS_STEP2 = 32768 * 3 * 2048, 32768 * 1 * 1024
 SCAN_LEADS = ((1, 1), (1, 3), (8, 3), (64, 3))
 SCAN_STRESS = 100
+# kg_join: the LUBM(1) main path's merge steps that expand through
+# join_select, name: ((requests, shards), S_b, C, R, K). Bucket 4 (8 padded
+# requests x 3 shards, C 16,384 keys a block, R 32,768 table rows): step 3
+# searches the 3 gathered shards' blocks with a fan-out cap K of 2,048, step
+# 2 its own shard's with 1,024; bucket 2's step 1 is one request's. The row
+# keys miss most blocks, as the main path's do (an instance keeps at most R
+# pairs; keys drawn from 12 C values), with a few hubs of fan-out 64. The
+# search's record is at step 3's shape (JOIN_C, JOIN_R).
+JOIN_C, JOIN_R = 16384, 32768
+JOIN_STEPS = {"bucket 4 step 3": (PAIR_LEAD, 3, JOIN_C, JOIN_R, 2048),
+              "bucket 4 step 2": (PAIR_LEAD, 1, JOIN_C, JOIN_R, 1024),
+              "bucket 2 step 1": ((1, 3), 1, 512, 512, 32)}
 RNG = np.random.default_rng(0)
 BATCH = 14                   # requests per serve(): one per LUBM template
 # the production clustering workload: every (university, department)
@@ -359,6 +384,24 @@ def bound(n_bytes: float, n_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_ms(fn, reps: int = REPS) -> float:
+    """Device milliseconds of fn()'s kernels and memsets per call, summed
+    over ``reps`` back-to-back calls under torch.profiler: the card's own
+    time, without the host's time to issue a call or an idle card between
+    calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    on_device = torch.autograd.DeviceType.CUDA
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == on_device) / reps / 1e3
+
+
 def device_breakdown(fn, share_of: tuple[str, ...] = ()) -> str:
     """One run of fn() under torch.profiler: the device-busy share of its
     wall and the kernels with the most device time (and the share of the
@@ -420,8 +463,8 @@ def scan_args(lead: tuple[int, int], n: int, *, mask_only: bool = False,
     return (tr, va, spo, eq)
 
 
-def pair_mask(lead: tuple[int, int], n: int,
-              p_valid: float = 0.8) -> torch.Tensor:
+def random_mask(lead: tuple[int, int], n: int,
+                p_valid: float = 0.8) -> torch.Tensor:
     """A (requests, shards, n) bool mask made on the card from seed 0 (one
     instance at a time), the first instance all false and the last all
     true, as scan_args makes its masks."""
@@ -539,19 +582,19 @@ def scan_sweep() -> int:
     return checks
 
 
-def scan_stress(fn, what: str) -> None:
+def stress(fn, what: str) -> None:
     """SCAN_STRESS launches of fn back to back, each output equal to the
-    first launch's: a race in the look-back would show as a difference."""
+    first launch's: a race in a look-back would show as a difference."""
     first = [x for x in fn() if x is not None]
     diff = torch.zeros((), dtype=torch.int64, device=DEV)
     for _ in range(SCAN_STRESS - 1):
         for a, b in zip([x for x in fn() if x is not None], first):
             diff += (a != b).sum()
     if int(diff.item()) != 0:
-        raise AssertionError(f"kg_scan {what}: {int(diff.item())} values "
-                             f"differ between {SCAN_STRESS} launches")
-    log(f"  kg_scan stress, {what}: {SCAN_STRESS} launches, each equal to "
-        f"the first")
+        raise AssertionError(f"{what}: {int(diff.item())} values differ "
+                             f"between {SCAN_STRESS} launches")
+    log(f"  stress, {what}: {SCAN_STRESS} launches, each equal to the "
+        f"first")
 
 
 def scan_records() -> dict:
@@ -605,17 +648,16 @@ def scan_records() -> dict:
         f"err={err} ms={sel_ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={b_ms:.4f}")
     big = scan_args((64, 3), 36800)
-    scan_stress(lambda: scan_ops.scan_hits(*big),
-                "scan_hits, predicate mode, 192 x 36800")
-    scan_stress(lambda: scan_ops.scan_select(big[0], big[1], 16384,
-                                             *big[2:]),
-                "scan_select, predicate mode, 192 x 36800, k 16384")
+    stress(lambda: scan_ops.scan_hits(*big),
+           "kg_scan scan_hits, predicate mode, 192 x 36800")
+    stress(lambda: scan_ops.scan_select(big[0], big[1], 16384, *big[2:]),
+           "kg_scan scan_select, predicate mode, 192 x 36800, k 16384")
     del big
 
     # bucket 4's pair masks as the main path compacts them: 8 padded
     # requests x 3 shards, R = 32,768 kept of each; beside it the route the
     # engine took before (the prefix sum, then join_ranges over it)
-    mask = pair_mask(PAIR_LEAD, PAIR_ROWS)
+    mask = random_mask(PAIR_LEAD, PAIR_ROWS)
     args = (None, mask, None, None)
     out = scan_ops.scan_select(None, mask, PAIR_K)
     torch.cuda.synchronize()
@@ -639,11 +681,11 @@ def scan_records() -> dict:
         f"join_ranges over cum for 1..k; equal to scan_select): "
         f"ms={cum_route_ms:.4f}; scan_select / cum route "
         f"{rec['scan_select']['ms'] / cum_route_ms:.3f}")
-    scan_stress(lambda: scan_ops.scan_select(None, mask, PAIR_K),
-                f"scan_select, mask, {PAIR_LEAD[0] * PAIR_LEAD[1]} x "
-                f"{PAIR_ROWS}, k {PAIR_K}")
+    stress(lambda: scan_ops.scan_select(None, mask, PAIR_K),
+           f"kg_scan scan_select, mask, {PAIR_LEAD[0] * PAIR_LEAD[1]} x "
+           f"{PAIR_ROWS}, k {PAIR_K}")
     # bucket 4's other pair mask (step 2): checked and timed
-    step2 = pair_mask(PAIR_LEAD, PAIR_ROWS_STEP2)
+    step2 = random_mask(PAIR_LEAD, PAIR_ROWS_STEP2)
     err = same_outputs(scan_ops.scan_select(None, step2, PAIR_K),
                        scan_select_ref(None, step2, PAIR_K))
     ms = time_ms(lambda: scan_ops.scan_select(None, step2, PAIR_K))
@@ -666,8 +708,8 @@ def scan_records() -> dict:
     log(f"  kg_scan.scan_hits prefix mode (3 x {PAIR_ROWS}): err={err} "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} torch.cumsum_ms={lib_ms:.4f} "
         f"bound_ms={b_ms:.4f}")
-    scan_stress(lambda: scan_ops.scan_hits(*args),
-                f"scan_hits, prefix mode, 3 x {PAIR_ROWS}")
+    stress(lambda: scan_ops.scan_hits(*args),
+           f"kg_scan scan_hits, prefix mode, 3 x {PAIR_ROWS}")
     # the select mode there too, beside the route without it
     err = same_outputs(scan_ops.scan_select(None, one, PAIR_K),
                        scan_select_ref(None, one, PAIR_K))
@@ -681,22 +723,205 @@ def scan_records() -> dict:
     return rec
 
 
+def sorted_keys(shape, hi_key: int, hubs: int = 0) -> torch.Tensor:
+    """Match keys (…, C) drawn from [-1, hi_key), 20% INT_MAX padding,
+    sorted per block on the card; ``hubs`` keys of each block set to 7 (a
+    row key of 7 then has that fan-out there)."""
+    keys = RNG.integers(-1, hi_key, shape).astype(np.int32)
+    if hubs:
+        keys[..., :hubs] = 7
+    keys = np.where(RNG.uniform(size=shape) < 0.2, 2**31 - 1, keys)
+    return torch.sort(dev(keys.astype(np.int32)), dim=-1)[0]
+
+
+def join_args(lead, keys_lead, sb: int, c: int, r: int, hi_key: int,
+              hubs: int = 0):
+    """join_select's arguments as the engine passes them: keys
+    (*keys_lead, sb, c) broadcast to ``lead`` (requests, shards), rkey and
+    tmask (*lead, r) with -1 among the row keys. The first instance's rows
+    are all dead and the last one's all live."""
+    keys = sorted_keys((*keys_lead, sb, c), hi_key, hubs)
+    rkey = RNG.integers(-1, hi_key + 3, (*lead, r)).astype(np.int32)
+    rkey.reshape(-1)[::997] = 7
+    tmask = RNG.uniform(size=(*lead, r)) < 0.7
+    tmask.reshape(-1, r)[0] = False
+    tmask.reshape(-1, r)[-1] = True
+    return keys, dev(rkey), dev(tmask)
+
+
+def join_check(keys, rkey, tmask, fans) -> int:
+    """join_ranges (also as (…, C) keys for one block) and join_select,
+    at each fan-out cap and at caps 1, around an
+    instance's total, R and R * S_b * K, bit for bit against their plain
+    versions; returns the number of calls checked."""
+    sb, r = keys.shape[-2], rkey.shape[-1]
+    # join_ranges tells (…, S_b, C) keys by their rank: a stride-0 view
+    full = keys.expand(*rkey.shape[:-1], *keys.shape[-2:])
+    out = join_ops.join_ranges(full, rkey)
+    torch.cuda.synchronize()
+    max_err(out, join_ranges_ref(full, rkey))
+    calls = 1
+    if sb == 1:
+        k1 = full[..., 0, :]
+        max_err(join_ops.join_ranges(k1, rkey), join_ranges_ref(k1, rkey))
+        calls += 1
+    for fan in fans:
+        n = r * sb * fan
+        totals = join_select_ref(keys, rkey, tmask, fan, n)[4].reshape(-1)
+        t = int(totals[totals.numel() // 2].item())
+        for cap in sorted({1, max(t - 1, 1), max(t, 1), t + 1, r, n}):
+            ref = join_select_ref(keys, rkey, tmask, fan, cap)
+            o = join_ops.join_select(keys, rkey, tmask, fan, cap)
+            torch.cuda.synchronize()
+            max_err(o, ref)
+            calls += 1
+    return calls
+
+
+def join_sweep() -> int:
+    """The ragged sweep: C from 1 to past the shared-memory budget (the
+    splitter route), S_b 1 and 3, R off the tiles, keys broadcast over the
+    requests or over every instance, fan-out caps 1, 3 and 64."""
+    budget = join_kernel.KEY_BUDGET
+    routes, calls = set(), 0
+    for c in (1, 9, 1000, budget - 1, budget, budget + 1, 65536):
+        for sb in (1, 3):
+            for lead, keys_lead, r in (((1, 3), (1, 3), 77),
+                                       ((8, 3), (1, 3), 1000),
+                                       ((8, 3), (3,), 257),
+                                       ((2, 3), (2, 3), 4097)):
+                n_inst = lead[0] * lead[1]
+                routes.add(join_kernel.plan(n_inst, sb, c, r).route)
+                args = join_args(lead, keys_lead, sb, c, r,
+                                 hi_key=max(c // 4, 4), hubs=min(c // 2, 64))
+                calls += join_check(*args, fans=(1, 3, 64))
+    if routes != {"shared", "splitter"}:
+        raise AssertionError(f"the kg_join sweep takes routes {routes}")
+    return calls
+
+
 def ranges_case(n_inst: int, sb: int, c: int, r: int):
-    keys = np.sort(RNG.integers(-1, 4000, (n_inst, sb, c)).astype(np.int32),
-                   axis=-1)
-    keys = np.where(RNG.uniform(size=keys.shape) < 0.2, 2**31 - 1, keys)
-    keys = dev(np.sort(keys, axis=-1).astype(np.int32))
+    keys = sorted_keys((n_inst, sb, c), 4000)
     rkey = dev(RNG.integers(-1, 4100, (n_inst, r)).astype(np.int32))
     out = join_ops.join_ranges(keys, rkey)
     torch.cuda.synchronize()
     err = max_err(out, join_ranges_ref(keys, rkey))
-    k1 = keys[:, 0].contiguous()
-    err = max(err, max_err(join_ops.join_ranges(k1, rkey),
-                           join_ranges_ref(k1, rkey)))
     searches = n_inst * sb * r
     n_bytes = n_inst * sb * c * 4 + n_inst * r * 4 + 2 * searches * 4
     n_ops = searches * 2 * int(np.ceil(np.log2(c + 1))) * 3
     return (keys, rkey), err, bound(n_bytes, n_ops)
+
+
+def mask_route(keys, rkey, tmask, fan: int, cap: int):
+    """The merge join's expansion and semijoin as the engine made them
+    before join_select: join_ranges, the counts, the (row, block, slot)
+    pair mask, scan_select of it and its .any."""
+    lo, hi = join_ops.join_ranges(keys, rkey)
+    counts = torch.where(tmask[..., None, :], hi - lo, 0)
+    pair = pair_mask(counts, fan)
+    sel = scan_ops.scan_select(None, pair.reshape(*pair.shape[:-2], -1), cap)
+    return lo, counts, sel, pair.any(dim=-1)
+
+
+def join_records() -> dict:
+    """kg_join's sweep, its search at the merge steps' shapes (the earlier
+    records' data), and join_select at bucket 4's steps 3 and 2: checked,
+    timed beside its plain version and the mask route it replaces; 100
+    launches at step 3 each equal to the first."""
+    t0 = time.perf_counter()
+    calls = join_sweep()
+    log(f"  kg_join ragged sweep: {calls} calls of join_ranges and "
+        f"join_select bit-identical to their plain "
+        f"versions ({time.perf_counter() - t0:.1f} s)")
+    rec = {}
+    n_inst = PAIR_LEAD[0] * PAIR_LEAD[1]
+    (keys, rkey), err, (b_ms, b_by) = ranges_case(n_inst, 3, JOIN_C, JOIN_R)
+    rk = rkey[:, None, :].expand(n_inst, 3, JOIN_R).contiguous()
+
+    def library():
+        return (torch.searchsorted(keys, rk, side="left", out_int32=True),
+                torch.searchsorted(keys, rk, side="right", out_int32=True))
+
+    p = join_kernel.plan(n_inst, 3, JOIN_C, JOIN_R)
+    rec["join_ranges"] = dict(
+        name="kg_join.join_ranges", route="cuda",
+        source="src/repro_torch/csrc/kg_join.cu",
+        replaces="src/repro/kernels/kg_join/kernel.py:62",
+        max_abs_err=err,
+        ms=time_ms(lambda: join_ops.join_ranges(keys, rkey)),
+        plain_ms=time_ms(lambda: join_ranges_ref(keys, rkey)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library),
+        kernel_ms=kernel_ms(lambda: join_ops.join_ranges(keys, rkey)))
+    log(f"  kg_join.join_ranges ({n_inst} x 3 x {JOIN_C} keys, {JOIN_R} "
+        f"rows; route {p.route}, {join_kernel.THREADS} threads x "
+        f"{p.ranges.rows_per_thread} rows, {p.ranges.blocks} blocks): "
+        f"{rec['join_ranges']}")
+    # spread: the kernel and the two searchsorted calls in alternation,
+    # 5 rounds of 25 calls each
+    spread = {"join_ranges": [], "searchsorted x2": []}
+    for _ in range(5):
+        spread["join_ranges"].append(
+            time_ms(lambda: join_ops.join_ranges(keys, rkey)))
+        spread["searchsorted x2"].append(time_ms(library))
+    log("  join_ranges spread over 5 rounds of 25 calls, in alternation: "
+        + "; ".join(f"{name} median {np.median(v):.4f} ms, rounds "
+                    f"{[round(x, 4) for x in v]}, spread (max - min) / median "
+                    f"{(max(v) - min(v)) / np.median(v):.1%}"
+                    for name, v in spread.items())
+        + "; kernel / library "
+        f"{np.median(spread['join_ranges']) / np.median(spread['searchsorted x2']):.3f}")
+    del rk
+    # the PPN-local merge steps (one key block), and bucket 4's step 5,
+    # whose 65,536 keys a block take the splitter route
+    for sb, c in ((1, JOIN_C), (3, 65536)):
+        (k1, r1), err, (b1, _) = ranges_case(n_inst, sb, c, JOIN_R)
+        log(f"  kg_join.join_ranges ({n_inst} x {sb} x {c} keys, {JOIN_R} "
+            f"rows; route {join_kernel.plan(n_inst, sb, c, JOIN_R).route}): "
+            f"err={err} ms={time_ms(lambda: join_ops.join_ranges(k1, r1)):.4f}"
+            f" bound_ms={b1:.4f}")
+
+    for step, (lead, sb, c, r, fan) in JOIN_STEPS.items():
+        keys, rkey, tmask = join_args(lead, lead, sb, c, r, hi_key=12 * c,
+                                      hubs=min(c // 2, 64))
+        n_inst = lead[0] * lead[1]
+        ref = join_select_ref(keys, rkey, tmask, fan, r)
+        out = join_ops.join_select(keys, rkey, tmask, fan, r)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        route = mask_route(keys, rkey, tmask, fan, r)
+        max_err(route[:2] + route[2][1:], ref)
+        totals = ref[4]
+        del ref, out, route
+        searches = n_inst * sb * r
+        n_bytes = (keys.numel() * 4 + rkey.numel() * 4 + tmask.numel()
+                   + 2 * searches * 4 + n_inst * (r * 5 + 4))
+        b_ms, b_by = bound(n_bytes,
+                           searches * 2 * int(np.ceil(np.log2(c + 1))) * 3)
+
+        def call():
+            return join_ops.join_select(keys, rkey, tmask, fan, r)
+
+        rec_step = dict(
+            name="kg_join.join_select", route="cuda",
+            source="src/repro_torch/csrc/kg_join.cu",
+            replaces="src/repro/kernels/kg_join/kernel.py:62",
+            max_abs_err=err, ms=time_ms(call),
+            plain_ms=time_ms(lambda: join_select_ref(keys, rkey, tmask, fan,
+                                                     r), reps=3, warm=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            kernel_ms=kernel_ms(call))
+        route_ms = time_ms(lambda: mask_route(keys, rkey, tmask, fan, r),
+                           reps=10)
+        log(f"  kg_join.join_select at {step} ({n_inst} x {sb} x {c} keys, "
+            f"{r} rows, K {fan}, cap {r}; totals {int(totals.min())}-"
+            f"{int(totals.max())}): {rec_step}; the route it replaces "
+            f"(join_ranges, pair mask, scan_select, .any) ms={route_ms:.4f}")
+        if step == "bucket 4 step 3":
+            rec["join_select"] = rec_step
+            stress(call, f"kg_join join_select at {step}")
+        del keys, rkey, tmask
+    torch.cuda.empty_cache()
+    return rec
 
 
 def compat_case(n_inst: int, r: int, v: int, c: int):
@@ -1083,7 +1308,11 @@ def spmm_check(vals, recv, mask, n: int, *, plan=None,
                hub: bool = False, assume_sorted: bool = False) -> float:
     """segment_spmm (with ``plan``, or building its own) against its plain
     version within SPMM_TOL of the values' dtype, with ``hub`` at atol
-    GNN_SHARE x max |plain|. Returns max |diff|."""
+    GNN_SHARE x max |plain|. Float32 values are held to the plain sums
+    taken in float64: the plain version's float32 ``index_add_`` adds a
+    node's edges in atomic order, which differs from call to call, and at
+    a node of thousands of edges two of its own calls can differ by more
+    than the tolerance. Returns max |diff|."""
     out = seg_ops.segment_spmm(vals, recv, mask, n, plan=plan,
                                assume_sorted=assume_sorted)
     torch.cuda.synchronize()
@@ -1091,6 +1320,12 @@ def spmm_check(vals, recv, mask, n: int, *, plan=None,
     if out.dtype != ref.dtype:
         raise AssertionError(f"segment_spmm returned {out.dtype}, plain "
                              f"{ref.dtype}")
+    if vals.dtype == torch.float32:
+        live = mask & (recv >= 0) & (recv < n)
+        ref = torch.zeros((n + 1, vals.shape[1]), dtype=torch.float64,
+                          device=vals.device).index_add_(
+            0, torch.where(live, recv.to(torch.int64), n),
+            vals.double())[:n].float()
     tol = dict(SPMM_TOL[vals.dtype])
     if hub:
         tol["atol"] = GNN_SHARE * ref.abs().max().item()
@@ -1330,9 +1565,6 @@ def bag_record() -> dict:
 def phase_kernels() -> dict:
     """Check every kernel on the ragged sweep shapes and the main path's
     shapes; time each at its main-path shape. Returns per-kernel records."""
-    for sb, c, r in ((1, 64, 32), (3, 1000, 200), (8, 128, 513),
-                     (1, 16384, 32768), (3, 16384, 32768)):
-        ranges_case(2, sb, c, r)
     for r, v, c in ((32, 4, 64), (200, 1, 17), (513, 6, 300)):
         compat_case(3, r, v, c)
     for q, f in ((3, 5), (14, 23), (130, 257), (1000, 77)):
@@ -1394,43 +1626,7 @@ def phase_kernels() -> dict:
 
     rec = scan_records()
 
-    # kg_join.join_ranges at bucket 4's gathered merge steps: 24 instances,
-    # 3 key blocks of C = 16,384, R = 32,768 table rows
-    (keys, rkey), err, (b_ms, b_by) = ranges_case(24, 3, 16384, 32768)
-    rk = rkey[:, None, :].expand(24, 3, 32768).contiguous()
-    rec["join_ranges"] = dict(
-        name="kg_join.join_ranges", route="cuda",
-        source="src/repro_torch/csrc/kg_join.cu",
-        replaces="src/repro/kernels/kg_join/kernel.py:62",
-        max_abs_err=err,
-        ms=time_ms(lambda: join_ops.join_ranges(keys, rkey)),
-        plain_ms=time_ms(lambda: join_ranges_ref(keys, rkey)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: (
-            torch.searchsorted(keys, rk, side="left", out_int32=True),
-            torch.searchsorted(keys, rk, side="right", out_int32=True))))
-    log(f"  kg_join.join_ranges (24 x 3 x 16384 keys, 32768 rows): "
-        f"{rec['join_ranges']}")
-    # spread: the kernel and the two searchsorted calls in alternation,
-    # 5 rounds of 25 calls each
-    spread = {"join_ranges": [], "searchsorted x2": []}
-    for _ in range(5):
-        spread["join_ranges"].append(
-            time_ms(lambda: join_ops.join_ranges(keys, rkey)))
-        spread["searchsorted x2"].append(time_ms(lambda: (
-            torch.searchsorted(keys, rk, side="left", out_int32=True),
-            torch.searchsorted(keys, rk, side="right", out_int32=True))))
-    log("  join_ranges spread over 5 rounds of 25 calls, in alternation: "
-        + "; ".join(f"{name} median {np.median(v):.4f} ms, rounds "
-                    f"{[round(x, 4) for x in v]}, spread (max - min) / median "
-                    f"{(max(v) - min(v)) / np.median(v):.1%}"
-                    for name, v in spread.items())
-        + f"; kernel / library {np.median(spread['join_ranges']) / np.median(spread['searchsorted x2']):.3f}")
-    # the PPN-local merge steps: one key block
-    (k1, r1), err, (b1, _) = ranges_case(24, 1, 16384, 32768)
-    log(f"  kg_join.join_ranges S_b=1: err={err} "
-        f"ms={time_ms(lambda: join_ops.join_ranges(k1, r1)):.4f} "
-        f"bound_ms={b1:.4f}")
+    rec.update(join_records())
 
     # kg_join.compat_matrix at the expand path's largest call of phase 5
     # (LUBM scale 0.1, bucket 4: 8 requests x 3 shards, R = 256 table rows
@@ -1537,6 +1733,7 @@ def phase_kernels() -> dict:
 OPS = {"scan_hits": scan_ops.scan_hits,
        "scan_select": scan_ops.scan_select,
        "join_ranges": join_ops.join_ranges,
+       "join_select": join_ops.join_select,
        "compat_matrix": join_ops.compat_matrix,
        "jaccard_distance": jac_ops.jaccard_distance,
        "gather_rows": emb_ops.gather_rows,
@@ -1602,11 +1799,14 @@ def serve_path(scale: float, join_impl: str, passes: int = 2, *,
                                    order=server.plans[q.name].meta["order"])
               for q in queries}
 
-    # each merge join makes one join_ranges call: count the engine's
-    merge_join, merges = engine_batch._join_merge, [0]
+    # each merge join makes one join_ranges or join_select call: count the
+    # engine's, and those that expand without verifying a second column
+    # (the join_select ones: new_mode, the 8th argument, not "none")
+    merge_join, merges = engine_batch._join_merge, [0, 0]
 
     def counted_merge(*a, **kw):
         merges[0] += 1
+        merges[1] += not any(kw["verify_mask"]) and a[7] != "none"
         return merge_join(*a, **kw)
 
     server.reset_stats()
@@ -1625,7 +1825,7 @@ def serve_path(scale: float, join_impl: str, passes: int = 2, *,
     finally:
         engine_batch._join_merge = merge_join
     launched = counts()
-    launched["merge_joins"] = merges[0]
+    launched["merge_joins"], launched["select_joins"] = merges
     launched["jaccard_distance"] = jaccard_launches
     peak = torch.cuda.max_memory_allocated(DEV)
 
@@ -2055,26 +2255,37 @@ def main() -> None:
         f"Jaccard kernel, join sorted, backend cuda, {BATCH} requests per "
         "serve()")
     main_counts = serve_path(1.0, "sorted", kernel_partition=True)
-    for k in ("jaccard_distance", "scan_select", "join_ranges"):
+    for k in ("jaccard_distance", "scan_select", "join_ranges",
+              "join_select"):
         if main_counts[k] <= 0:
             raise AssertionError(f"main path never launched {k}")
-    # the compactions run in scan_select: join_ranges only in merge joins
-    if main_counts["join_ranges"] != main_counts["merge_joins"]:
-        raise AssertionError(f"main path launched join_ranges "
-                             f"{main_counts['join_ranges']} times for "
-                             f"{main_counts['merge_joins']} merge joins")
+    # each merge join searches once: join_select where it expands with no
+    # second column to verify (no pair mask, no scan_select), join_ranges
+    # elsewhere
+    if (main_counts["join_ranges"] + main_counts["join_select"]
+            != main_counts["merge_joins"]
+            or main_counts["join_select"] != main_counts["select_joins"]):
+        raise AssertionError(
+            f"main path launched join_ranges {main_counts['join_ranges']} "
+            f"and join_select {main_counts['join_select']} times for "
+            f"{main_counts['merge_joins']} merge joins, "
+            f"{main_counts['select_joins']} of them expanding without "
+            f"verification")
     log(f"  main path launches: scan_hits {main_counts['scan_hits']}, "
         f"scan_select {main_counts['scan_select']}, join_ranges "
-        f"{main_counts['join_ranges']} (merge joins "
-        f"{main_counts['merge_joins']})")
+        f"{main_counts['join_ranges']}, join_select "
+        f"{main_counts['join_select']} (merge joins "
+        f"{main_counts['merge_joins']}, {main_counts['select_joins']} "
+        f"expanding without verification)")
 
     log("[5/10] expand path: LUBM scale 0.1, join expand, backend cuda")
     expand_counts = serve_path(0.1, "expand")
     for k in ("compat_matrix", "scan_hits", "scan_select"):
         if expand_counts[k] <= 0:
             raise AssertionError(f"expand path never launched {k}")
-    if expand_counts["join_ranges"] != 0:
-        raise AssertionError("expand path launched join_ranges")
+    if expand_counts["join_ranges"] or expand_counts["join_select"]:
+        raise AssertionError("expand path launched join_ranges or "
+                             "join_select")
 
     log(f"[6/10] clustering: {UNIVERSITIES * DEPARTMENTS * 14:,} LUBM query "
         "instances")
@@ -2097,6 +2308,7 @@ def main() -> None:
     rec["scan_hits"]["launches"] = expand_counts["scan_hits"]
     rec["scan_select"]["launches"] = main_counts["scan_select"]
     rec["join_ranges"]["launches"] = main_counts["join_ranges"]
+    rec["join_select"]["launches"] = main_counts["join_select"]
     rec["compat_matrix"]["launches"] = expand_counts["compat_matrix"]
     rec["jaccard_distance"]["launches"] = main_counts["jaccard_distance"]
     rec["gather_rows"]["launches"] = sum(
@@ -2112,6 +2324,7 @@ def main() -> None:
     paths = {"scan_hits": "LUBM expand path (phase 5)",
              "scan_select": "LUBM main path (phase 4)",
              "join_ranges": "LUBM main path (phase 4)",
+             "join_select": "LUBM main path (phase 4)",
              "compat_matrix": "LUBM expand path (phase 5)",
              "jaccard_distance": "WawPart partition (phase 4)",
              "gather_rows": "xDeepFM forward (phase 7)",
@@ -2143,7 +2356,8 @@ def main() -> None:
         {k: r[k] for k in keys + ("q", "kv", "q_start", "flash_route",
                                   "shape", "ms_with_plan", "plan_ms",
                                   "kernel_only_ms", "kernel_uniform_ms",
-                                  "piece", "n_pieces", "n_split")
+                                  "piece", "n_pieces", "n_split",
+                                  "kernel_ms")
          if k in r}
         for r in rec.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,7 @@
 //    and an instance's first tile publishes its inclusive prefix at once),
 //    and publishes the tile's inclusive prefix. Flag and value travel as
 //    one 64-bit word, stored with st.release.gpu and read with
-//    ld.acquire.gpu.
+//    ld.acquire.gpu (lookback.cuh, shared with kg_join.cu's select).
 //  - Many rows a thread: a warp owns V segments of 512 consecutive rows,
 //    and in each a lane owns 16 consecutive rows, read with one 16-byte
 //    load of the mask (coalesced across the warp). The in-tile scan is
@@ -52,15 +52,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
 
 constexpr int kMaxLead = 4;          // leading dims after folding
 constexpr int kSegRows = 512;        // a warp's 32 lanes x 16 rows
 constexpr int kMaxThreads = 512;
 constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned long long kFlagAggregate = 1;   // the tile's own count
-constexpr unsigned long long kFlagPrefix = 2;      // count through the tile
 
 // Leading dims of the instances, row-major, with each input's stride per
 // dim in its own elements (0 for a broadcast dim).
@@ -87,22 +86,6 @@ struct Args {
   Lead lead;
   long long n, k, tiles_per_inst, tiles;
 };
-
-__device__ __forceinline__ void publish(unsigned long long* word,
-                                        unsigned long long flag,
-                                        unsigned value) {
-  const unsigned long long w = (flag << 32) | value;
-  asm volatile("st.release.gpu.global.b64 [%0], %1;"
-               :: "l"(word), "l"(w) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long observe(
-    const unsigned long long* word) {
-  unsigned long long w;
-  asm volatile("ld.acquire.gpu.global.b64 %0, [%1];"
-               : "=l"(w) : "l"(word) : "memory");
-  return w;
-}
 
 // One bit per byte of a 4-byte word: bit b set iff byte b is not 0.
 __device__ __forceinline__ unsigned nonzero_bytes(unsigned x) {
@@ -138,44 +121,6 @@ __device__ __forceinline__ int lane_prefix(int c, int lane, int& run) {
   }
   run += __shfl_sync(kFull, x, 31);
   return x - c;
-}
-
-// Warp 0: publish the tile's count, find the count of the instance's rows
-// before the tile, publish the count through the tile. Returns the count
-// before the tile (the same in every lane).
-__device__ int look_back(unsigned long long* status, long long tile,
-                         long long local, int aggregate) {
-  const int lane = threadIdx.x & 31;
-  if (local == 0) {
-    if (lane == 0) publish(status + tile, kFlagPrefix, aggregate);
-    return 0;
-  }
-  if (lane == 0) publish(status + tile, kFlagAggregate, aggregate);
-  const long long first = tile - local;    // the instance's first tile
-  int exclusive = 0;
-  for (long long end = tile;; end -= 32) {
-    // lane l reads tile end - 1 - l; tiles before the instance count 0
-    // (its first tile, nearer, holds a prefix)
-    const long long j = end - 1 - lane;
-    unsigned long long w = kFlagPrefix << 32;
-    if (j >= first) {
-      w = observe(status + j);
-      while ((w >> 32) == 0) {
-        __nanosleep(32);
-        w = observe(status + j);
-      }
-    }
-    const unsigned prefixed = __ballot_sync(kFull, (w >> 32) == kFlagPrefix);
-    // the nearest tile with its prefix ends the walk; nearer ones add theirs
-    const int stop = prefixed ? __ffs(prefixed) - 1 : 31;
-    int v = lane <= stop ? static_cast<int>(static_cast<unsigned>(w)) : 0;
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
-    exclusive += v;
-    if (prefixed) break;
-  }
-  if (lane == 0) publish(status + tile, kFlagPrefix, exclusive + aggregate);
-  return exclusive;
 }
 
 // A block of blockDim.x threads scans one tile of blockDim.x * 16 * V

@@ -46,8 +46,9 @@ from repro_torch.engine.planner import PhysicalPlan, pad_plan
 from repro_torch.engine.primitives import (EQ_PAIRS, INT_MAX, KernelBlocks,
                                            check_backend, compact,
                                            compat_matrix, join_ranges,
-                                           scan_hits, scan_select,
-                                           select_cap, take, take_rows)
+                                           join_select, pair_mask, scan_hits,
+                                           scan_select, select_cap, take,
+                                           take_rows)
 
 _INT_MAX = int(INT_MAX)
 
@@ -359,12 +360,17 @@ def _join_merge(table, tmask, m_blocks, mm_blocks, pos0, kind, col,
     (…, S_b, C), pos0 (…,) int64, kind/col (…, 3) — one block per gathered
     shard, or a single block for PPN-local steps. verify_mask flags the
     positions some member verifies as a 2nd+ shared column: only those
-    force the (R, S_b*K)-sized candidate gathers before selection.
+    force the (R, S_b*K) pair mask and its candidate gathers. A step
+    without them builds no mask: its expansion is one `join_select` (the
+    searches and the compaction of the (row, block, slot) pairs, straight
+    from the clipped counts) and its semijoin reads the counts.
     """
     R, V = table.shape[-2:]
     Sb, C = mm_blocks.shape[-2:]
     lead = table.shape[:-2]
     K = min(max_per_row, C)
+    if K < 1:
+        raise ValueError(f"max_per_row must be at least 1, got {max_per_row}")
     is_sh = kind == 1
     first = torch.argmax(is_sh.to(torch.int32), dim=-1, keepdim=True)
     col0 = torch.gather(col, -1, first).clamp(0, V - 1)          # (…, 1)
@@ -373,17 +379,15 @@ def _join_merge(table, tmask, m_blocks, mm_blocks, pos0, kind, col,
     keys = torch.where(mm_blocks, torch.gather(m_blocks, -1, pos_idx)[..., 0],
                        _INT_MAX)                                 # (…, Sb, C)
     rkey = torch.gather(table, -1, col0[..., None].expand(*lead, R, 1))[..., 0]
-    lo, hi = join_ranges(keys, rkey, backend=backend)            # (…, Sb, R)
-    counts = torch.where(tmask[..., None, :], hi - lo, 0)
+    verify = any(verify_mask)
+    selected = None
+    if verify or new_mode == "none":
+        lo, hi = join_ranges(keys, rkey, backend=backend)        # (…, Sb, R)
+        counts = torch.where(tmask[..., None, :], hi - lo, 0)
+    else:
+        lo, counts, *selected = join_select(keys, rkey, tmask, K, R,
+                                            backend=backend)
     overflow_fanout = counts.amax(dim=(-2, -1)) > K
-
-    # (row, block, slot) order directly; counts is already 0 on dead rows,
-    # so the reference's extra `& tmask` pass changes nothing. The small
-    # counts are made contiguous first: a strided operand would give the
-    # mask its strides and turn the reshape into a copy of the whole mask.
-    offs = torch.arange(K, dtype=torch.int32, device=table.device)
-    row_counts = counts.transpose(-2, -1).contiguous()           # (…, R, Sb)
-    pair_ok = (offs < row_counts[..., None]).reshape(*lead, R, Sb * K)
     m_flat = m_blocks.reshape(*lead, Sb * C, 3)
     lo_flat = lo.reshape(*lead, Sb * R)
 
@@ -395,8 +399,12 @@ def _join_merge(table, tmask, m_blocks, mm_blocks, pos0, kind, col,
         src = (take(lo_flat, blk * R + row) + within).clamp(0, C - 1)
         return blk * C + src
 
-    if any(verify_mask):
+    if verify:
+        # (row, block, slot) order directly; counts is already 0 on dead
+        # rows, so the reference's extra `& tmask` pass changes nothing
+        pair_ok = pair_mask(counts, K)                           # (…, R, SbK)
         # every candidate slot, laid out as (…, R, S_b, K) without a gather
+        offs = torch.arange(K, dtype=torch.int32, device=table.device)
         blk_base = torch.arange(Sb, dtype=torch.int32,
                                 device=table.device)[:, None] * C
         idx_all = (lo.transpose(-2, -1)[..., None] + offs).clamp(0, C - 1)
@@ -413,15 +421,23 @@ def _join_merge(table, tmask, m_blocks, mm_blocks, pos0, kind, col,
     def expansion():
         # select surviving (row, candidate) pairs first, THEN gather their
         # match values — R gathers instead of R*S_b*K
-        flat = pair_ok.reshape(*lead, R * Sb * K)
-        order, omask, total = select_cap(flat, R, backend=backend)
+        if selected is None:
+            flat = pair_ok.reshape(*lead, R * Sb * K)
+            order, omask, total = select_cap(flat, R, backend=backend)
+        else:
+            order, omask, total = selected
         vals = take_rows(m_flat, cand_idx(order))                # (…, R, 3)
         out = _scatter_new(take_rows(table, order // (Sb * K)),
                            [vals[..., pos] for pos in range(3)], kind, col, V)
         return out, omask, total > R
 
     def semijoin():
-        return table, tmask & pair_ok.any(dim=-1), _zeros_flag(tmask)
+        if verify:
+            return table, tmask & pair_ok.any(dim=-1), _zeros_flag(tmask)
+        # a row joins iff some block holds a candidate: with K >= 1 the
+        # pair mask has a set slot for (row, block) iff counts > 0
+        return (table, tmask & (counts > 0).any(dim=-2),
+                _zeros_flag(tmask))
 
     t2, m2, ovf = _mix(new_mode, kind, expansion, semijoin)
     return t2, m2, ovf | overflow_fanout
@@ -453,10 +469,11 @@ def make_batched_engine(sig: BucketSignature, *, join_impl: str = "expand",
     signature's data-sized per-step fan-out caps).
     backend: "torch" runs the plain primitives; "cuda" routes the scan
     (fused predicate with its compaction), the compactions, the
-    candidate-range search and the compat matrix through the kg_scan /
-    kg_join kernels (plain versions on CPU tensors), bit-identically. On
-    "cuda" the merge path scans the permuted view directly, so one
-    select launch of the scan both matches and compacts it.
+    candidate-range search (with the merge join's pair compaction,
+    `join_select`) and the compat matrix through the kg_scan / kg_join
+    kernels (plain versions on CPU tensors), bit-identically. On "cuda" the
+    merge path scans the permuted view directly, so one select launch of
+    the scan both matches and compacts it.
     """
     check_gather_cap(gather_cap)
     check_backend(backend, kernel_blocks)

@@ -1,8 +1,9 @@
 """Shared scan/join primitives of the batched engine, on PyTorch tensors.
 
 The tensorized BGP building blocks: the fused triple-pattern predicate, the
-cumsum-based stable compaction, the expand-join compatibility matrix and the
-merge-join candidate-range search. Every function takes leading instance
+cumsum-based stable compaction, the expand-join compatibility matrix, the
+merge-join candidate-range search and its compaction of (row, candidate)
+pairs (`join_select`). Every function takes leading instance
 dims ``(…)`` — the batched engine runs them over ``(batch, shard)`` — and
 keeps every index and count int32.
 
@@ -12,7 +13,8 @@ PyTorch formulation below on any device; "cuda" goes through the kernel ops
 kernels on CUDA tensors and use the same plain formulation on CPU tensors.
 On the "cuda" backend a compaction is one launch of the kg_scan kernel's
 select epilogue, which writes the selected positions without an (…, n)
-prefix sum; the kg_join range search serves only the merge joins. The
+prefix sum; the kg_join range search serves only the merge joins, and
+its select epilogue compacts a merge join's pairs with no pair mask. The
 engine's CUDA path calls no library scan or search. The two backends are
 bit-identical on every value that is ever read through a mask.
 """
@@ -34,8 +36,9 @@ class KernelBlocks:
     """Tile sizes of the query kernels — part of every engine cache key.
 
     The CUDA kernels of this package fix their own tiles (the scan's by
-    `kernels/kg_scan/kernel.plan`, 64 x 128 compat tiles, one thread per
-    range search), so these fields only key the cache and are validated as
+    `kernels/kg_scan/kernel.plan`, 64 x 128 compat tiles, the range
+    search's by `kernels/kg_join/kernel.plan`), so these fields only key the
+    cache and are validated as
     in the JAX package.
     """
     scan_rows: int = 1024
@@ -260,3 +263,37 @@ def join_ranges(keys, rkey, *, backend: str = "torch"):
     rkey = rkey.expand(*lead, rkey.shape[-1]).contiguous()
     return (torch.searchsorted(keys, rkey, side="left", out_int32=True),
             torch.searchsorted(keys, rkey, side="right", out_int32=True))
+
+
+def pair_mask(counts, k: int):
+    """(…, R, S_b * k) bool merge-join pair mask from counts (…, S_b, R):
+    slot w of (row r, block b) is set iff w < counts[…, b, r]. The small
+    counts are made contiguous first: a strided operand would give the
+    mask its strides and turn the reshape into a copy of the whole mask."""
+    sb, r = counts.shape[-2:]
+    offs = torch.arange(k, dtype=torch.int32, device=counts.device)
+    row_counts = counts.transpose(-2, -1).contiguous()          # (…, R, Sb)
+    return (offs < row_counts[..., None]).reshape(*counts.shape[:-2], r,
+                                                  sb * k)
+
+
+def join_select(keys, rkey, tmask, k: int, cap: int, *,
+                backend: str = "torch"):
+    """The merge join's ranges and the stable compaction of its (row,
+    block, slot) pairs: (lo (…, S_b, R), counts (…, S_b, R), order (…, m),
+    omask (…, m), total (…,)) with counts = where(tmask, hi - lo, 0), m =
+    min(cap, R * S_b * k), and (order, omask, total) = ``select_cap`` of
+    ``pair_mask(counts, k)`` flattened. keys (…, S_b, C), rkey (…, R),
+    tmask (…, R); leading dims broadcast. Under "cuda" the kg_join kernel
+    searches, then selects, in two launches, with no pair mask."""
+    if backend == "cuda":
+        from repro_torch.kernels.kg_join.ops import join_select as ks
+        return ks(keys, rkey, tmask, k, cap)
+    lead = torch.broadcast_shapes(keys.shape[:-2], rkey.shape[:-1],
+                                  tmask.shape[:-1])
+    lo, hi = join_ranges(keys.expand(*lead, *keys.shape[-2:]),
+                         rkey.expand(*lead, rkey.shape[-1]))
+    counts = torch.where(tmask[..., None, :], hi - lo, 0)
+    flat = pair_mask(counts, k)
+    flat = flat.reshape(*flat.shape[:-2], -1)
+    return (lo, counts, *select_cap(flat, cap))

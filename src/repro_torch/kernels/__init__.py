@@ -9,8 +9,9 @@ Each kernel package ships:
               ``launches`` counter bumped where it launches its kernel.
 
 Kernels: kg_scan (fused masked triple-pattern scan with its int32 prefix
-sum) and kg_join (merge-join candidate ranges and the expand-join
-compatibility matrix) behind the query engine; jaccard (the WawPart
+sum, or its compaction) and kg_join (merge-join candidate ranges, their
+compaction of the join's pairs, and the expand-join compatibility matrix)
+behind the query engine; jaccard (the WawPart
 query-distance matrix); embedding_bag (the xDeepFM row gather, and the
 weighted bag sum as an op) and cin (the fused xDeepFM CIN layer);
 flash_attention (the dense transformer's attention at prefill and
@@ -22,7 +23,8 @@ The sources are compiled at first CUDA use by ``nvcc`` into shared
 libraries with a plain C interface under ``build/repro_torch/`` at the
 repository root, one library per source, all sources compiled in
 parallel; ``csrc/wgmma.cuh`` holds the Hopper helpers (wgmma, mbarriers,
-bulk and tensor copies) that cin and jaccard include. Nothing here is
+bulk and tensor copies) that cin and jaccard include, ``csrc/lookback.cuh``
+the decoupled look-back that kg_scan and kg_join share. Nothing here is
 imported or compiled when the package is imported, so the CPU-only test
 suite never needs a CUDA toolchain.
 """
@@ -138,3 +140,23 @@ def require(t, name: str, dtype, ndim: int | None = None) -> None:
         raise ValueError(f"{name} must be contiguous")
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
+
+
+def lead_strides(t, tail: int, lead: tuple) -> tuple:
+    """t's strides over ``lead`` as it broadcasts there (0 where it has no
+    dim or a dim of 1); ``tail`` trailing dims are not leading ones."""
+    if t is None:
+        return (0,) * len(lead)
+    shape, stride = t.shape[:t.dim() - tail], t.stride()
+    skip = len(lead) - len(shape)
+    if skip < 0:
+        raise ValueError(f"{tuple(t.shape)} does not broadcast to leading "
+                         f"dims {lead}")
+    out = [0] * skip
+    for i, size in enumerate(shape):
+        if size != 1 and size != lead[skip + i]:
+            raise ValueError(f"{tuple(t.shape)} does not broadcast to "
+                             f"leading dims {lead}")
+        out.append(0 if size == 1 else stride[i])
+    return tuple(out)
+

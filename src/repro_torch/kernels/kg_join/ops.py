@@ -3,15 +3,43 @@ kernels.
 
 A CPU tensor runs the plain version (`ref.py`); a CUDA tensor launches the
 kernel, and anything the kernel does not take raises. There is no fallback
-from the card to the plain version.
+from the card to the plain version. The range search and its select read
+their inputs in place, broadcast leading dims included.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.kg_join.kernel import (compat_matrix_kernel,
-                                                join_ranges_kernel)
-from repro_torch.kernels.kg_join.ref import compat_matrix_ref, join_ranges_ref
+from repro_torch.kernels import lead_strides
+from repro_torch.kernels.kg_join.kernel import (MAX_LEAD, compat_matrix_kernel,
+                                                ranges_kernel, select_kernel)
+from repro_torch.kernels.kg_join.ref import (compat_matrix_ref,
+                                             join_ranges_ref, join_select_ref)
+
+
+def _fold(keys, rkey, tmask, lead):
+    """keys (…, S_b, C), rkey (…, R) and tmask (…, R) or None as the
+    kernels read them, over their broadcast leading dims ``lead``: last
+    dims contiguous, strides over ``lead`` (0 where broadcast); more than
+    MAX_LEAD leading dims are folded into one by a copy. Returns (keys,
+    rkey, tmask, lead, strides)."""
+    sb, c = keys.shape[-2:]
+    r = rkey.shape[-1]
+    if len(lead) > MAX_LEAD:
+        keys = keys.expand(*lead, sb, c).reshape(-1, sb, c)
+        rkey = rkey.expand(*lead, r).reshape(-1, r)
+        if tmask is not None:
+            tmask = tmask.expand(*lead, r).reshape(-1, r)
+        lead = (keys.shape[0],)
+    if c > 1 and keys.stride(-1) != 1:
+        keys = keys.contiguous()
+    if r > 1 and rkey.stride(-1) != 1:
+        rkey = rkey.contiguous()
+    if tmask is not None and r > 1 and tmask.stride(-1) != 1:
+        tmask = tmask.contiguous()
+    strides = (lead_strides(keys, 2, lead), lead_strides(rkey, 1, lead),
+               lead_strides(tmask, 1, lead))
+    return keys, rkey, tmask, tuple(lead), strides
 
 
 def join_ranges(keys, rkey):
@@ -21,24 +49,53 @@ def join_ranges(keys, rkey):
     keys (…, S_b, C) with rkey (…, R) -> (…, S_b, R); or keys (…, C) with
     rkey (…, R) -> (…, R). Keys are sorted per row with INT_MAX invalid
     padding; rkey < INT_MAX (term ids and the -1 unbound sentinel both
-    qualify). Leading dims broadcast.
+    qualify). Leading dims broadcast and are read in place.
     """
     if keys.device.type == "cpu":
         return join_ranges_ref(keys, rkey)
     blocked = keys.dim() == rkey.dim() + 1
     k = keys if blocked else keys[..., None, :]
-    lead = torch.broadcast_shapes(k.shape[:-2], rkey.shape[:-1])
-    sb, c = k.shape[-2:]
-    r = rkey.shape[-1]
-    k = k.expand(*lead, sb, c).reshape(-1, sb, c).contiguous()
-    rk = rkey.expand(*lead, r).reshape(-1, r).contiguous()
-    lo, hi = join_ranges_kernel(k, rk)
+    shape = torch.broadcast_shapes(k.shape[:-2], rkey.shape[:-1])
+    kk, rk, _, lead, strides = _fold(k, rkey, None, shape)
+    lo, hi = ranges_kernel(kk, rk, lead, strides)
     join_ranges.launches += 1
-    shape = (*lead, sb, r) if blocked else (*lead, r)
-    return lo.reshape(shape), hi.reshape(shape)
+    tail = (keys.shape[-2], rkey.shape[-1]) if blocked else (rkey.shape[-1],)
+    return lo.reshape(*shape, *tail), hi.reshape(*shape, *tail)
 
 
 join_ranges.launches = 0
+
+
+def join_select(keys, rkey, tmask, k: int, cap: int):
+    """The merge join's searches and the stable compaction of its (row,
+    block, slot) pairs, without the pair mask: (lo (…, S_b, R) int32,
+    counts (…, S_b, R) int32, order (…, m) int32, omask (…, m) bool, total
+    (…,) int32) with m = min(cap, R * S_b * k).
+
+    counts = where(tmask, hi - lo, 0) of `join_ranges`; slot w of (row r,
+    block b) is set iff w < counts[…, b, r] (w < k), and (order, omask,
+    total) is ``select_cap`` of those slots flattened in (r, b, w) order,
+    bit for bit: order[…, j] = r * S_b * k + b * k + w of the (j+1)-th set
+    slot, R * S_b * k - 1 past total; total counts every set slot. keys
+    (…, S_b, C) int32 sorted per block (INT_MAX-padded), rkey (…, R) int32
+    < INT_MAX, tmask (…, R) bool; leading dims broadcast and are read in
+    place. On the card it is two launches: a search launch that writes lo
+    and counts, then the select.
+    """
+    if keys.device.type == "cpu":
+        return join_select_ref(keys, rkey, tmask, k, cap)
+    shape = torch.broadcast_shapes(keys.shape[:-2], rkey.shape[:-1],
+                                   tmask.shape[:-1])
+    lo, counts, order, omask, total = select_kernel(
+        *_fold(keys, rkey, tmask, shape), k, cap)
+    join_select.launches += 1
+    sb, r = keys.shape[-2], rkey.shape[-1]
+    return (lo.reshape(*shape, sb, r), counts.reshape(*shape, sb, r),
+            order.reshape(*shape, order.shape[-1]),
+            omask.reshape(*shape, omask.shape[-1]), total.reshape(shape))
+
+
+join_select.launches = 0
 
 
 def compat_matrix(table, tmask, matches, mmask, kind, col):

@@ -7,27 +7,9 @@ one launch of the one-pass scan (after the zeroing of its tile status).
 """
 from __future__ import annotations
 
+from repro_torch.kernels import lead_strides
 from repro_torch.kernels.kg_scan.kernel import MAX_LEAD, scan_kernel
 from repro_torch.kernels.kg_scan.ref import scan_hits_ref, scan_select_ref
-
-
-def _lead_strides(t, tail: int, lead: tuple) -> tuple:
-    """t's strides over ``lead`` as it broadcasts there (0 where it has no
-    dim or a dim of 1); ``tail`` trailing dims are not leading ones."""
-    if t is None:
-        return (0,) * len(lead)
-    shape, stride = t.shape[:t.dim() - tail], t.stride()
-    skip = len(lead) - len(shape)
-    if skip < 0:
-        raise ValueError(f"{tuple(t.shape)} does not broadcast to leading "
-                         f"dims {lead}")
-    out = [0] * skip
-    for i, size in enumerate(shape):
-        if size != 1 and size != lead[skip + i]:
-            raise ValueError(f"{tuple(t.shape)} does not broadcast to "
-                             f"leading dims {lead}")
-        out.append(0 if size == 1 else stride[i])
-    return tuple(out)
 
 
 def _fold(triples, valid, spo, eq):
@@ -55,8 +37,8 @@ def _fold(triples, valid, spo, eq):
             spo = spo.contiguous()
         if eq is not None and eq.stride(-1) != 1:
             eq = eq.contiguous()
-    strides = (_lead_strides(valid, 1, lead), _lead_strides(triples, 2, lead),
-               _lead_strides(spo, 1, lead), _lead_strides(eq, 1, lead))
+    strides = (lead_strides(valid, 1, lead), lead_strides(triples, 2, lead),
+               lead_strides(spo, 1, lead), lead_strides(eq, 1, lead))
     return triples, valid, spo, eq, lead, strides
 
 

@@ -319,6 +319,49 @@ def _report_profile(prof, device: torch.device, wall_s: float,
     print(f"  trace -> {Path(out_dir) / 'trace.json'}")
 
 
+def _trace_events(device: torch.device) -> list:
+    """The card's allocator events recorded so far (with their stacks)."""
+    snap = torch.cuda.memory._snapshot()
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return snap["device_traces"][index]
+
+
+def peak_blocks(events: list, first: int) -> tuple[int, int, dict]:
+    """Replay the card's allocator events (``torch.cuda.memory._snapshot``'s
+    device trace) and return (peak bytes, live blocks, {line: [bytes,
+    blocks]}) at the peak of the allocated bytes after event ``first``,
+    the blocks grouped by the innermost repro_torch line that allocated
+    them. The allocated bytes fall at "free_requested", as the allocator's
+    statistics do, so the peak is torch.cuda.max_memory_allocated when
+    every allocation was recorded."""
+    cur = peak = 0
+    at = first
+    for i, ev in enumerate(events):
+        if ev["action"] == "alloc":
+            cur += ev["size"]
+        elif ev["action"] == "free_requested":
+            cur -= ev["size"]
+        if i >= first and cur > peak:
+            peak, at = cur, i
+    live = {}
+    for ev in events[:at + 1]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+        elif ev["action"] == "free_requested":
+            live.pop(ev["addr"], None)
+    groups: dict[str, list[int]] = {}
+    for ev in live.values():
+        where = next((f"{f['filename'].split('repro_torch/')[-1]}:"
+                      f"{f['line']} {f['name']}" for f in ev["frames"]
+                      if "repro_torch/" in f["filename"]),
+                     "(no repro_torch frame)")
+        row = groups.setdefault(where, [0, 0])
+        row[0] += ev["size"]
+        row[1] += 1
+    return peak, len(live), groups
+
+
 def main(argv: list[str] | None = None) -> None:
     """CLI entry point: partition, warm up, and serve the request stream."""
     ap = argparse.ArgumentParser()
@@ -351,10 +394,20 @@ def main(argv: list[str] | None = None) -> None:
                          "the ops by device time (CPU time on the CPU) and "
                          "the per-bucket dispatch times, and write "
                          "DIR/trace.json (Chrome trace)")
+    ap.add_argument("--memory-peak", action="store_true",
+                    help="record every allocation on the card with its "
+                         "Python stack (this slows the host, so the run's "
+                         "times are not comparable) and print the blocks "
+                         "live at the timed loop's peak, by the line that "
+                         "allocated them")
     args = ap.parse_args(argv)
     if args.batch < 1:
         ap.error("--batch must be >= 1")
     device = resolve_device(args.device)
+    if args.memory_peak:
+        if device.type != "cuda":
+            ap.error("--memory-peak needs a CUDA device")
+        torch.cuda.memory._record_memory_history(stacks="python")
 
     store, queries = build_dataset(args.dataset, args.scale)
     stream = request_stream(queries, args.requests)
@@ -381,6 +434,7 @@ def main(argv: list[str] | None = None) -> None:
         op.launches = 0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    first = len(_trace_events(device)) if args.memory_peak else 0
     prof = _profiler(device) if args.profile else nullcontext()
     with prof:
         t0 = time.perf_counter()
@@ -413,6 +467,17 @@ def main(argv: list[str] | None = None) -> None:
               f"({st['cache_hits'] / max(1, total):.0%})")
     if args.profile:
         _report_profile(prof, device, dt, args.profile)
+    if args.memory_peak:
+        events = _trace_events(device)
+        torch.cuda.memory._record_memory_history(enabled=None)
+        peak, n_live, groups = peak_blocks(events, first)
+        print(f"  peak of the timed loop, replayed from {len(events):,} "
+              f"allocator events: {peak:,} bytes "
+              f"(torch.cuda.max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(device):,}) in {n_live:,} "
+              f"blocks, by the line that allocated them:")
+        for where, (size, n) in sorted(groups.items(), key=lambda g: -g[1][0]):
+            print(f"    {size:>14,} bytes {n:>5} blocks  {where}")
 
 
 if __name__ == "__main__":

@@ -129,3 +129,35 @@ def test_cli_on_the_cpu(capsys):
                 "--backend", "torch", "--join", "expand"])
     out = capsys.readouterr().out
     assert "overflows=0" in out and "14/14 instances executed" in out
+
+
+def _event(action, addr, size, where=None):
+    frames = [{"filename": "/usr/lib/python3/site-packages/torch/x.py",
+               "line": 3, "name": "empty"}]
+    if where is not None:
+        frames.append({"filename": f"/tree/src/repro_torch/{where}",
+                       "line": 7, "name": "f"})
+    return {"action": action, "addr": addr, "size": size, "frames": frames}
+
+
+def test_peak_blocks_replays_allocator_events():
+    """--memory-peak's replay: the peak after the loop's first event, at
+    "free_requested" (a block whose free waits on a stream is no longer
+    allocated), with the live blocks grouped by their repro_torch line."""
+    events = [_event("alloc", 1, 1000, "engine/batch.py"),       # before
+              _event("free_requested", 1, 1000),
+              _event("alloc", 2, 300, "engine/batch.py"),        # first = 2
+              _event("alloc", 3, 200, "engine/batch.py"),
+              _event("alloc", 4, 50),
+              _event("free_requested", 2, 300),
+              _event("free_completed", 2, 300),
+              _event("alloc", 5, 400, "kernels/kg_join/kernel.py"),
+              _event("free_requested", 5, 400)]
+    peak, n_live, groups = serve.peak_blocks(events, 2)
+    assert (peak, n_live) == (650, 3)
+    assert groups == {"kernels/kg_join/kernel.py:7 f": [400, 1],
+                      "engine/batch.py:7 f": [200, 1],
+                      "(no repro_torch frame)": [50, 1]}
+    assert serve.peak_blocks(events, 0)[:2] == (1000, 1)
+    with pytest.raises(SystemExit):
+        serve.main(["--scale", "0.05", "--device", "cpu", "--memory-peak"])
