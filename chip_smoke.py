@@ -50,7 +50,16 @@ order; any failure exits non-zero:
    at step 3 each equal to the first, join_ranges timed against two
    torch.searchsorted calls in alternation over 5 rounds and join_select
    beside the mask route it replaces, each with its device time by
-   torch.profiler; flash_attention
+   torch.profiler; kg_join's compat kernels (csrc/kg_compat.cu):
+   compat_matrix and compat_select (the expand join's selection without
+   the matrix) bit-identical on a ragged sweep (R off the 32-row tiles, C
+   off the 256-column segments and past 64 of them, V 1 to 6, caps 0, 1,
+   around an instance's total, R, R C and past, one, 3 and the engine's
+   broadcast 8 x 3 instances) and at the expand path's shape (24 x 256 x
+   768, cap 256) and a larger one (6 x 4,096 x 8,192, cap 4,096), 100
+   launches of compat_select at the first equal to the first launch, each
+   timed with its device time beside the route compat_select replaces
+   (compat_matrix, scan_select, .any); flash_attention
    is within atol=2e-5 in float32 and atol=1e-4 + 2**-7 |plain| (one
    bfloat16 step) in bfloat16, on a ragged sweep (G 1, 4, 48; causal or
    not; q_start 0, T - S and mid-tile; strided cache views), on each route
@@ -62,8 +71,10 @@ order; any failure exits non-zero:
    "split") shapes, each timed in bfloat16 and listed as a kernel record
    of its own; bag_sum
    (an op no path calls) within atol 1e-5 on a ragged sweep and over the
-   full xDeepFM table (26.4M x 10) at 262,144 bags of 39, its launches
-   those of these checks; segment_spmm within tests/test_kernels.py's
+   full xDeepFM table (26.4M x 10) at 262,144 bags of 39 (two launches
+   bit-identical; device time, F.embedding_bag's, and the bound of the
+   32-byte sectors its distinct rows span), its launches those of these
+   checks; segment_spmm within tests/test_kernels.py's
    1e-4 (float32) and 0.15 (bfloat16) on a ragged sweep (E and N off the
    TPU's blocks, D from 1 to 6,272 across the narrow and wide mappings,
    10% and all edges masked, no edges, a hub of half the edges, every edge
@@ -85,8 +96,9 @@ order; any failure exits non-zero:
    join_select once per merge join and join_select once per merge join
    that expands without verifying a second column (no pair mask there);
 5. expand path — LUBM at scale 0.1 under join_impl="expand": the same
-   checks, compat_matrix, scan_hits and scan_select launched, join_ranges
-   and join_select not;
+   checks, compat_select launched once per expand join (11), scan_hits
+   and scan_select launched, compat_matrix, join_ranges and join_select
+   not;
 6. clustering — the production workload's distances through
    jaccard_distance_matrix(use_kernel=True), linkage_torch on the card over
    its first 4,096 instances, and over its first 1,024 on the card and on
@@ -165,6 +177,8 @@ from repro_torch.kernels.cin import kernel as cin_kernel  # noqa: E402
 from repro_torch.kernels.cin import ops as cin_ops  # noqa: E402
 from repro_torch.kernels.cin.ref import (cin_layer_ref,  # noqa: E402
                                          cin_layer_split_ref)
+from repro_torch.kernels.embedding_bag import \
+    kernel as emb_kernel  # noqa: E402
 from repro_torch.kernels.embedding_bag import ops as emb_ops  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import (bag_sum_ref,  # noqa: E402
                                                   gather_rows_ref)
@@ -179,6 +193,7 @@ from repro_torch.kernels.jaccard.ref import jaccard_distance_ref  # noqa: E402
 from repro_torch.kernels.kg_join import kernel as join_kernel  # noqa: E402
 from repro_torch.kernels.kg_join import ops as join_ops  # noqa: E402
 from repro_torch.kernels.kg_join.ref import (compat_matrix_ref,  # noqa: E402
+                                             compat_select_ref,
                                              join_ranges_ref,
                                              join_select_ref)
 from repro_torch.engine import batch as engine_batch  # noqa: E402
@@ -211,6 +226,9 @@ OPS_PER_S = 67e12            # H100 SXM float32 rate outside the tensor
 INT8_TC_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate: exact
 #                              for products of 0/1 operands
 BF16_TC_OPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core rate
+INT32_OPS_PER_S = 16.7e12    # H100 SXM int32 rate: 64 INT32 lanes an SM
+#                              (half its 128 float32 lanes) x 132 SMs x
+#                              1.98 GHz, one compare a lane a cycle
 REPS = 25
 # kg_scan: the pattern and gate of instance b are row b % 4; bucket 4's
 # pair masks per (request, shard) instance at LUBM(1) over its 8 padded
@@ -237,8 +255,15 @@ JOIN_C, JOIN_R = 16384, 32768
 JOIN_STEPS = {"bucket 4 step 3": (PAIR_LEAD, 3, JOIN_C, JOIN_R, 2048),
               "bucket 4 step 2": (PAIR_LEAD, 1, JOIN_C, JOIN_R, 1024),
               "bucket 2 step 1": ((1, 3), 1, 512, 512, 32)}
+# kg_join's compat kernels: the expand path's largest call at LUBM 0.1
+# (bucket 4: 8 requests x 3 shards, R = 256 table rows of 4 vars against 3
+# gathered blocks of 256 matches, cap R) and a larger one, (instances, R,
+# V, C, cap)
+COMPAT_SHAPES = {"expand path": (24, 256, 4, 768, 256),
+                 "large": (6, 4096, 6, 8192, 4096)}
 RNG = np.random.default_rng(0)
 BATCH = 14                   # requests per serve(): one per LUBM template
+EXPAND_JOINS = 11            # expand joins of phase 5's two passes
 # the production clustering workload: every (university, department)
 # instance of the 14 LUBM templates, 78 x 15 x 14 = 16,380 queries
 UNIVERSITIES, DEPARTMENTS = 78, 15
@@ -924,19 +949,159 @@ def join_records() -> dict:
     return rec
 
 
-def compat_case(n_inst: int, r: int, v: int, c: int):
-    args = (dev(RNG.integers(-1, 20, (n_inst, r, v)).astype(np.int32)),
-            dev(RNG.uniform(size=(n_inst, r)) < 0.7),
-            dev(RNG.integers(-1, 20, (n_inst, c, 3)).astype(np.int32)),
-            dev(RNG.uniform(size=(n_inst, c)) < 0.7),
-            dev(RNG.integers(0, 3, (n_inst, 3)).astype(np.int32)),
-            dev(RNG.integers(-1, v + 1, (n_inst, 3)).astype(np.int32)))
+def compat_args(lead, r: int, v: int, c: int, *, hi: int = 20,
+                engine: bool = False):
+    """compat_matrix's arguments over ``lead`` instances: values from
+    [-1, hi), 70% live masks, kind from {0, 1, 2}, col from [-1, V + 1).
+    With ``engine`` (lead (requests, shards)) the matches are shared by the
+    requests and kind and col by the shards, as the engine passes them. The
+    first instance has no live row."""
+    lm = (1, lead[1]) if engine else lead
+    lk = (lead[0], 1) if engine else lead
+    tmask = RNG.uniform(size=(*lead, r)) < 0.7
+    tmask.reshape(-1, r)[0] = False
+    return (dev(RNG.integers(-1, hi, (*lead, r, v)).astype(np.int32)),
+            dev(tmask),
+            dev(RNG.integers(-1, hi, (*lm, c, 3)).astype(np.int32)),
+            dev(RNG.uniform(size=(*lm, c)) < 0.7),
+            dev(RNG.integers(0, 3, (*lk, 3)).astype(np.int32)),
+            dev(RNG.integers(-1, v + 1, (*lk, 3)).astype(np.int32)))
+
+
+def compat_bound(args, cap: int, *, matrix: bool) -> tuple[float, str]:
+    """The compat launch's bound on this run's inputs: bytes (the inputs
+    read once; the R x C matrix, or keep, the k slots and total written)
+    against its pair tests, one integer compare a used position of a live
+    pair (at least one a pair) at the card's int32 rate."""
+    table, tmask, matches, mmask, kind, _ = args
+    lead = torch.broadcast_shapes(table.shape[:-2], matches.shape[:-2],
+                                  kind.shape[:-1])
+    r, c = table.shape[-2], matches.shape[-2]
+    n_inst = int(np.prod(lead))
+    n_in = sum(t.numel() * t.element_size() for t in args)
+    n_out = (n_inst * r * c if matrix
+             else n_inst * (r + min(cap, r * c) * 5 + 4))
+    used = (kind.expand(*lead, 3) == 1).sum(-1).clamp(min=1)
+    live = (tmask.expand(*lead, r).sum(-1)
+            * mmask.expand(*lead, c).sum(-1))
+    n_ops = int((used.to(torch.int64) * live.to(torch.int64)).sum().item())
+    return bound(n_in + n_out, n_ops, INT32_OPS_PER_S)
+
+
+def compat_check(args, caps) -> int:
+    """compat_matrix and compat_select at each cap, bit for bit against
+    their plain versions; returns the number of calls checked."""
     out = join_ops.compat_matrix(*args)
     torch.cuda.synchronize()
-    err = max_err([out], [compat_matrix_ref(*args)])
-    n_bytes = (n_inst * r * (v * 4 + 1) + n_inst * c * (12 + 1)
-               + n_inst * r * c)
-    return args, err, bound(n_bytes, n_inst * r * c * 8)
+    max_err([out], [compat_matrix_ref(*args)])
+    for cap in caps:
+        o = join_ops.compat_select(*args, cap)
+        torch.cuda.synchronize()
+        max_err(o, compat_select_ref(*args, cap))
+    return 1 + len(caps)
+
+
+def compat_caps(args) -> list[int]:
+    """Caps 0, 1, around the middle instance's total, R, R * C and past."""
+    r, c = args[0].shape[-2], args[2].shape[-2]
+    totals = compat_select_ref(*args, 1)[3].reshape(-1)
+    t = int(totals[totals.numel() // 2].item())
+    return sorted({0, 1, max(t - 1, 1), max(t, 1), t + 1, r, r * c,
+                   r * c + 7})
+
+
+def compat_sweep() -> int:
+    """The ragged sweep: R off the 32-row tiles, C off the 256-column
+    segments (past 8 and 64 of them), V 1 to 6, dense and sparse pairs,
+    one instance, (3,) and the engine's broadcast (8, 3), at every plan
+    shape of blocks and segments the sweep reaches."""
+    calls, shapes = 0, set()
+    for lead, engine in (((1,), False), ((3,), False), ((8, 3), True)):
+        for r, v, c in ((1, 1, 1), (33, 4, 64), (200, 1, 17), (77, 3, 255),
+                        (513, 6, 257), (40, 2, 1000), (65, 5, 3000),
+                        (2100, 4, 2600), (7, 3, 20000)):
+            for hi in (3, 40):
+                args = compat_args(lead, r, v, c, hi=hi, engine=engine)
+                n_inst = int(np.prod(lead))
+                p = join_kernel.compat_plan(n_inst, r, c, v)
+                shapes.add((p.tiles_per_block, p.chunk_segments))
+                calls += compat_check(args, compat_caps(args))
+    if len(shapes) < 5:
+        raise AssertionError(f"the compat sweep takes plan shapes {shapes}")
+    return calls
+
+
+def parent_route(args, cap: int):
+    """The expand join's selection as the engine made it before
+    compat_select: compat_matrix, scan_select of the flattened matrix, and
+    the semijoin's .any."""
+    m = join_ops.compat_matrix(*args)
+    r, c = m.shape[-2:]
+    sel = scan_ops.scan_select(None, m.reshape(*m.shape[:-2], r * c), cap)
+    return args[1] & m.any(dim=-1), sel
+
+
+def compat_records() -> dict:
+    """compat_matrix and compat_select: the ragged sweep, then both shapes
+    of COMPAT_SHAPES with caps below and above the totals, 100 launches of
+    compat_select at the expand path's shape each equal to the first; each
+    timed (events and device time) beside its plain version, and
+    compat_select beside the route it replaces."""
+    join_ops.compat_matrix.launches = 0
+    t0 = time.perf_counter()
+    calls = compat_sweep()
+    log(f"  kg_join compat ragged sweep: {calls} calls of compat_matrix and "
+        f"compat_select bit-identical to their plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
+    rec = {}
+    for name, (n_inst, r, v, c, cap) in COMPAT_SHAPES.items():
+        args = compat_args((n_inst,), r, v, c)
+        p = join_kernel.compat_plan(n_inst, r, c, v)
+        checked = compat_check(args, compat_caps(args) + [cap])
+        totals = compat_select_ref(*args, cap)[3]
+        m_by = compat_bound(args, cap, matrix=True)
+        s_by = compat_bound(args, cap, matrix=False)
+        mrec = dict(
+            name="kg_join.compat_matrix", route="cuda",
+            source="src/repro_torch/csrc/kg_compat.cu",
+            replaces="src/repro/kernels/kg_join/kernel.py:111",
+            max_abs_err=0,
+            ms=time_ms(lambda: join_ops.compat_matrix(*args)),
+            plain_ms=time_ms(lambda: compat_matrix_ref(*args), reps=5),
+            bound_ms=m_by[0], bound_by=m_by[1], library_ms=None,
+            kernel_ms=kernel_ms(lambda: join_ops.compat_matrix(*args)))
+
+        def call():
+            return join_ops.compat_select(*args, cap)
+
+        srec = dict(
+            name="kg_join.compat_select", route="cuda",
+            source="src/repro_torch/csrc/kg_compat.cu",
+            replaces="src/repro/kernels/kg_join/kernel.py:111",
+            max_abs_err=0, ms=time_ms(call),
+            plain_ms=time_ms(lambda: compat_select_ref(*args, cap), reps=5),
+            bound_ms=s_by[0], bound_by=s_by[1], library_ms=None,
+            kernel_ms=kernel_ms(call))
+        route_ms = time_ms(lambda: parent_route(args, cap))
+        route_kms = kernel_ms(lambda: parent_route(args, cap))
+        log(f"  compat_select's launches at the {name} shape, one call "
+            f"profiled: {device_breakdown(call)}")
+        log(f"  kg_join compat at the {name} shape ({n_inst} x {r} rows x "
+            f"{c} columns, V {v}, cap {cap}; plan {p.tiles_per_block} tiles "
+            f"x {p.chunk_segments} segments a block, {p.blocks} blocks; "
+            f"totals {int(totals.min())}-{int(totals.max())}; {checked} "
+            f"calls bit-identical): compat_matrix {mrec}; compat_select "
+            f"{srec}; the route it replaces (compat_matrix, scan_select, "
+            f".any) ms={route_ms:.4f} kernel_ms={route_kms:.4f}")
+        if name == "expand path":
+            rec["compat_matrix"], rec["compat_select"] = mrec, srec
+            # compat_matrix has no path (phase 5 asserts it): its launches
+            # are those of these checks, read before the timing
+            mrec["launches"] = join_ops.compat_matrix.launches
+            stress(call, f"kg_join compat_select at the {name} shape")
+        del args
+    torch.cuda.empty_cache()
+    return rec
 
 
 def jaccard_case(m_np: np.ndarray):
@@ -1537,26 +1702,44 @@ def bag_record() -> dict:
     torch.cuda.synchronize()
     err = float_err(out, bag_sum_ref(table, ids, w),
                     **BAG_TOL[torch.float32])
+    again = emb_ops.bag_sum(table, ids, w)
+    if not torch.equal(again.view(torch.int32), out.view(torch.int32)):
+        raise AssertionError("bag_sum: two launches differ")
     launches = emb_ops.bag_sum.launches
     b, bag = ids.shape
     d = cfg.embed_dim
-    rows = torch.unique(ids).numel()
+    distinct = torch.unique(ids)
+    rows = distinct.numel()
     b_ms, b_by = bound(4 * b * bag * 2 + 4 * rows * d + 4 * b * d,
                        2 * b * bag * d)
+    # the 32-byte sectors the distinct rows span (a 40-byte row spans two)
+    first = distinct.to(torch.int64) * (4 * d)
+    sectors = int(((first + 4 * d - 1) // 32 - first // 32 + 1).sum().item())
+    sector_ms = (4 * b * bag * 2 + 32 * sectors + 4 * b * d) \
+        / HBM_BYTES_PER_S * 1e3
+
+    def call():
+        return emb_ops.bag_sum(table, ids, w)
+
+    def library():
+        return torch.nn.functional.embedding_bag(ids, table,
+                                                 per_sample_weights=w,
+                                                 mode="sum")
+
     rec = dict(
         name="embedding_bag.bag_sum", route="cuda",
         source="src/repro_torch/csrc/embedding_bag.cu",
         replaces="src/repro/kernels/embedding_bag/kernel.py:61",
-        launches=launches, max_abs_err=err,
-        ms=time_ms(lambda: emb_ops.bag_sum(table, ids, w)),
+        launches=launches, max_abs_err=err, ms=time_ms(call),
         plain_ms=time_ms(lambda: bag_sum_ref(table, ids, w)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: torch.nn.functional.embedding_bag(
-            ids, table, per_sample_weights=w, mode="sum")),
-        path=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library),
+        kernel_ms=kernel_ms(call), path=None)
+    p = emb_kernel.bag_plan(d, bag, table.dtype)
     log(f"  embedding_bag.bag_sum ({b:,} bags of {bag} into "
-        f"{cfg.total_vocab:,} x {d}, {rows:,} distinct rows; atol 1e-5): "
-        f"{rec}")
+        f"{cfg.total_vocab:,} x {d}, {rows:,} distinct rows; atol 1e-5; "
+        f"two launches bit-identical; plan {p}): {rec}; library "
+        f"kernel_ms={kernel_ms(library):.4f}; sector bound "
+        f"{sector_ms:.4f} ms ({sectors:,} sectors of the distinct rows)")
     del table, ids, w, out
     torch.cuda.empty_cache()
     return rec
@@ -1565,8 +1748,6 @@ def bag_record() -> dict:
 def phase_kernels() -> dict:
     """Check every kernel on the ragged sweep shapes and the main path's
     shapes; time each at its main-path shape. Returns per-kernel records."""
-    for r, v, c in ((32, 4, 64), (200, 1, 17), (513, 6, 300)):
-        compat_case(3, r, v, c)
     for q, f in ((3, 5), (14, 23), (130, 257), (1000, 77)):
         jaccard_case((RNG.uniform(size=(q, f)) < 0.3).astype(np.float32))
     # ragged sweep of the triangle's tiles and the packed width: Q off the
@@ -1628,25 +1809,7 @@ def phase_kernels() -> dict:
 
     rec.update(join_records())
 
-    # kg_join.compat_matrix at the expand path's largest call of phase 5
-    # (LUBM scale 0.1, bucket 4: 8 requests x 3 shards, R = 256 table rows
-    # of 4 vars against 3 gathered blocks of 256 matches) and one larger
-    # random case
-    args, err, (b_ms, b_by) = compat_case(24, 256, 4, 768)
-    rec["compat_matrix"] = dict(
-        name="kg_join.compat_matrix", route="cuda",
-        source="src/repro_torch/csrc/kg_join.cu",
-        replaces="src/repro/kernels/kg_join/kernel.py:111",
-        max_abs_err=err,
-        ms=time_ms(lambda: join_ops.compat_matrix(*args)),
-        plain_ms=time_ms(lambda: compat_matrix_ref(*args)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"  kg_join.compat_matrix (24 x 256 x 768): {rec['compat_matrix']}")
-    args, err, (b_ms, _) = compat_case(6, 4096, 6, 8192)
-    log(f"  kg_join.compat_matrix (6 x 4096 x 8192): err={err} "
-        f"ms={time_ms(lambda: join_ops.compat_matrix(*args)):.4f} "
-        f"plain_ms={time_ms(lambda: compat_matrix_ref(*args)):.4f} "
-        f"bound_ms={b_ms:.4f}")
+    rec.update(compat_records())
 
     m_np, _ = feature_matrix(production_queries())
     m, err, (b_ms, b_by) = jaccard_case(m_np)
@@ -1735,6 +1898,7 @@ OPS = {"scan_hits": scan_ops.scan_hits,
        "join_ranges": join_ops.join_ranges,
        "join_select": join_ops.join_select,
        "compat_matrix": join_ops.compat_matrix,
+       "compat_select": join_ops.compat_select,
        "jaccard_distance": jac_ops.jaccard_distance,
        "gather_rows": emb_ops.gather_rows,
        "cin_layer": cin_ops.cin_layer,
@@ -1809,10 +1973,21 @@ def serve_path(scale: float, join_impl: str, passes: int = 2, *,
         merges[1] += not any(kw["verify_mask"]) and a[7] != "none"
         return merge_join(*a, **kw)
 
+    # each expand join makes one compat_select; those that expand (new_mode,
+    # the 7th argument, not "none") made one scan_select of their matrix
+    # before it
+    data_join, datas = engine_batch._join_data, [0, 0]
+
+    def counted_data(*a, **kw):
+        datas[0] += 1
+        datas[1] += a[6] != "none"
+        return data_join(*a, **kw)
+
     server.reset_stats()
     torch.cuda.reset_peak_memory_stats(DEV)
     reset_counts()
     engine_batch._join_merge = counted_merge
+    engine_batch._join_data = counted_data
     try:
         t_all = time.perf_counter()
         results, per_call = [], []
@@ -1824,8 +1999,10 @@ def serve_path(scale: float, join_impl: str, passes: int = 2, *,
         dt = time.perf_counter() - t_all
     finally:
         engine_batch._join_merge = merge_join
+        engine_batch._join_data = data_join
     launched = counts()
     launched["merge_joins"], launched["select_joins"] = merges
+    launched["expand_joins"], launched["expanding_joins"] = datas
     launched["jaccard_distance"] = jaccard_launches
     peak = torch.cuda.max_memory_allocated(DEV)
 
@@ -2280,12 +2457,29 @@ def main() -> None:
 
     log("[5/10] expand path: LUBM scale 0.1, join expand, backend cuda")
     expand_counts = serve_path(0.1, "expand")
-    for k in ("compat_matrix", "scan_hits", "scan_select"):
+    for k in ("compat_select", "scan_hits", "scan_select"):
         if expand_counts[k] <= 0:
             raise AssertionError(f"expand path never launched {k}")
-    if expand_counts["join_ranges"] or expand_counts["join_select"]:
-        raise AssertionError("expand path launched join_ranges or "
-                             "join_select")
+    if (expand_counts["join_ranges"] or expand_counts["join_select"]
+            or expand_counts["compat_matrix"]):
+        raise AssertionError("expand path launched join_ranges, "
+                             "join_select or compat_matrix")
+    # one compat_select per expand join (where the path took the matrix:
+    # one compat_matrix each, 11 in all, and a scan_select more for each
+    # that expands)
+    if (expand_counts["compat_select"] != expand_counts["expand_joins"]
+            or expand_counts["compat_select"] != EXPAND_JOINS):
+        raise AssertionError(
+            f"expand path launched compat_select "
+            f"{expand_counts['compat_select']} times for "
+            f"{expand_counts['expand_joins']} expand joins (expected "
+            f"{EXPAND_JOINS})")
+    log(f"  expand path launches: compat_select "
+        f"{expand_counts['compat_select']} (expand joins "
+        f"{expand_counts['expand_joins']}, {expand_counts['expanding_joins']}"
+        f" of them expanding: the scan_select launches they no longer "
+        f"make), compat_matrix 0, scan_select {expand_counts['scan_select']},"
+        f" scan_hits {expand_counts['scan_hits']}")
 
     log(f"[6/10] clustering: {UNIVERSITIES * DEPARTMENTS * 14:,} LUBM query "
         "instances")
@@ -2309,7 +2503,7 @@ def main() -> None:
     rec["scan_select"]["launches"] = main_counts["scan_select"]
     rec["join_ranges"]["launches"] = main_counts["join_ranges"]
     rec["join_select"]["launches"] = main_counts["join_select"]
-    rec["compat_matrix"]["launches"] = expand_counts["compat_matrix"]
+    rec["compat_select"]["launches"] = expand_counts["compat_select"]
     rec["jaccard_distance"]["launches"] = main_counts["jaccard_distance"]
     rec["gather_rows"]["launches"] = sum(
         c["gather_rows"] for c in xdeepfm_counts.values())
@@ -2325,7 +2519,9 @@ def main() -> None:
              "scan_select": "LUBM main path (phase 4)",
              "join_ranges": "LUBM main path (phase 4)",
              "join_select": "LUBM main path (phase 4)",
-             "compat_matrix": "LUBM expand path (phase 5)",
+             "compat_matrix": "none (op only; the expand path takes "
+                              "compat_select, phase 5)",
+             "compat_select": "LUBM expand path (phase 5)",
              "jaccard_distance": "WawPart partition (phase 4)",
              "gather_rows": "xDeepFM forward (phase 7)",
              "cin_layer": "xDeepFM forward at serve_p99 (phase 7)",
@@ -2351,7 +2547,9 @@ def main() -> None:
     print(card)
     # flash_attention has one record per shape of the LM path, each with the
     # launches of its own run (the prefill, the decode steps); segment_spmm
-    # one per GNN path; bag_sum has no path (its launches are its checks')
+    # one per GNN path; bag_sum has no path (its launches are its checks'),
+    # nor has compat_matrix since the expand path takes compat_select
+    # (likewise its checks'; phase 5 asserts none on the path)
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("q", "kv", "q_start", "flash_route",
                                   "shape", "ms_with_plan", "plan_ms",

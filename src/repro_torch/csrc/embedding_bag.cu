@@ -20,13 +20,24 @@
 //
 // The bag sum replaces src/repro/kernels/embedding_bag/kernel.py,
 // bag_sum_kernel (body _bag_kernel), whose grid walks (bag, slot) in order
-// and carries the float32 sum in VMEM scratch from slot to slot. Here one
-// block per bag, its threads across D: each thread walks the bag's slots
-// in order and keeps its column's float32 sum in a register, then writes
-// it once in the table's type. Weights default to 1 (a NULL pointer). Ids
-// follow jnp.take as the gather does (an id outside [-V, V) gives NaN).
-// The table is read in place, unpadded. Bound on the H100: bytes (the ids,
-// the weights, the distinct rows named and the output).
+// and carries the float32 sum in VMEM scratch from slot to slot. Here a
+// warp takes a bag, or several where a row is narrow: kernel.bag_plan
+// gives each row `lanes` lanes, each reading one vector of W elements (the
+// widest access the row's alignment allows: 8-byte loads of the 40-byte
+// float32 rows at D = 10, 5 lanes a row), and `rows` rows a step (6 at
+// D = 10), so that a warp step reads rows x D elements of different slots.
+// The bag's ids and weights are loaded once, coalesced, a lane a slot, and
+// handed to the lanes that read the row by shuffle; each lane keeps
+// kBagUnroll loads in flight and its float32 sums in registers. The rows'
+// partial sums are then added by a fixed shuffle tree over the row slots
+// of the step (p + off into p, off halving), so the result is
+// deterministic: repeated launches are bit-identical, with no atomics. The
+// order of the sum differs from the reference's slot order. Weights
+// default to 1 (a NULL pointer). Ids follow jnp.take as the gather does (an
+// id outside [-V, V) gives NaN). The table is read in place, unpadded.
+// Bound on the H100: bytes (the ids, the weights, the distinct rows named
+// and the output); a row of 40 bytes spans two 32-byte sectors, so the
+// sectors the distinct rows touch bound it more tightly.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -93,50 +104,180 @@ gather_rows_warp(const float* __restrict__ table,
   }
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-template <typename T>
-__global__ void bag_sum_block(const T* __restrict__ table,
-                              const int32_t* __restrict__ ids,
-                              const float* __restrict__ weights,
-                              T* __restrict__ out, int64_t v, int64_t d,
-                              int64_t bag) {
-  const int64_t b = blockIdx.x;
-  const int32_t* bag_ids = ids + b * bag;
-  const float* bag_w = weights == nullptr ? nullptr : weights + b * bag;
-  for (int64_t c = threadIdx.x; c < d; c += blockDim.x) {
-    float acc = 0.0f;
-    for (int64_t j = 0; j < bag; ++j) {
-      int64_t id = __ldg(bag_ids + j);
-      if (id < 0) id += v;
-      const float w = bag_w == nullptr ? 1.0f : __ldg(bag_w + j);
-      const float row = (id >= 0 && id < v) ? to_float(table[id * d + c])
-                                            : NAN;
-      acc += row * w;
+constexpr int kBagWarps = 8;         // warps per block
+constexpr int kBagUnroll = 8;        // row vectors in flight per lane
+constexpr int kBagChunks = 2;        // chunks of ids a lane holds at once
+
+// W elements of T as one load: 2, 4, 8 or 16 bytes.
+template <int BYTES> struct Raw;
+template <> struct Raw<2> { using type = uint16_t; };
+template <> struct Raw<4> { using type = uint32_t; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<16> { using type = uint4; };
+
+// 32-bit word i (a constant once unrolled) of a load.
+__device__ __forceinline__ uint32_t word_of(uint16_t x, int) { return x; }
+__device__ __forceinline__ uint32_t word_of(uint32_t x, int) { return x; }
+__device__ __forceinline__ uint32_t word_of(const uint2& x, int i) {
+  return i == 0 ? x.x : x.y;
+}
+__device__ __forceinline__ uint32_t word_of(const uint4& x, int i) {
+  return i == 0 ? x.x : (i == 1 ? x.y : (i == 2 ? x.z : x.w));
+}
+
+// Element e of a load as float: a float32 is its word; a bfloat16 is the
+// high half of a float32 (element 0 in a word's low half).
+template <typename T> struct Elem;
+template <> struct Elem<float> {
+  template <typename V>
+  __device__ __forceinline__ static float get(const V& x, int e) {
+    return __uint_as_float(word_of(x, e));
+  }
+};
+template <> struct Elem<__nv_bfloat16> {
+  template <typename V>
+  __device__ __forceinline__ static float get(const V& x, int e) {
+    const uint32_t w = word_of(x, e >> 1);
+    return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+
+template <typename T, int W>
+__device__ __forceinline__ void fma_vec(float (&acc)[W],
+                                        const typename Raw<W * sizeof(T)>::type& x,
+                                        float w) {
+#pragma unroll
+  for (int e = 0; e < W; ++e) acc[e] += Elem<T>::get(x, e) * w;
+}
+
+// out[b, :] = sum_j w[b, j] * table[ids[b, j], :]. Lane layout: bag group g
+// = lane / (lanes * rows), in it row slot p and vector q; lanes past the
+// groups idle. When a row has more than 32 vectors, lanes is 32, rows 1,
+// and the warp walks the row in blocks of 32 vectors.
+template <typename T, int W>
+__global__ void __launch_bounds__(kBagWarps * 32)
+bag_sum_warp(const T* __restrict__ table, const int32_t* __restrict__ ids,
+             const float* __restrict__ weights, T* __restrict__ out,
+             int64_t v, int d, int64_t b, int bag, int lanes, int rows,
+             int groups) {
+  using Vec = typename Raw<W * sizeof(T)>::type;
+  const int lane = threadIdx.x & 31;
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * kBagWarps + (threadIdx.x >> 5);
+  if (warp * groups >= b) return;    // whole warps leave together
+  const int span = lanes * rows;     // a group's lanes, and its slots a chunk
+  const int g = lane / span;
+  const int t = lane - g * span;
+  const int p = t / lanes;
+  const int q = t - p * lanes;
+  const int64_t bi = warp * groups + g;
+  const bool mine = g < groups && bi < b;
+  const int32_t* bag_ids = ids + (mine ? bi : 0) * bag;
+  const float* bag_w =
+      weights == nullptr ? nullptr : weights + (mine ? bi : 0) * bag;
+  const int nvec = d / W;
+  int top = 1;                       // the tree's first offset, doubled
+  while (top < rows) top <<= 1;
+  for (int v0 = 0; v0 < nvec; v0 += lanes) {
+    const int qv = v0 + q;
+    const bool reads = mine && qv < nvec;
+    float acc[W];
+#pragma unroll
+    for (int e = 0; e < W; ++e) acc[e] = 0.0f;
+    // a window of kBagChunks chunks of span slots: lane t of the group
+    // holds slot w0 + ch * span + t of its bag (its row, -1 out of range)
+    for (int w0 = 0; w0 < bag; w0 += kBagChunks * span) {
+      int64_t id[kBagChunks];
+      float wt[kBagChunks];
+#pragma unroll
+      for (int ch = 0; ch < kBagChunks; ++ch) {
+        const int j = w0 + ch * span + t;
+        id[ch] = -1;
+        wt[ch] = 0.0f;
+        if (mine && j < bag) {
+          int64_t x = __ldg(bag_ids + j);
+          if (x < 0) x += v;
+          id[ch] = x < v ? x : -1;
+          wt[ch] = bag_w == nullptr ? 1.0f : __ldg(bag_w + j);
+        }
+      }
+      const int n = bag - w0 < kBagChunks * span ? bag - w0
+                                                  : kBagChunks * span;
+      const int steps = (n + rows - 1) / rows;
+      // step s reads window slot s * rows + p = ch * span + within * rows
+      // + p, with ch = s / lanes, held by lane within * rows + p
+      for (int s0 = 0; s0 < steps; s0 += kBagUnroll) {
+        Vec x[kBagUnroll];
+        float xw[kBagUnroll];
+        bool live[kBagUnroll], bad[kBagUnroll];
+#pragma unroll
+        for (int u = 0; u < kBagUnroll; ++u) {
+          const int s = s0 + u;
+          const int ch = s / lanes;
+          const int within = s - ch * lanes;
+          const int src = (g * span + within * rows + p) & 31;
+          int64_t hid = id[0];
+          float hw = wt[0];
+#pragma unroll
+          for (int c = 1; c < kBagChunks; ++c) {
+            if (ch == c) {
+              hid = id[c];
+              hw = wt[c];
+            }
+          }
+          const int64_t rid = __shfl_sync(0xffffffffu, hid, src);
+          xw[u] = __shfl_sync(0xffffffffu, hw, src);
+          live[u] = reads && s < steps && s * rows + p < n;
+          bad[u] = live[u] && rid < 0;
+          if (live[u] && rid >= 0)
+            x[u] = __ldg(reinterpret_cast<const Vec*>(table + rid * d) + qv);
+        }
+#pragma unroll
+        for (int u = 0; u < kBagUnroll; ++u) {
+          if (bad[u]) {
+#pragma unroll
+            for (int e = 0; e < W; ++e) acc[e] = NAN;
+          } else if (live[u]) {
+            fma_vec<T, W>(acc, x[u], xw[u]);
+          }
+        }
+      }
     }
-    store(out + b * d + c, acc);
+    // the row slots' partial sums: p + off into p, off halving
+    for (int off = top >> 1; off > 0; off >>= 1) {
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        const float o = __shfl_down_sync(0xffffffffu, acc[e], off * lanes);
+        if (p < off && p + off < rows) acc[e] += o;
+      }
+    }
+    if (reads && p == 0) {
+      T* dst = out + bi * d + static_cast<int64_t>(qv) * W;
+#pragma unroll
+      for (int e = 0; e < W; ++e) store(dst + e, acc[e]);
+    }
   }
 }
 
-template <typename T>
+template <typename T, int W>
 int bag_launch(const void* table, const void* ids, const void* weights,
                void* out, long long v, long long d, long long b,
-               long long bag, void* stream) {
-  if (b <= 0 || d <= 0) return 0;
-  if (b > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  int threads = static_cast<int>(((d + 31) / 32) * 32);
-  if (threads > 256) threads = 256;
-  bag_sum_block<T><<<static_cast<unsigned>(b), threads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+               long long bag, long long lanes, long long rows,
+               long long groups, void* stream) {
+  const long long warps = (b + groups - 1) / groups;
+  const long long blocks = (warps + kBagWarps - 1) / kBagWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  bag_sum_warp<T, W><<<static_cast<unsigned>(blocks), kBagWarps * 32, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(table), static_cast<const int32_t*>(ids),
-      static_cast<const float*>(weights), static_cast<T*>(out), v, d, bag);
+      static_cast<const float*>(weights), static_cast<T*>(out), v,
+      static_cast<int>(d), b, static_cast<int>(bag), static_cast<int>(lanes),
+      static_cast<int>(rows), static_cast<int>(groups));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -179,15 +320,40 @@ int embedding_gather_rows(const void* table, const void* ids, void* out,
 
 // table: (v, d) float32 (dtype 0) or bfloat16 (dtype 1); ids: (b, bag)
 // int32; weights: (b, bag) float32 or NULL (all 1); out: (b, d) of the
-// table's type. Returns cudaGetLastError().
+// table's type. w: elements a load; lanes, rows, groups: the lanes a row,
+// rows a step and bags a warp (kernel.bag_plan). Returns
+// cudaGetLastError().
 int embedding_bag_sum(const void* table, const void* ids, const void* weights,
                       void* out, long long v, long long d, long long b,
-                      long long bag, int dtype, void* stream) {
-  if (dtype == 0)
-    return bag_launch<float>(table, ids, weights, out, v, d, b, bag, stream);
-  if (dtype == 1)
-    return bag_launch<__nv_bfloat16>(table, ids, weights, out, v, d, b, bag,
-                                     stream);
+                      long long bag, int dtype, long long w, long long lanes,
+                      long long rows, long long groups, void* stream) {
+  if (b <= 0 || d <= 0) return 0;
+  const long long esize = dtype == 0 ? 4 : 2;
+  const long long nvec = w > 0 ? d / w : 0;
+  const uintptr_t align = static_cast<uintptr_t>(w * esize);
+  if ((dtype != 0 && dtype != 1) || w < 1 || d % w != 0 || bag < 0
+      || bag > 0x7fffffffLL || d > 0x7fffffffLL || lanes < 1 || rows < 1
+      || groups < 1 || lanes * rows * groups > 32
+      || (nvec <= 32 ? lanes != nvec : (lanes != 32 || rows != 1
+                                         || groups != 1))
+      || reinterpret_cast<uintptr_t>(table) % align != 0
+      || reinterpret_cast<uintptr_t>(out) % align != 0
+      || (ids == nullptr && bag > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define BAG_CASE(T, WIDTH)                                                  \
+  return bag_launch<T, WIDTH>(table, ids, weights, out, v, d, b, bag, lanes, \
+                              rows, groups, stream)
+  if (dtype == 0) {
+    if (w == 4) BAG_CASE(float, 4);
+    if (w == 2) BAG_CASE(float, 2);
+    if (w == 1) BAG_CASE(float, 1);
+  } else {
+    if (w == 8) BAG_CASE(__nv_bfloat16, 8);
+    if (w == 4) BAG_CASE(__nv_bfloat16, 4);
+    if (w == 2) BAG_CASE(__nv_bfloat16, 2);
+    if (w == 1) BAG_CASE(__nv_bfloat16, 1);
+  }
+#undef BAG_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -45,7 +45,7 @@ from repro_torch.engine.federated import (ShardedKG, check_gather_cap,
 from repro_torch.engine.planner import PhysicalPlan, pad_plan
 from repro_torch.engine.primitives import (EQ_PAIRS, INT_MAX, KernelBlocks,
                                            check_backend, compact,
-                                           compat_matrix, join_ranges,
+                                           compat_select, join_ranges,
                                            join_select, pair_mask, scan_hits,
                                            scan_select, select_cap, take,
                                            take_rows)
@@ -324,25 +324,26 @@ def _seed_join(table, matches, mmask, kind, col, new_mode: str, *,
 
 def _join_data(table, tmask, matches, mmask, kind, col, new_mode: str, *,
                backend: str):
-    """Expand-and-filter join with the join structure as runtime data. The
-    R x C compatibility matrix comes from the shared primitive (plain or
-    the kg_join kernel); the expansion/semijoin epilogues are
+    """Expand-and-filter join with the join structure as runtime data. One
+    `compat_select` (of the R x C compatibility matrix, its first R pairs
+    and its rows with any pair; under "cuda" the kg_join compat kernels,
+    which write no matrix) serves both epilogues, which are
     backend-independent."""
     R, V = table.shape[-2:]
     C = matches.shape[-2]
-    compat = compat_matrix(table, tmask, matches, mmask, kind, col,
-                           backend=backend)
+    # a semijoin reads only keep: it selects no pair
+    cap = 0 if new_mode == "none" else R
+    keep, order, omask, total = compat_select(table, tmask, matches, mmask,
+                                              kind, col, cap, backend=backend)
 
     def expansion():
-        flat = compat.reshape(*compat.shape[:-2], R * C)
-        order, omask, total = select_cap(flat, R, backend=backend)
         r_idx, c_idx = order // C, order % C
         vals = [take(matches[..., pos], c_idx) for pos in range(3)]
         out = _scatter_new(take_rows(table, r_idx), vals, kind, col, V)
         return out, omask, total > R
 
     def semijoin():
-        return table, tmask & compat.any(dim=-1), _zeros_flag(tmask)
+        return table, keep, _zeros_flag(tmask)
 
     return _mix(new_mode, kind, expansion, semijoin)
 
@@ -470,8 +471,9 @@ def make_batched_engine(sig: BucketSignature, *, join_impl: str = "expand",
     backend: "torch" runs the plain primitives; "cuda" routes the scan
     (fused predicate with its compaction), the compactions, the
     candidate-range search (with the merge join's pair compaction,
-    `join_select`) and the compat matrix through the kg_scan / kg_join
-    kernels (plain versions on CPU tensors), bit-identically. On "cuda" the
+    `join_select`) and the expand join's selection (`compat_select`, with
+    no compat matrix) through the kg_scan / kg_join kernels (plain
+    versions on CPU tensors), bit-identically. On "cuda" the
     merge path scans the permuted view directly, so one select launch of
     the scan both matches and compacts it.
     """

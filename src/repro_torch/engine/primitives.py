@@ -1,11 +1,11 @@
 """Shared scan/join primitives of the batched engine, on PyTorch tensors.
 
 The tensorized BGP building blocks: the fused triple-pattern predicate, the
-cumsum-based stable compaction, the expand-join compatibility matrix, the
-merge-join candidate-range search and its compaction of (row, candidate)
-pairs (`join_select`). Every function takes leading instance
-dims ``(…)`` — the batched engine runs them over ``(batch, shard)`` — and
-keeps every index and count int32.
+cumsum-based stable compaction, the expand-join compatibility matrix and
+its selection (`compat_select`), the merge-join candidate-range search and
+its compaction of (row, candidate) pairs (`join_select`). Every function
+takes leading instance dims ``(…)`` — the batched engine runs them over
+``(batch, shard)`` — and keeps every index and count int32.
 
 Every function takes ``backend`` ("torch" | "cuda"): "torch" runs the plain
 PyTorch formulation below on any device; "cuda" goes through the kernel ops
@@ -14,8 +14,10 @@ kernels on CUDA tensors and use the same plain formulation on CPU tensors.
 On the "cuda" backend a compaction is one launch of the kg_scan kernel's
 select epilogue, which writes the selected positions without an (…, n)
 prefix sum; the kg_join range search serves only the merge joins, and
-its select epilogue compacts a merge join's pairs with no pair mask. The
-engine's CUDA path calls no library scan or search. The two backends are
+its select epilogue compacts a merge join's pairs with no pair mask, and
+the compat kernels' select epilogue an expand join's pairs with no
+compatibility matrix. The engine's CUDA path calls no library scan or
+search. The two backends are
 bit-identical on every value that is ever read through a mask.
 """
 from __future__ import annotations
@@ -36,10 +38,10 @@ class KernelBlocks:
     """Tile sizes of the query kernels — part of every engine cache key.
 
     The CUDA kernels of this package fix their own tiles (the scan's by
-    `kernels/kg_scan/kernel.plan`, 64 x 128 compat tiles, the range
-    search's by `kernels/kg_join/kernel.plan`), so these fields only key the
-    cache and are validated as
-    in the JAX package.
+    `kernels/kg_scan/kernel.plan`, the range search's by
+    `kernels/kg_join/kernel.plan`, the compat kernels' by
+    `kernels/kg_join/kernel.compat_plan`), so these fields only key the
+    cache and are validated as in the JAX package.
     """
     scan_rows: int = 1024
     join_rows: int = 256
@@ -241,6 +243,24 @@ def compat_matrix(table, tmask, matches, mmask, kind, col, *,
         eq = tv[..., :, None] == matches[..., None, :, pos]
         compat = compat & ((kind[..., pos] != 1)[..., None, None] | eq)
     return compat
+
+
+def compat_select(table, tmask, matches, mmask, kind, col, cap: int, *,
+                  backend: str = "torch"):
+    """The expand join's selection: (keep (…, R), order (…, m), omask
+    (…, m), total (…,)) with compat = `compat_matrix` of the same
+    arguments, keep = tmask & compat.any(-1) (the semijoin's rows) and
+    (order, omask, total) = ``select_cap`` of compat flattened to (…, R *
+    C), m = min(cap, R * C) (the expansion's pairs, row-major). Under
+    "cuda" the kg_join compat kernels write them with no R x C matrix."""
+    if backend == "cuda":
+        from repro_torch.kernels.kg_join.ops import compat_select as ks
+        return ks(table, tmask, matches, mmask, kind, col, cap)
+    compat = compat_matrix(table, tmask, matches, mmask, kind, col)
+    R, C = compat.shape[-2:]
+    order, omask, total = select_cap(
+        compat.reshape(*compat.shape[:-2], R * C), cap)
+    return tmask & compat.any(dim=-1), order, omask, total
 
 
 def join_ranges(keys, rkey, *, backend: str = "torch"):

@@ -9,8 +9,9 @@ Each kernel package ships:
               ``launches`` counter bumped where it launches its kernel.
 
 Kernels: kg_scan (fused masked triple-pattern scan with its int32 prefix
-sum, or its compaction) and kg_join (merge-join candidate ranges, their
-compaction of the join's pairs, and the expand-join compatibility matrix)
+sum, or its compaction) and kg_join (merge-join candidate ranges and their
+compaction of the join's pairs; the expand join's compatibility matrix and
+its compaction of the compatible pairs, from ``csrc/kg_compat.cu``)
 behind the query engine; jaccard (the WawPart
 query-distance matrix); embedding_bag (the xDeepFM row gather, and the
 weighted bag sum as an op) and cin (the fused xDeepFM CIN layer);
@@ -24,7 +25,7 @@ libraries with a plain C interface under ``build/repro_torch/`` at the
 repository root, one library per source, all sources compiled in
 parallel; ``csrc/wgmma.cuh`` holds the Hopper helpers (wgmma, mbarriers,
 bulk and tensor copies) that cin and jaccard include, ``csrc/lookback.cuh``
-the decoupled look-back that kg_scan and kg_join share. Nothing here is
+the decoupled look-back that kg_scan, kg_join and kg_compat share. Nothing here is
 imported or compiled when the package is imported, so the CPU-only test
 suite never needs a CUDA toolchain.
 """
@@ -41,8 +42,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("kg_scan.cu", "kg_join.cu", "jaccard.cu", "embedding_bag.cu",
-           "cin.cu", "flash_attention.cu", "segment_spmm.cu")
+SOURCES = ("kg_scan.cu", "kg_join.cu", "kg_compat.cu", "jaccard.cu",
+           "embedding_bag.cu", "cin.cu", "flash_attention.cu",
+           "segment_spmm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

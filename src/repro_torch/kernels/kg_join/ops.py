@@ -1,10 +1,11 @@
-"""Public merge-join ops: leading-dim folding and dispatch for the kg_join
-kernels.
+"""Public join ops: leading-dim folding and dispatch for the kg_join
+kernels (the merge join's range search and its select, the expand join's
+compat matrix and its select).
 
 A CPU tensor runs the plain version (`ref.py`); a CUDA tensor launches the
 kernel, and anything the kernel does not take raises. There is no fallback
-from the card to the plain version. The range search and its select read
-their inputs in place, broadcast leading dims included.
+from the card to the plain version. Every kernel reads its inputs in
+place, broadcast leading dims included.
 """
 from __future__ import annotations
 
@@ -12,8 +13,10 @@ import torch
 
 from repro_torch.kernels import lead_strides
 from repro_torch.kernels.kg_join.kernel import (MAX_LEAD, compat_matrix_kernel,
+                                                compat_select_kernel,
                                                 ranges_kernel, select_kernel)
 from repro_torch.kernels.kg_join.ref import (compat_matrix_ref,
+                                             compat_select_ref,
                                              join_ranges_ref, join_select_ref)
 
 
@@ -98,28 +101,72 @@ def join_select(keys, rkey, tmask, k: int, cap: int):
 join_select.launches = 0
 
 
+# the compat operands and their trailing (non-leading) dims
+_COMPAT_TAILS = (2, 1, 2, 1, 1, 1)
+
+
+def _compat_lead(args) -> torch.Size:
+    """The broadcast leading dims of the compat operands."""
+    return torch.broadcast_shapes(*(t.shape[:t.dim() - n]
+                                    for t, n in zip(args, _COMPAT_TAILS)))
+
+
+def _fold_compat(args, lead):
+    """(table, tmask, matches, mmask, kind, col) as the compat kernels read
+    them: in place over their broadcast leading dims ``lead``, with each
+    one's strides there (0 where broadcast); more than MAX_LEAD leading
+    dims are folded into one by a copy. Returns (args, lead, strides)."""
+    if len(lead) > MAX_LEAD:
+        args = tuple(t.expand(*lead, *t.shape[t.dim() - n:])
+                     .reshape(-1, *t.shape[t.dim() - n:])
+                     for t, n in zip(args, _COMPAT_TAILS))
+        lead = (args[0].shape[0],)
+    strides = tuple(lead_strides(t, n, lead)
+                    for t, n in zip(args, _COMPAT_TAILS))
+    return args, tuple(lead), strides
+
+
 def compat_matrix(table, tmask, matches, mmask, kind, col):
     """(…, R, C) bool expand-join compatibility matrix.
 
     table (…, R, V) int32, tmask (…, R) bool, matches (…, C, 3) int32,
-    mmask (…, C) bool, kind/col (…, 3) int32; leading dims broadcast.
+    mmask (…, C) bool, kind/col (…, 3) int32; leading dims broadcast and
+    are read in place.
     """
     if table.device.type == "cpu":
         return compat_matrix_ref(table, tmask, matches, mmask, kind, col)
-    lead = torch.broadcast_shapes(table.shape[:-2], tmask.shape[:-1],
-                                  matches.shape[:-2], mmask.shape[:-1],
-                                  kind.shape[:-1], col.shape[:-1])
-    r, v = table.shape[-2:]
-    c = matches.shape[-2]
-
-    def flat(t, *tail):
-        return t.expand(*lead, *tail).reshape(-1, *tail).contiguous()
-
-    out = compat_matrix_kernel(flat(table, r, v), flat(tmask, r),
-                               flat(matches, c, 3), flat(mmask, c),
-                               flat(kind, 3), flat(col, 3))
+    operands = (table, tmask, matches, mmask, kind, col)
+    shape = _compat_lead(operands)
+    out = compat_matrix_kernel(*_fold_compat(operands, shape))
     compat_matrix.launches += 1
-    return out.reshape(*lead, r, c)
+    return out.reshape(*shape, table.shape[-2], matches.shape[-2])
 
 
 compat_matrix.launches = 0
+
+
+def compat_select(table, tmask, matches, mmask, kind, col, cap: int):
+    """The expand join's selection without its matrix: (keep (…, R) bool,
+    order (…, m) int32, omask (…, m) bool, total (…,) int32) with
+    m = min(cap, R * C), where compat = `compat_matrix` of the same
+    arguments, keep = tmask & compat.any(-1) and (order, omask, total) =
+    ``select_cap`` of compat flattened (…, R * C), bit for bit: order[…, j]
+    = r * C + c of the (j+1)-th compatible pair in row-major order, R * C -
+    1 past total; total counts every compatible pair. Leading dims
+    broadcast and are read in place. On the card it is three launches
+    (count, scan and, for cap > 0, write), and no (…, R, C) tensor is
+    made.
+    """
+    if table.device.type == "cpu":
+        return compat_select_ref(table, tmask, matches, mmask, kind, col, cap)
+    operands = (table, tmask, matches, mmask, kind, col)
+    shape = _compat_lead(operands)
+    keep, order, omask, total = compat_select_kernel(
+        *_fold_compat(operands, shape), cap)
+    compat_select.launches += 1
+    return (keep.reshape(*shape, keep.shape[-1]),
+            order.reshape(*shape, order.shape[-1]),
+            omask.reshape(*shape, omask.shape[-1]), total.reshape(shape))
+
+
+compat_select.launches = 0

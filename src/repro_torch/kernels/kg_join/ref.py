@@ -1,14 +1,14 @@
-"""Plain PyTorch versions of the merge-join kernels.
+"""Plain PyTorch versions of the kg_join kernels.
 
 As with kg_scan, they are the engine's "torch" backend
-(`engine/primitives.join_ranges` / `join_select` / `compat_matrix`): the
-CPU execution path and the yardstick the CUDA kernels are held against on
-the card.
+(`engine/primitives.join_ranges` / `join_select` / `compat_matrix` /
+`compat_select`): the CPU execution path and the yardstick the CUDA
+kernels are held against on the card.
 """
 from __future__ import annotations
 
-from repro_torch.engine.primitives import (compat_matrix, join_ranges,
-                                           join_select)
+from repro_torch.engine.primitives import (compat_matrix, compat_select,
+                                           join_ranges, join_select)
 
 
 def join_ranges_ref(keys, rkey):
@@ -28,4 +28,12 @@ def join_select_ref(keys, rkey, tmask, k: int, cap: int):
 def compat_matrix_ref(table, tmask, matches, mmask, kind, col):
     """(…, R, C) bool expand-join compatibility matrix (see primitives)."""
     return compat_matrix(table, tmask, matches, mmask, kind, col,
+                         backend="torch")
+
+
+def compat_select_ref(table, tmask, matches, mmask, kind, col, cap: int):
+    """(keep, order, omask, total) by the literal route: the compat matrix,
+    ``select_cap`` of it flattened, and ``tmask & compat.any(-1)`` (see
+    primitives.compat_select)."""
+    return compat_select(table, tmask, matches, mmask, kind, col, cap,
                          backend="torch")

@@ -400,6 +400,10 @@ def main(argv: list[str] | None = None) -> None:
                          "times are not comparable) and print the blocks "
                          "live at the timed loop's peak, by the line that "
                          "allocated them")
+    ap.add_argument("--check", action="store_true",
+                    help="after the timed loop, compare every served answer "
+                         "with the oracle (evaluate_bgp in the plan's join "
+                         "order) and print how many agree")
     args = ap.parse_args(argv)
     if args.batch < 1:
         ap.error("--batch must be >= 1")
@@ -439,12 +443,13 @@ def main(argv: list[str] | None = None) -> None:
     with prof:
         t0 = time.perf_counter()
         n_solutions = overflows = 0
-        per_call = []
+        per_call, answers = [], []
         for i in range(0, len(stream), args.batch):
             t_call = time.perf_counter()
             for res in server.serve(stream[i:i + args.batch]):
                 n_solutions += res[1]
                 overflows += bool(res[2])
+                answers.append(res[0])
             _sync(device)
             per_call.append(time.perf_counter() - t_call)
         dt = time.perf_counter() - t0
@@ -465,6 +470,15 @@ def main(argv: list[str] | None = None) -> None:
         total = st["cache_hits"] + st["cache_misses"]
         print(f"  answer cache: {st['cache_hits']}/{total} hits "
               f"({st['cache_hits'] / max(1, total):.0%})")
+    if args.check:
+        from repro_torch.engine.oracle import evaluate_bgp
+        by_name = {q.name: q for q in queries}
+        oracle = {name: evaluate_bgp(store, by_name[name],
+                                     order=server.plans[name].meta["order"])
+                  for name in {name for name, _ in stream}}
+        agree = sum(np.array_equal(rows, oracle[name])
+                    for (name, _), rows in zip(stream, answers))
+        print(f"  oracle: {agree}/{len(stream)} answers equal evaluate_bgp")
     if args.profile:
         _report_profile(prof, device, dt, args.profile)
     if args.memory_peak:
