@@ -99,19 +99,36 @@ order; any failure exits non-zero:
    checks, compat_select launched once per expand join (11), scan_hits
    and scan_select launched, compat_matrix, join_ranges and join_select
    not;
-6. clustering — the production workload's distances through
+6. per-query engine — the paper's execution path (engine/federated
+   make_engine over engine/local, one plan a call, the shards a leading
+   dim) through run_vmapped with the kernels: LUBM(1) at scale 1.0 under
+   phase 4's WawPart partition with the expand and the sorted join, then
+   under the random and centralized placements with the sorted join, and
+   BSBM at 1,000 products (configs/bsbm.full()) under WawPart with both
+   joins. The sorted join's max_per_row starts at 256 and doubles while a
+   template flags an overflow. Every answer equals evaluate_bgp, and the
+   bucket engine's for WawPart, with no overflow; every template's whole
+   table, mask and overflow flag from the kernels equal the plain
+   primitives' on the card (WawPart, both joins, both datasets); the
+   launches of each run equal what the plans' steps give (a scan_select a
+   step, a compat_select an expand join, a join_select a merge step on
+   one shared column, a join_ranges and a scan_select one that verifies a
+   second; compat_matrix 0); each template's median ms a call, their sum
+   (the workload time of Figs. 5/6), n_gathers and the peak memory per
+   run;
+7. clustering — the production workload's distances through
    jaccard_distance_matrix(use_kernel=True), linkage_torch on the card over
    its first 4,096 instances, and over its first 1,024 on the card and on
    the CPU for the three linkages (single and complete identical, average
    with the same merges and distances within 1e-6);
-7. xDeepFM — the full config (39 sparse fields, D = 10, CIN 200-200-200,
+8. xDeepFM — the full config (39 sparse fields, D = 10, CIN 200-200-200,
    MLP 400-400, 26.4M embedding rows, random weights from a seed) served
    at batch 512 and 262,144 with the kernels: logits match the plain
    forward within atol=1e-3, rtol=1e-4, each CIN layer (on the embeddings
    scaled to unit variance) matches the plain layer within atol=5e-4,
    rtol=1e-4, gather_rows launched once and cin_layer three times per
    forward;
-8. LM serving — granite-3-8b and granite-20b at full width and 4 layers
+9. LM serving — granite-3-8b and granite-20b at full width and 4 layers
    in float32: prefill logits with the kernel within 1e-4 x max |logit| of
    the plain attention path, a decode step within 1e-3 of forward's
    logits; then granite-3-8b at full width and depth in bfloat16 (random
@@ -120,7 +137,7 @@ order; any failure exits non-zero:
    from position 32,760, every logit finite, flash_attention launched 40
    times in the prefill (all on the wgmma route) and 40 per step (all on
    the split route), each profiled;
-9. GNN serving — GCN (gcn_cora.full("ogb_products"): 2 layers, d_in 100,
+10. GNN serving — GCN (gcn_cora.full("ogb_products"): 2 layers, d_in 100,
    hidden 16, 47 classes) on the full ogbn-products batch (2,449,029
    nodes, 64,308,169 edges with self loops, built in numpy from seed 0),
    then EGNN, NequIP and Equiformer-v2 at full() on the molecule batch
@@ -133,7 +150,7 @@ order; any failure exits non-zero:
    call) and a profiled breakdown;
    Equiformer-v2's energies unchanged within 1e-4 relative under a random
    rotation and translation;
-10. summary — every kernel's launches on its path.
+11. summary — every kernel's launches on its path.
 
 The last three lines are the card's name and power limit, a JSON line of
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -165,14 +182,20 @@ from repro_torch.configs import gcn_cora  # noqa: E402
 from repro_torch.configs import granite_3_8b, granite_20b  # noqa: E402
 from repro_torch.configs import nequip as nequip_configs  # noqa: E402
 from repro_torch.configs import xdeepfm as xdeepfm_configs  # noqa: E402
+from repro_torch.configs import bsbm as bsbm_config  # noqa: E402
+from repro_torch.configs import lubm as lubm_config  # noqa: E402
 from repro_torch.core.distance import (feature_matrix,  # noqa: E402
                                        jaccard_distance_matrix)
 from repro_torch.core.hac import LINKAGES, linkage_torch  # noqa: E402
-from repro_torch.core.partitioner import wawpart_partition  # noqa: E402
+from repro_torch.core.partitioner import (  # noqa: E402
+    centralized_partition, random_partition, wawpart_partition)
 from repro_torch.data.graphs import make_graph_batch  # noqa: E402
 from repro_torch.data.recsys import click_batches  # noqa: E402
 from repro_torch.data.tokens import token_batches  # noqa: E402
+from repro_torch.engine.federated import (ShardedKG,  # noqa: E402
+                                          make_engine, run_vmapped)
 from repro_torch.engine.oracle import evaluate_bgp  # noqa: E402
+from repro_torch.engine.planner import make_plan  # noqa: E402
 from repro_torch.kernels.cin import kernel as cin_kernel  # noqa: E402
 from repro_torch.kernels.cin import ops as cin_ops  # noqa: E402
 from repro_torch.kernels.cin.ref import (cin_layer_ref,  # noqa: E402
@@ -207,8 +230,9 @@ from repro_torch.kernels.segment_spmm.kernel import (  # noqa: E402
     PIECE, segment_spmm_kernel)
 from repro_torch.kernels.segment_spmm.ref import \
     segment_spmm_ref  # noqa: E402
-from repro_torch.kg.generator import generate_lubm  # noqa: E402
-from repro_torch.kg.workloads import lubm_queries  # noqa: E402
+from repro_torch.kg.generator import (generate_bsbm,  # noqa: E402
+                                      generate_lubm)
+from repro_torch.kg.workloads import bsbm_queries, lubm_queries  # noqa: E402
 from repro_torch.launch.serve import (WorkloadServer,  # noqa: E402
                                       request_stream)
 from repro_torch.models.gnn.egnn import EGNN  # noqa: E402
@@ -264,6 +288,14 @@ COMPAT_SHAPES = {"expand path": (24, 256, 4, 768, 256),
 RNG = np.random.default_rng(0)
 BATCH = 14                   # requests per serve(): one per LUBM template
 EXPAND_JOINS = 11            # expand joins of phase 5's two passes
+# phase 6, the per-query engine: timed calls per template after a warm
+# one; the sorted join's max_per_row starts at benchmarks/harness.py's 256
+# and doubles while a template overflows, up to the limit; BSBM at
+# configs/bsbm.full(), generate_bsbm(1000) as the CLI's
+# build_dataset("bsbm", 1.0) builds it
+PQ_REPS = 5
+PQ_FANOUT, PQ_FANOUT_LIMIT = 256, 1 << 14
+BSBM_PRODUCTS = 1000
 # the production clustering workload: every (university, department)
 # instance of the 14 LUBM templates, 78 x 15 x 14 = 16,380 queries
 UNIVERSITIES, DEPARTMENTS = 78, 15
@@ -1919,12 +1951,13 @@ def counts() -> dict:
 
 
 def serve_path(scale: float, join_impl: str, passes: int = 2, *,
-               kernel_partition: bool = False) -> dict:
+               kernel_partition: bool = False) -> tuple[dict, dict]:
     """Build, partition and serve a round-robin stream over every LUBM
     template (``passes`` passes of BATCH requests); check every result
     against the oracle. With ``kernel_partition`` the partition comes from
     the Jaccard kernel's distances and must equal the numpy one. Returns
-    the launch counts of the served run (and of the partition step)."""
+    the launch counts of the served run (and of the partition step), and
+    the store, partition, oracle and the served answers by template."""
     t0 = time.perf_counter()
     store = generate_lubm(1, scale=scale, seed=0)
     queries = lubm_queries()
@@ -2019,11 +2052,238 @@ def serve_path(scale: float, join_impl: str, passes: int = 2, *,
         f"max_memory_allocated {peak:,} bytes")
     log(f"  every result equals evaluate_bgp; no overflow "
         f"({sum(len(oracle[n]) for n, _ in stream):,} solutions)")
-    return launched
+    answers = {name: rows for (name, _), (rows, _, _) in zip(stream, results)}
+    return launched, {"store": store, "part": part, "oracle": oracle,
+                      "answers": answers}
 
 
 # ---------------------------------------------------------------------------
-# phase 6: WawPart's query clustering at a production workload's size
+# phase 6: the per-query engine (the paper's execution path)
+# ---------------------------------------------------------------------------
+
+def pq_plans(queries, part) -> dict:
+    return {q.name: make_plan(q, part) for q in queries}
+
+
+def pq_expected(plans, join_impl: str) -> dict:
+    """The kernel launches of one run_vmapped per plan: a scan_select per
+    step; per join a compat_select (expand joins, and the sorted join's
+    steps without a shared or a new variable), a join_select (a merge step
+    on one shared column) or a join_ranges with the scan_select of its
+    pair mask (a merge step that verifies a second shared column)."""
+    steps = [s for p in plans.values() for s in p.steps if not s.is_noop]
+    merge = [s for s in steps if join_impl == "sorted" and s.shared and s.new]
+    verified = sum(len(s.shared) > 1 for s in merge)
+    return {"scan_select": len(steps) + verified,
+            "compat_select": len(steps) - len(merge),
+            "join_select": len(merge) - verified, "join_ranges": verified,
+            "compat_matrix": 0, "scan_hits": 0}
+
+
+def call_ms(fn, reps: int = PQ_REPS) -> float:
+    """Median wall milliseconds of fn() after one warm call, with
+    torch.cuda.synchronize before and after each call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def pq_fanout(plans, kg) -> int:
+    """The sorted join's max_per_row: benchmarks/harness.py's 256, doubled
+    until no template flags an overflow."""
+    mpr = PQ_FANOUT
+    while True:
+        flagged = [name for name, plan in plans.items()
+                   if run_vmapped(plan, kg, join_impl="sorted",
+                                  max_per_row=mpr, backend="cuda",
+                                  device=DEV)[2]]
+        if not flagged:
+            return mpr
+        log(f"  max_per_row {mpr}: overflow in {flagged}; doubling")
+        mpr *= 2
+        if mpr > PQ_FANOUT_LIMIT:
+            raise AssertionError(f"overflow past max_per_row "
+                                 f"{PQ_FANOUT_LIMIT}: {flagged}")
+
+
+def pq_exact(label: str, plans, kg, join_impl: str, mpr: int) -> None:
+    """Every template's whole table, mask and overflow flag from the
+    kernels (backend "cuda") equal the plain primitives' (backend "torch")
+    on the same tensors on the card."""
+    tr, va = kg.to_device(DEV)
+    wall = {"cuda": 0.0, "torch": 0.0}
+    for name, plan in plans.items():
+        params = torch.zeros((max(1, plan.n_params),), dtype=torch.int32,
+                             device=DEV)
+        out = {}
+        for backend in ("cuda", "torch"):
+            engine = make_engine(plan, join_impl=join_impl, max_per_row=mpr,
+                                 backend=backend)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[backend] = engine(tr, va, params)
+            torch.cuda.synchronize()
+            wall[backend] += time.perf_counter() - t0
+        for a, b, what in zip(out["cuda"], out["torch"],
+                              ("table", "mask", "overflow")):
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"{label} {join_impl} {name}: the "
+                                     f"kernels' {what} differs from the "
+                                     f"plain primitives'")
+        del out
+    log(f"  {label}, join {join_impl}: every template's table, mask and "
+        f"overflow (backend cuda) bit-identical to the plain primitives' "
+        f"(backend torch) on the card; one call each: {wall['cuda']:.3f} s "
+        f"with the kernels, {wall['torch']:.3f} s plain")
+
+
+def pq_workload(label: str, plans, kg, join_impl: str, mpr: int, oracle,
+                card: str, bucket=None, profile: bool = False) -> dict:
+    """One counted pass of run_vmapped over every plan, each answer held
+    to the oracle (and to the bucket engine's), then each template's
+    engine call timed with the shard blocks on the card (and, with
+    ``profile``, one pass over the templates profiled). Returns the
+    launches, ms per template, their sum and the peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    base = torch.cuda.memory_allocated(DEV)
+    reset_counts()
+    results = {name: run_vmapped(plan, kg, join_impl=join_impl,
+                                 max_per_row=mpr, backend="cuda", device=DEV)
+               for name, plan in plans.items()}
+    torch.cuda.synchronize()
+    launched = counts()
+    for name, (rows, n, ovf) in results.items():
+        if ovf:
+            raise AssertionError(f"{label} {join_impl} {name}: overflow "
+                                 f"flag set")
+        if not np.array_equal(rows, oracle[name]) or n != len(oracle[name]):
+            raise AssertionError(f"{label} {join_impl} {name}: result "
+                                 f"differs from the oracle")
+        if bucket is not None and not np.array_equal(rows, bucket[name]):
+            raise AssertionError(f"{label} {join_impl} {name}: result "
+                                 f"differs from the bucket engine's")
+    expected = pq_expected(plans, join_impl)
+    wrong = {k: (launched[k], v) for k, v in expected.items()
+             if launched[k] != v}
+    if wrong:
+        raise AssertionError(f"{label} {join_impl}: launches (counted, "
+                             f"expected) {wrong}")
+    tr, va = kg.to_device(DEV)
+    ms, calls = {}, []
+    for name, plan in plans.items():
+        engine = make_engine(plan, join_impl=join_impl, max_per_row=mpr,
+                             backend="cuda")
+        params = torch.zeros((max(1, plan.n_params),), dtype=torch.int32,
+                             device=DEV)
+        calls.append(lambda e=engine, p=params: e(tr, va, p))
+        ms[name] = call_ms(calls[-1])
+    peak = torch.cuda.max_memory_allocated(DEV)
+    if profile:
+        log(f"  {label}, join {join_impl}, one call of each template, "
+            f"profiled: " + device_breakdown(lambda: [c() for c in calls]))
+    total = sum(ms.values())
+    log(f"  {label}, join {join_impl}"
+        + (f", max_per_row {mpr}" if join_impl == "sorted" else "")
+        + f" ({card})"
+        + f": every answer equals evaluate_bgp"
+        + (" and the bucket engine's" if bucket is not None else "")
+        + f", no overflow ({sum(len(oracle[n]) for n in plans):,} "
+        f"solutions); launches "
+        f"{ {k: launched[k] for k in expected} } (as the plans' steps give "
+        f"them); median ms per call {ms}; workload {total:.3f} ms; "
+        f"n_gathers { {n: p.n_gathers for n, p in plans.items()} }; "
+        f"max_memory_allocated {peak:,} bytes ({peak - base:,} above the "
+        f"{base:,} allocated before the run)")
+    return {"launches": {k: launched[k] for k in expected}, "ms": ms,
+            "total_ms": total, "peak": peak, "above": peak - base,
+            "max_per_row": mpr}
+
+
+def phase_per_query(main_path: dict, card: str) -> dict:
+    """The paper's per-query engine on the card: LUBM(1) under WawPart
+    (both joins) and under random and centralized placements (sorted
+    join), BSBM at 1,000 products under WawPart (both joins). Returns
+    each run's record and the summed launches."""
+    t_phase = time.perf_counter()
+    store, part = main_path["store"], main_path["part"]
+    oracle, bucket = main_path["oracle"], main_path["answers"]
+    queries = lubm_queries()
+    cfg = lubm_config.full()
+    assert (cfg.scale, cfg.seed, cfg.n_shards) == (1.0, 0, 3)
+    runs = {}
+    kg = ShardedKG.build(part)
+    plans = pq_plans(queries, part)
+    mpr = pq_fanout(plans, kg)
+    log(f"  LUBM (configs/lubm.full(): {cfg.n_universities} university, "
+        f"scale {cfg.scale}, seed {cfg.seed}), {len(store):,} triples, "
+        f"WawPart {part.shard_sizes.tolist()}, kg {kg.triples.shape}: "
+        f"sorted join's "
+        f"max_per_row {mpr} (the smallest power of two from {PQ_FANOUT} "
+        f"that clears every overflow)")
+    for join_impl in ("expand", "sorted"):
+        pq_exact("LUBM WawPart", plans, kg, join_impl, mpr)
+        runs[f"lubm-wawpart-{join_impl}"] = pq_workload(
+            "LUBM WawPart", plans, kg, join_impl, mpr, oracle, card, bucket,
+            profile=True)
+
+    for method, bpart in (
+            ("random", random_partition(store, queries, n_shards=3, seed=0)),
+            ("centralized", centralized_partition(store, queries))):
+        bkg = ShardedKG.build(bpart)
+        runs[f"lubm-{method}-sorted"] = pq_workload(
+            f"LUBM {method} {bpart.shard_sizes.tolist()}",
+            pq_plans(queries, bpart), bkg, "sorted", mpr, oracle, card)
+
+    bcfg = bsbm_config.full()
+    bstore = generate_bsbm(BSBM_PRODUCTS, seed=bcfg.seed)
+    bqueries = bsbm_queries()
+    bpart = wawpart_partition(bstore, bqueries, n_shards=bcfg.n_shards)
+    bkg = ShardedKG.build(bpart)
+    bplans = pq_plans(bqueries, bpart)
+    boracle = {n: evaluate_bgp(bstore, p.query, order=p.meta["order"])
+               for n, p in bplans.items()}
+    bmpr = pq_fanout(bplans, bkg)
+    log(f"  BSBM {BSBM_PRODUCTS:,} products: {len(bstore):,} triples, "
+        f"WawPart {bpart.shard_sizes.tolist()}, kg {bkg.triples.shape}; "
+        f"sorted join's max_per_row {bmpr}")
+    for join_impl in ("expand", "sorted"):
+        server = WorkloadServer(bqueries, bpart, join_impl=join_impl,
+                                backend="cuda", device=DEV)
+        stream = request_stream(bqueries, len(bqueries))
+        served = {name: rows for (name, _), (rows, _, ovf)
+                  in zip(stream, server.serve(stream)) if not ovf}
+        if served.keys() != boracle.keys():
+            raise AssertionError(f"BSBM bucket engine ({join_impl}) flagged "
+                                 f"an overflow")
+        pq_exact("BSBM WawPart", bplans, bkg, join_impl, bmpr)
+        runs[f"bsbm-wawpart-{join_impl}"] = pq_workload(
+            "BSBM WawPart", bplans, bkg, join_impl, bmpr, boracle, card,
+            served)
+
+    log(f"  workload time (sum of the templates' median ms, Figs. 5/6), "
+        f"{card}: " + ", ".join(f"{k} {r['total_ms']:.3f} ms"
+                                for k, r in runs.items()))
+    log(f"  peak memory by run (max_memory_allocated, and above what was "
+        f"allocated before the run), {card}: "
+        + ", ".join(f"{k} {r['peak']:,} ({r['above']:,})"
+                    for k, r in runs.items())
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    total = {}
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return {"runs": runs, "launches": total}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: WawPart's query clustering at a production workload's size
 # ---------------------------------------------------------------------------
 
 def phase_clustering() -> dict:
@@ -2085,7 +2345,7 @@ def phase_clustering() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: xDeepFM serving forward at full width
+# phase 8: xDeepFM serving forward at full width
 # ---------------------------------------------------------------------------
 
 def wall_ms(fn, reps: int) -> float:
@@ -2178,7 +2438,7 @@ def phase_xdeepfm() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: dense-transformer serving (prefill and decode)
+# phase 9: dense-transformer serving (prefill and decode)
 # ---------------------------------------------------------------------------
 
 def lm_check(cfg_full) -> str:
@@ -2312,7 +2572,7 @@ def phase_lm() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: GNN serving (GCN at ogbn-products, the geometric models)
+# phase 10: GNN serving (GCN at ogbn-products, the geometric models)
 # ---------------------------------------------------------------------------
 
 def gnn_check(name: str, model, g) -> int:
@@ -2415,23 +2675,23 @@ def phase_gnn() -> dict:
 def main() -> None:
     t_start = time.perf_counter()
     card = card_line()
-    log(f"[1/10] device: {card}; torch.cuda.get_device_name: "
+    log(f"[1/11] device: {card}; torch.cuda.get_device_name: "
         f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     # the plain versions' float32 products run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log(f"[2/10] build: {kernels.build():.2f} s (nvcc, "
+    log(f"[2/11] build: {kernels.build():.2f} s (nvcc, "
         f"{' '.join(kernels.NVCC_FLAGS)}; {len(kernels.SOURCES)} libraries)")
 
-    log("[3/10] kernels against their plain versions on the card")
+    log("[3/11] kernels against their plain versions on the card")
     rec = phase_kernels()
 
-    log("[4/10] main path: LUBM(1) scale 1.0, WawPart 3 shards from the "
+    log("[4/11] main path: LUBM(1) scale 1.0, WawPart 3 shards from the "
         f"Jaccard kernel, join sorted, backend cuda, {BATCH} requests per "
         "serve()")
-    main_counts = serve_path(1.0, "sorted", kernel_partition=True)
+    main_counts, main_path = serve_path(1.0, "sorted", kernel_partition=True)
     for k in ("jaccard_distance", "scan_select", "join_ranges",
               "join_select"):
         if main_counts[k] <= 0:
@@ -2455,8 +2715,8 @@ def main() -> None:
         f"{main_counts['merge_joins']}, {main_counts['select_joins']} "
         f"expanding without verification)")
 
-    log("[5/10] expand path: LUBM scale 0.1, join expand, backend cuda")
-    expand_counts = serve_path(0.1, "expand")
+    log("[5/11] expand path: LUBM scale 0.1, join expand, backend cuda")
+    expand_counts, _ = serve_path(0.1, "expand")
     for k in ("compat_select", "scan_hits", "scan_select"):
         if expand_counts[k] <= 0:
             raise AssertionError(f"expand path never launched {k}")
@@ -2481,20 +2741,33 @@ def main() -> None:
         f"make), compat_matrix 0, scan_select {expand_counts['scan_select']},"
         f" scan_hits {expand_counts['scan_hits']}")
 
-    log(f"[6/10] clustering: {UNIVERSITIES * DEPARTMENTS * 14:,} LUBM query "
+    log("[6/11] per-query engine (the paper's execution path): "
+        "run_vmapped over every template, backend cuda; LUBM(1) scale 1.0 "
+        "under WawPart (expand and sorted joins), random and centralized "
+        "(sorted join); BSBM 1,000 products under WawPart (both joins)")
+    per_query = phase_per_query(main_path, card)
+    pq_launches = per_query["launches"]
+    for k in ("scan_select", "compat_select", "join_select"):
+        if pq_launches[k] <= 0:
+            raise AssertionError(f"per-query engine never launched {k}")
+    if pq_launches["compat_matrix"]:
+        raise AssertionError("per-query engine launched compat_matrix")
+    log(f"  per-query engine launches over its runs: {pq_launches}")
+
+    log(f"[7/11] clustering: {UNIVERSITIES * DEPARTMENTS * 14:,} LUBM query "
         "instances")
     cluster_counts = phase_clustering()
     if cluster_counts["jaccard_distance"] <= 0:
         raise AssertionError("clustering never launched jaccard_distance")
 
-    log("[7/10] xDeepFM serving forward, full config")
+    log("[8/11] xDeepFM serving forward, full config")
     xdeepfm_counts = phase_xdeepfm()
 
-    log("[8/10] LM serving: granite-3-8b full config, bf16, random weights "
+    log("[9/11] LM serving: granite-3-8b full config, bf16, random weights "
         "from seed 0; float32 checks at full width and 4 layers")
     lm_counts = phase_lm()
 
-    log("[9/10] GNN serving: GCN at the full ogbn-products size; EGNN, "
+    log("[10/11] GNN serving: GCN at the full ogbn-products size; EGNN, "
         "NequIP and Equiformer-v2 full configs on the molecule batch; "
         "random weights from seed 0")
     gnn_counts = phase_gnn()
@@ -2519,24 +2792,33 @@ def main() -> None:
              "scan_select": "LUBM main path (phase 4)",
              "join_ranges": "LUBM main path (phase 4)",
              "join_select": "LUBM main path (phase 4)",
-             "compat_matrix": "none (op only; the expand path takes "
-                              "compat_select, phase 5)",
+             "compat_matrix": "none (op only; the expand path and the "
+                              "per-query engine take compat_select, phases "
+                              "5 and 6)",
              "compat_select": "LUBM expand path (phase 5)",
              "jaccard_distance": "WawPart partition (phase 4)",
-             "gather_rows": "xDeepFM forward (phase 7)",
-             "cin_layer": "xDeepFM forward at serve_p99 (phase 7)",
-             "cin_layer[serve_bulk]": "xDeepFM forward at serve_bulk (phase 7)",
-             "flash_attention[prefill]": "granite-3-8b prefill (phase 8)",
-             "flash_attention[decode]": "granite-3-8b decode (phase 8)",
-             "segment_spmm[ogb_products]": "GCN forward (phase 9)",
+             "gather_rows": "xDeepFM forward (phase 8)",
+             "cin_layer": "xDeepFM forward at serve_p99 (phase 8)",
+             "cin_layer[serve_bulk]": "xDeepFM forward at serve_bulk (phase 8)",
+             "flash_attention[prefill]": "granite-3-8b prefill (phase 9)",
+             "flash_attention[decode]": "granite-3-8b decode (phase 9)",
+             "segment_spmm[ogb_products]": "GCN forward (phase 10)",
              "segment_spmm[molecule]":
-                 "EGNN, NequIP, Equiformer-v2 forwards (phase 9)"}
+                 "EGNN, NequIP, Equiformer-v2 forwards (phase 10)"}
+    # the per-query engine's kernels (phase 6), where it launched them; its
+    # launches are printed with the phase, the records keep phase 4's and
+    # 5's
+    for name in ("scan_select", "join_ranges", "join_select",
+                 "compat_select"):
+        if pq_launches[name]:
+            paths[name] += "; per-query engine (phase 6)"
     for name, path in paths.items():
         rec[name]["path"] = path
-    log("[10/10] kernels: " + ", ".join(
+    log("[11/11] kernels: " + ", ".join(
         f"{r['name']} ok launches={r['launches']}" for r in rec.values())
         + f"; main path launches {main_counts}, expand path launches "
-        f"{expand_counts}, clustering launches {cluster_counts}, xDeepFM "
+        f"{expand_counts}, per-query engine launches {pq_launches}, "
+        f"clustering launches {cluster_counts}, xDeepFM "
         f"launches {xdeepfm_counts}, LM launches (prefill of "
         f"{PREFILL_S:,} tokens, {DECODE_STEPS} decode steps) "
         f"{ {k: c['flash_attention'] for k, c in lm_counts.items()} }, GNN "

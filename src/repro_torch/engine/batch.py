@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.engine.federated import (ShardedKG, check_gather_cap,
-                                          raise_on_overflow)
+                                          raise_on_overflow, resolve_device)
 from repro_torch.engine.planner import PhysicalPlan, pad_plan
 from repro_torch.engine.primitives import (EQ_PAIRS, INT_MAX, KernelBlocks,
                                            check_backend, compact,
@@ -51,17 +51,6 @@ from repro_torch.engine.primitives import (EQ_PAIRS, INT_MAX, KernelBlocks,
                                            take_rows)
 
 _INT_MAX = int(INT_MAX)
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; raises RuntimeError when a CUDA device
-    is asked for and none is available (nothing falls back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} requested but CUDA is not available; "
-            "pass device='cpu' to run on the CPU")
-    return dev
 
 
 class PlanData(NamedTuple):

@@ -1,10 +1,18 @@
-"""Shard blocks of the federated KG and the capacity checks shared by the
-engines (paper §3.2 + §4).
+"""Federated query execution across the shard axis (paper §3.2 + §4): the
+shard blocks of the federated KG, the per-query engine, and the capacity
+checks shared by the engines.
 
 Each shard holds its padded triple block. A plan step whose pattern data
 lives off the query's primary processing node (PPN) gathers candidate
 matches across the shard axis — the tensor analogue of a SERVICE call;
 steps whose data is PPN-local never communicate.
+
+The per-query engine (`make_engine`) is the paper's execution path: one
+query plan, its steps composed from `engine/local`. Its tensors carry the
+shards as an explicit leading dim (and any batch of parameter vectors as
+a further one before it), so a cut step's gather is the owner-masked
+matches of every shard laid out shard-major and broadcast to every shard
+row — the result of an ``all_gather`` under a shard-axis vmap.
 """
 from __future__ import annotations
 
@@ -14,8 +22,23 @@ import numpy as np
 import torch
 
 from repro_torch.core.partitioner import Partitioning
+from repro_torch.engine.local import (compact, join_step, join_step_sorted,
+                                      scan_shard)
+from repro_torch.engine.planner import PhysicalPlan
+from repro_torch.engine.primitives import check_backend
 
 AXIS = "shards"
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises RuntimeError when a CUDA device
+    is asked for and none is available (nothing falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but CUDA is not available; "
+            "pass device='cpu' to run on the CPU")
+    return dev
 
 
 class CapacityOverflowError(RuntimeError):
@@ -99,3 +122,123 @@ class ShardedKG:
         """(triples, valid) as tensors on ``device``."""
         return (torch.from_numpy(self.triples).to(device),
                 torch.from_numpy(self.valid).to(device))
+
+
+# ---------------------------------------------------------------------------
+# per-query engine
+# ---------------------------------------------------------------------------
+
+def make_engine(plan: PhysicalPlan, *, join_impl: str = "expand",
+                max_per_row: int = 64, gather_cap: int | None = None,
+                backend: str = "cuda", kernel_blocks=None):
+    """Build engine(triples, valid, params) -> (table, mask, overflow).
+
+    triples (S, N, 3) int32 and valid (S, N) bool are the shard blocks;
+    params (…, P) int32 one parameter vector, or a batch of them with
+    leading dims (…). Results: table (…, S, R, V) int32, mask (…, S, R)
+    bool, overflow (…, S) bool — one row per (request, shard), as the JAX
+    package's engine under ``vmap(axis_name="shards")``.
+
+    join_impl: "expand" — paper-faithful expand-and-filter join;
+               "sorted" — sort-merge join (fan-out up to max_per_row).
+    gather_cap: post-gather compaction size (default: keep S * scan_cap).
+    backend: "torch" — plain PyTorch primitives; "cuda" — the kg_scan /
+    kg_join kernels (plain versions on CPU tensors), bit-identical.
+    kernel_blocks is validated as in the JAX package (the kernels fix
+    their own tiles).
+    """
+    check_backend(backend, kernel_blocks)
+    S = plan.n_shards
+    R, V = plan.table_cap, max(1, plan.n_vars)
+    steps = [step for step in plan.steps if not step.is_noop]
+
+    def engine(triples: torch.Tensor, valid: torch.Tensor,
+               params: torch.Tensor):
+        dev = triples.device
+        lead = tuple(params.shape[:-1])
+        table = torch.full((*lead, S, R, V), -1, dtype=torch.int32,
+                           device=dev)
+        tmask = torch.zeros((*lead, S, R), dtype=torch.bool, device=dev)
+        tmask[..., 0] = True
+        overflow = torch.zeros((*lead, S), dtype=torch.bool, device=dev)
+
+        for step in steps:
+            spo = [torch.tensor(v, dtype=torch.int32, device=dev)
+                   for v in step.consts]
+            for pos, pidx in step.param_slots:
+                spo[pos] = params[..., pidx]
+            s_, p_, o_ = (v[..., None] for v in torch.broadcast_tensors(*spo))
+            m, mm, ovf = scan_shard(triples, valid, s_, p_, o_, step.eqs,
+                                    step.scan_cap, backend=backend)
+            overflow = overflow | ovf
+
+            if step.gather and S > 1:
+                # the all_gather: every shard's owner-masked matches in
+                # shard-major order, one copy read by every shard row (the
+                # scan's leading dims are the params' only where the step
+                # reads a parameter; elsewhere they broadcast)
+                owner = torch.tensor([i in step.owners for i in range(S)],
+                                     device=dev)
+                C = S * step.scan_cap
+                mlead = m.shape[:-3]
+                m = m.reshape(*mlead, 1, C, 3)
+                mm = (mm & owner[:, None]).reshape(*mlead, 1, C)
+                if gather_cap is not None and gather_cap < C:
+                    m, mm, ovf2 = compact(m, mm, gather_cap,
+                                          backend=backend)
+                    overflow = overflow | ovf2
+                m = m.expand(*mlead, S, *m.shape[-2:])
+                mm = mm.expand(*mlead, S, mm.shape[-1])
+
+            if join_impl == "sorted":
+                table, tmask, ovf3 = join_step_sorted(
+                    table, tmask, m, mm, step.shared, step.new,
+                    max_per_row=max_per_row, backend=backend)
+            else:
+                table, tmask, ovf3 = join_step(table, tmask, m, mm,
+                                               step.shared, step.new,
+                                               backend=backend)
+            overflow = overflow | ovf3
+        return table, tmask, overflow
+
+    return engine
+
+
+def run_vmapped(plan: PhysicalPlan, kg: ShardedKG,
+                params: np.ndarray | None = None, *,
+                join_impl: str = "expand", max_per_row: int = 64,
+                gather_cap: int | None = None, strict: bool = False,
+                backend: str = "cuda", kernel_blocks=None, device="cuda"):
+    """Run one query plan with every shard as a leading dim on one device
+    (the counterpart of the JAX package's shard-axis vmap). Returns the
+    PPN shard's (solutions, count, overflow); strict=True raises
+    CapacityOverflowError instead of returning a truncated result."""
+    check_gather_cap(gather_cap)
+    dev = resolve_device(device)
+    engine = make_engine(plan, join_impl=join_impl, max_per_row=max_per_row,
+                         gather_cap=gather_cap, backend=backend,
+                         kernel_blocks=kernel_blocks)
+    p = np.zeros((max(1, plan.n_params),), np.int32) if params is None \
+        else np.asarray(params, np.int32)
+    triples, valid = kg.to_device(dev)
+    res = _extract(plan, *engine(triples, valid, torch.from_numpy(p).to(dev)))
+    if strict:
+        raise_on_overflow(res[2], plan.query.name, "vmapped")
+    return res
+
+
+def _extract(plan: PhysicalPlan, table, tmask, overflow):
+    """Pull the PPN shard's solutions, dedup, sort (matching the oracle).
+    table (S, R, V), tmask (S, R), overflow (S,): the PPN's rows go to
+    the host in one copy."""
+    t, m, ov = table[plan.ppn], tmask[plan.ppn], overflow[plan.ppn]
+    host = torch.cat([t.reshape(-1), m.to(torch.int32),
+                      ov.to(torch.int32).reshape(1)]).cpu().numpy()
+    r, v = t.shape
+    t = host[:r * v].reshape(r, v)
+    m = host[r * v:r * v + r].astype(bool)
+    ov = bool(host[-1])
+    rows = t[m][:, :plan.n_vars]   # drop the dummy column of 0-var queries
+    rows = np.unique(rows, axis=0) if rows.shape[0] \
+        else rows.reshape(0, plan.n_vars)
+    return rows.astype(np.int32), int(rows.shape[0]), ov

@@ -157,6 +157,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    checked = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "engine/local", "engine/federated", "core/rewriter", "configs/lubm",
+        "configs/bsbm")} <= checked
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "repro", "flax", "optax"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
