@@ -95,6 +95,20 @@ order; any failure exits non-zero:
    scan_select, join_ranges and join_select launched, join_ranges +
    join_select once per merge join and join_select once per merge join
    that expands without verifying a second column (no pair mask there);
+   serve() is submit + drain on the continuous-batching pipeline;
+4b. pipeline — on phase 4's store, partition and engines (answer cache
+   off, max_batch 14, deadline 25 ms, max_inflight 2): a FakeClock
+   schedule of four passes over the 14 templates with full, deadline and
+   drain flushes each > 0; a real-clock replay_paced of 140 requests at
+   1 ms arrivals (latency percentiles per bucket, flush counters, how many
+   batches _retire completed on a fired CUDA event against how many a
+   later completion found ready or blocked on, peak memory, and the
+   device-busy share of a profiled replay); migrate() to
+   incremental_repartition(part, queries, two_phase_weights(queries)[1],
+   budget_frac=0.15) with 14 requests queued, every ticket then on epoch
+   1; shutdown(grace_s=0) with requests queued, each resolved with
+   ShutdownError while the batches in flight complete. Every answer
+   equals evaluate_bgp; scan_select and join_select launched;
 5. expand path — LUBM at scale 0.1 under join_impl="expand": the same
    checks, compat_select launched once per expand join (11), scan_hits
    and scan_select launched, compat_matrix, join_ranges and join_select
@@ -233,8 +247,13 @@ from repro_torch.kernels.segment_spmm.ref import \
 from repro_torch.kg.generator import (generate_bsbm,  # noqa: E402
                                       generate_lubm)
 from repro_torch.kg.workloads import bsbm_queries, lubm_queries  # noqa: E402
-from repro_torch.launch.serve import (WorkloadServer,  # noqa: E402
-                                      request_stream)
+from repro_torch.adaptive.repartition import \
+    incremental_repartition  # noqa: E402
+from repro_torch.faults import ShutdownError  # noqa: E402
+from repro_torch.launch.serve import (PipelineConfig,  # noqa: E402
+                                      WorkloadServer, replay_paced,
+                                      request_stream, two_phase_weights)
+from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.models.gnn.egnn import EGNN  # noqa: E402
 from repro_torch.models.gnn.equiformer_v2 import EquiformerV2  # noqa: E402
 from repro_torch.models.gnn.gcn import GCN  # noqa: E402
@@ -2054,7 +2073,194 @@ def serve_path(scale: float, join_impl: str, passes: int = 2, *,
         f"({sum(len(oracle[n]) for n, _ in stream):,} solutions)")
     answers = {name: rows for (name, _), (rows, _, _) in zip(stream, results)}
     return launched, {"store": store, "part": part, "oracle": oracle,
-                      "answers": answers}
+                      "answers": answers, "queries": queries,
+                      "cache": server.cache}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the continuous-batching pipeline on phase 4's store
+# ---------------------------------------------------------------------------
+
+PIPE_DEADLINE_MS = 25.0      # deadline budget of the pipeline phase
+PIPE_REPLAY = 140            # paced requests, one every PIPE_ARRIVAL_MS
+PIPE_ARRIVAL_MS = 1.0
+
+
+class FakeClock:
+    """A clock the schedule advances by hand."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def pipe_server(main_path: dict, *, clock=None, trace: bool = False,
+                deadline_ms: float | None = PIPE_DEADLINE_MS):
+    """A pipelined server on phase 4's store and partition, sharing its
+    engine cache; answer cache off, so every request dispatches."""
+    cfg = PipelineConfig(deadline_ms=deadline_ms, max_batch=BATCH,
+                         max_inflight=2,
+                         **({} if clock is None else {"clock": clock}))
+    return WorkloadServer(main_path["queries"], main_path["part"],
+                          join_impl="sorted", backend="cuda", device=DEV,
+                          cache=main_path["cache"], answer_cache=False,
+                          pipeline=cfg, telemetry=Telemetry(trace=trace))
+
+
+def check_tickets(tickets, oracle, what: str) -> None:
+    for t in tickets:
+        if t.error is not None or not t.done:
+            raise AssertionError(f"{what}: {t.name} not answered ({t.error})")
+        rows, n, ovf = t.result
+        if ovf or not np.array_equal(rows, oracle[t.name]) \
+                or n != len(oracle[t.name]):
+            raise AssertionError(f"{what}: {t.name} differs from the oracle")
+
+
+def count_completions(server) -> dict:
+    """Wrap the server's _retire and _complete (instance attributes; the
+    package is unchanged): a batch completed inside _retire is one whose
+    CUDA event had fired; any other completion (backpressure, drain) finds
+    its event fired or blocks on it."""
+    tally = {"retired_on_event": 0, "completed_ready": 0,
+             "completed_blocked": 0}
+    retire, complete = server._retire, server._complete
+    inside = [False]
+
+    def counted_retire():
+        inside[0] = True
+        try:
+            return retire()
+        finally:
+            inside[0] = False
+
+    def counted_complete(rec):
+        key = ("retired_on_event" if inside[0] else "completed_ready"
+               if rec.out.ready() else "completed_blocked")
+        tally[key] += 1
+        return complete(rec)
+
+    server._retire, server._complete = counted_retire, counted_complete
+    return tally
+
+
+def flushes(server) -> dict:
+    st = server.stats
+    return {k: st[k] for k in ("flush_full", "flush_deadline",
+                               "flush_drain")}
+
+
+def phase_pipeline(main_path: dict, card: str) -> dict:
+    """The pipeline's four checks on phase 4's store and partition; returns
+    the kernel launches of the phase."""
+    queries, oracle = main_path["queries"], main_path["oracle"]
+    one_pass = request_stream(queries, len(queries))
+    t_phase = time.perf_counter()
+    reset_counts()
+
+    # 1. FakeClock schedule. The largest bucket holds 5 of the 14
+    # templates, so a queue of BATCH fills on the third pass: three passes
+    # queue with the clock still (two "full" flushes), the clock passes the
+    # deadline ("deadline" flushes of every bucket), a fourth pass goes out
+    # at drain() ("drain" flushes)
+    clock = FakeClock()
+    server = pipe_server(main_path, clock=clock, trace=True)
+    tally = count_completions(server)
+    t0 = time.perf_counter()
+    tickets = [server.submit(n, p) for _ in range(3) for n, p in one_pass]
+    clock.t += 2 * PIPE_DEADLINE_MS / 1e3
+    server.pump()
+    tickets += [server.submit(n, p, _pump=False) for n, p in one_pass]
+    server.drain()                   # raises if the invariants break
+    dt = time.perf_counter() - t0
+    check_tickets(tickets, oracle, "FakeClock schedule")
+    fl = flushes(server)
+    if not all(fl.values()) or server.queue_depth() or server.n_inflight:
+        raise AssertionError(f"FakeClock schedule: flushes {fl}, queue "
+                             f"{server.queue_depth()}, in flight "
+                             f"{server.n_inflight}")
+    log(f"  FakeClock schedule: {len(tickets)} requests (4 passes), every "
+        f"answer equals evaluate_bgp; flushes {fl}; completions {tally}; "
+        f"{len(server.telemetry.trace)} trace events; queue 0, in flight 0;"
+        f" {dt * 1e3:.3f} ms of host wall [{card}]")
+
+    # 2. real-clock paced replay
+    server = pipe_server(main_path)
+    stream = request_stream(queries, PIPE_REPLAY)
+    for n in (1, 2, 4, 8):                    # the partial batches' shapes
+        server.warmup(stream[:n])
+    torch.cuda.synchronize()
+    server.reset_stats()
+    tally = count_completions(server)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    wall, tickets = replay_paced(server, stream, PIPE_ARRIVAL_MS / 1e3)
+    peak = torch.cuda.max_memory_allocated(DEV)
+    check_tickets(tickets, oracle, "paced replay")
+    lat = server.latency_stats(per_bucket=True)
+    per_bucket = lat.pop("per_bucket")
+    log(f"  paced replay: {PIPE_REPLAY} requests at {PIPE_ARRIVAL_MS} ms "
+        f"arrivals, deadline {PIPE_DEADLINE_MS} ms, max_batch {BATCH}, "
+        f"max_inflight 2: {wall * 1e3:.3f} ms wall, every answer equals "
+        f"evaluate_bgp [{card}]")
+    log(f"  latency {json.dumps(lat)} [{card}]")
+    for bi, row in per_bucket.items():
+        log(f"    bucket {bi}: {json.dumps(row)} [{card}]")
+    log(f"  flushes {flushes(server)}; completions {tally}; stats "
+        f"{server.stats}; max_memory_allocated {peak:,} bytes [{card}]")
+    replay = pipe_server(main_path)
+
+    def profiled():
+        replay_paced(replay, stream, PIPE_ARRIVAL_MS / 1e3)
+
+    log(f"  profiled replay: {device_breakdown(profiled)} [{card}]")
+
+    # 3. migration with the queue full
+    server = pipe_server(main_path, deadline_ms=None)
+    tickets = [server.submit(n, p, _pump=False) for n, p in one_pass]
+    weights = two_phase_weights(queries)[1]
+    res = incremental_repartition(main_path["part"], queries, weights,
+                                  budget_frac=0.15)
+    report = server.migrate(res.part)
+    server.drain()
+    check_tickets(tickets, oracle, "migration")
+    if any(t.epoch != 1 for t in tickets) or server.epoch != 1:
+        raise AssertionError("migration: a queued ticket ran on epoch "
+                             f"{sorted({t.epoch for t in tickets})}")
+    log(f"  migration with {len(tickets)} queued ({res.mode}, "
+        f"{res.moved_triples} triples moved): {report}; every ticket ran on"
+        f" epoch 1 and equals evaluate_bgp; cuts "
+        f"{server.collective_counts()} [{card}]")
+
+    # 4. shutdown(grace_s=0) with three passes submitted: the full flushes
+    # are in flight or done, the rest queued
+    server = pipe_server(main_path, deadline_ms=None)
+    tickets = [server.submit(n, p) for _ in range(3) for n, p in one_pass]
+    queued = [t for t in tickets if t.t_flush is None]
+    flushed = [t for t in tickets if t.t_flush is not None]
+    in_flight, served = server.n_inflight, server.stats["served"]
+    out = server.shutdown(grace_s=0)
+    if (not queued or not flushed or out["shed"] != len(queued)
+            or any(not isinstance(t.error, ShutdownError)
+                   or t.result is not None for t in queued)
+            or served + out["drained"] + out["shed"] != len(tickets)
+            or server.queue_depth() or server.n_inflight):
+        raise AssertionError(f"shutdown: {out} for {len(queued)} queued, "
+                             f"{len(flushed)} flushed, {served} served "
+                             "before")
+    check_tickets(flushed, oracle, "shutdown's in-flight batches")
+    log(f"  shutdown(grace_s=0): {out} ({len(queued)} queued resolved with "
+        f"ShutdownError; {len(flushed)} flushed, {in_flight} batches in "
+        f"flight at the call, all completed and equal to evaluate_bgp) "
+        f"[{card}]")
+    launched = counts()
+    for k in ("scan_select", "join_select"):
+        if launched[k] <= 0:
+            raise AssertionError(f"pipeline phase never launched {k}")
+    log(f"  pipeline phase launches {launched}; "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launched
 
 
 # ---------------------------------------------------------------------------
@@ -2715,6 +2921,10 @@ def main() -> None:
         f"{main_counts['merge_joins']}, {main_counts['select_joins']} "
         f"expanding without verification)")
 
+    log("[4b/11] pipeline on phase 4's store and partition: submit / pump "
+        "/ drain / shutdown, batches retired on CUDA events, migrate()")
+    pipe_counts = phase_pipeline(main_path, card)
+
     log("[5/11] expand path: LUBM scale 0.1, join expand, backend cuda")
     expand_counts, _ = serve_path(0.1, "expand")
     for k in ("compat_select", "scan_hits", "scan_select"):
@@ -2808,6 +3018,9 @@ def main() -> None:
     # the per-query engine's kernels (phase 6), where it launched them; its
     # launches are printed with the phase, the records keep phase 4's and
     # 5's
+    for name in ("scan_select", "join_ranges", "join_select"):
+        if pipe_counts[name]:
+            paths[name] += "; pipeline (phase 4b)"
     for name in ("scan_select", "join_ranges", "join_select",
                  "compat_select"):
         if pq_launches[name]:
@@ -2816,7 +3029,8 @@ def main() -> None:
         rec[name]["path"] = path
     log("[11/11] kernels: " + ", ".join(
         f"{r['name']} ok launches={r['launches']}" for r in rec.values())
-        + f"; main path launches {main_counts}, expand path launches "
+        + f"; main path launches {main_counts}, pipeline launches "
+        f"{pipe_counts}, expand path launches "
         f"{expand_counts}, per-query engine launches {pq_launches}, "
         f"clustering launches {cluster_counts}, xDeepFM "
         f"launches {xdeepfm_counts}, LM launches (prefill of "

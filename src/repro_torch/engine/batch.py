@@ -690,6 +690,48 @@ def stage_batch(bucket: PlanBucket,
             params.pin_memory().to(dev, non_blocking=True))
 
 
+class OutputFetch(NamedTuple):
+    """An engine call's (table, tmask, overflow) on their way to the host.
+
+    On a CUDA device ``host`` holds pinned host tensors that copies issued
+    with ``non_blocking=True`` fill, ``event`` is the CUDA event recorded
+    on the current stream after them, and ``device`` keeps the engine's
+    outputs referenced until the batch completes. On the CPU ``host`` is
+    the outputs themselves and there is no event: the batch is ready."""
+
+    host: tuple
+    event: object
+    device: tuple
+
+    def ready(self) -> bool:
+        """Whether the copies have landed; never blocks."""
+        return self.event is None or self.event.query()
+
+    def wait(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Block until the copies have landed; the host arrays."""
+        if self.event is not None:
+            self.event.synchronize()
+        return tuple(t.numpy() for t in self.host)
+
+
+def fetch_outputs(out) -> OutputFetch:
+    """Start the device-to-host leg of a dispatch: copy the engine's
+    (table, tmask, overflow) into pinned host tensors with
+    ``non_blocking=True`` and record a CUDA event after the copies, so the
+    caller polls (``ready``) or waits (``wait``) instead of issuing a
+    synchronous ``.cpu()``. CPU tensors are returned as they are."""
+    out = tuple(out)
+    if out[0].device.type != "cuda":
+        return OutputFetch(out, None, ())
+    host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 for t in out)
+    for h, t in zip(host, out):
+        h.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return OutputFetch(host, event, out)
+
+
 def extract_batch(bucket: PlanBucket,
                   requests: list[tuple[int, np.ndarray | None]],
                   table, tmask, overflow):

@@ -1,7 +1,8 @@
 """The port's WorkloadServer against the JAX package's on one request
-stream: identical results and identical served / executed / deduped /
-cache_hits / cache_misses counters, with the answer cache and dedup on and
-off, and warmup bypassing the cache."""
+stream: identical results and identical counters, every member of
+`Counter` (served / executed / deduped / cache_hits / cache_misses, the
+flush reasons and the fault-layer counters), with the answer cache and
+dedup on and off, and warmup bypassing the cache."""
 import numpy as np
 import pytest
 
@@ -21,7 +22,7 @@ from repro_torch.engine.oracle import evaluate_bgp  # noqa: E402
 from repro_torch.kg import generator, workloads  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 
-COUNTERS = ("served", "executed", "deduped", "cache_hits", "cache_misses")
+COUNTERS = tuple(c.value for c in serve.Counter)
 
 
 @pytest.fixture(scope="module")
@@ -37,6 +38,11 @@ def served():
     stream = serve.request_stream(qs, 64, weights=weights, seed=7)
     assert stream == jserve.request_stream(jqs, 64, weights=weights, seed=7)
     return st, qs, part, jqs, jpart, stream, JEngineCache()
+
+
+def test_counter_members_match_the_jax_server():
+    assert COUNTERS == tuple(c.value for c in jserve.Counter)
+    assert len(COUNTERS) == 15
 
 
 def _counters(srv):

@@ -138,6 +138,116 @@ def test_sharded_kg_from_arrays_and_to_device():
         ShardedKG.from_arrays(kg.triples[..., :2], kg.valid)
 
 
+def _units(unit_shard: dict) -> list:
+    return sorted((dataclasses.astuple(u), s) for u, s in unit_shard.items())
+
+
+def test_adaptive_copies_move_the_same_units(both):
+    """incremental_repartition, MigrationPlan and its apply_kg, and the
+    workload tracker give the JAX package's placement, row deltas, shard
+    blocks and window for the same inputs (a full re-run too)."""
+    from repro.adaptive.migrate import MigrationPlan as JMigrationPlan
+    from repro.adaptive.repartition import (
+        full_repartition as j_full, incremental_repartition as j_incremental)
+    from repro.adaptive.stats import WorkloadTracker as JTracker
+    from repro.adaptive.stats import plan_shards as j_plan_shards
+    from repro.launch.serve import two_phase_weights as j_two_phase
+
+    from repro_torch.adaptive import (MigrationPlan, WorkloadTracker,
+                                      full_repartition,
+                                      incremental_repartition, plan_shards)
+    from repro_torch.launch.serve import two_phase_weights
+
+    st, qs, jst, jqs = both
+    part = wawpart_partition(st, qs, n_shards=3)
+    jpart = j_wawpart(jst, jqs, n_shards=3)
+    (_, wb), (_, jwb) = two_phase_weights(qs), j_two_phase(jqs)
+    assert wb == jwb
+    res = incremental_repartition(part, qs, wb, budget_frac=0.15)
+    jres = j_incremental(jpart, jqs, jwb, budget_frac=0.15)
+    assert res.mode == jres.mode
+    assert _units(res.part.unit_shard) == _units(jres.part.unit_shard)
+    assert [dataclasses.astuple(u) for u in res.moved_units] \
+        == [dataclasses.astuple(u) for u in jres.moved_units]
+    assert (res.moved_triples, res.budget_triples, res.cost_before,
+            res.cost_after) == (jres.moved_triples, jres.budget_triples,
+                                jres.cost_before, jres.cost_after)
+
+    mig = MigrationPlan.build(part, res.part)
+    jmig = JMigrationPlan.build(jpart, jres.part)
+    np.testing.assert_array_equal(mig.old_assign, jmig.old_assign)
+    np.testing.assert_array_equal(mig.new_assign, jmig.new_assign)
+    assert (mig.n_shards, mig.n_moved, mig.moved_fraction) \
+        == (jmig.n_shards, jmig.n_moved, jmig.moved_fraction)
+    deltas, jdeltas = mig.shard_deltas(), jmig.shard_deltas()
+    assert sorted(deltas) == sorted(jdeltas)
+    for k in deltas:
+        np.testing.assert_array_equal(deltas[k], jdeltas[k])
+    kg = mig.apply_kg(ShardedKG.build(part), res.part)
+    jkg = jmig.apply_kg(JShardedKG.build(jpart), jres.part)
+    np.testing.assert_array_equal(kg.triples, jkg.triples)
+    np.testing.assert_array_equal(kg.valid, jkg.valid)
+    assert (kg.n_shards, kg.cap) == (jkg.n_shards, jkg.cap)
+    with pytest.raises(ValueError, match="same triple store"):
+        MigrationPlan.build(part, wawpart_partition(
+            generator.generate_lubm(1, scale=0.05, seed=1), qs, n_shards=3))
+
+    full = full_repartition(st, qs, wb, n_shards=3, old_part=part)
+    jfull = j_full(jst, jqs, jwb, n_shards=3, old_part=jpart)
+    assert (full.mode, full.moved_triples) == (jfull.mode,
+                                               jfull.moved_triples)
+    np.testing.assert_array_equal(full.part.assign_triples(),
+                                  jfull.part.assign_triples())
+
+    tracker, jtracker = WorkloadTracker(window=16), JTracker(window=16)
+    for i in range(40):
+        q, jq = qs[i % len(qs)], jqs[i % len(jqs)]
+        p, jp = make_plan(q, part), j_make_plan(jq, jpart)
+        assert plan_shards(p) == j_plan_shards(jp)
+        tracker.observe(q.name, cut_joins=len(p.cut_steps),
+                        shards=plan_shards(p))
+        jtracker.observe(jq.name, cut_joins=len(jp.cut_steps),
+                         shards=j_plan_shards(jp))
+    snap, jsnap = tracker.snapshot(), jtracker.snapshot()
+    assert dataclasses.astuple(snap) == dataclasses.astuple(jsnap)
+    assert snap.imbalance(3) == jsnap.imbalance(3)
+    assert snap.frequencies == jsnap.frequencies
+
+
+def test_classify_copies_agree_on_every_error_type():
+    from repro.engine.federated import CapacityOverflowError as JOverflow
+    from repro.faults import errors as jerrors
+
+    from repro_torch.engine.federated import CapacityOverflowError
+    from repro_torch.faults import errors
+
+    faults = sorted(n for n, v in vars(errors).items()
+                    if isinstance(v, type) and issubclass(v, Exception))
+    assert faults == sorted(n for n, v in vars(jerrors).items()
+                            if isinstance(v, type)
+                            and issubclass(v, Exception))
+    assert len(faults) == 7
+    pairs = [(getattr(errors, n)("x"), getattr(jerrors, n)("x"))
+             for n in faults]
+
+    class Overflow(CapacityOverflowError):
+        pass
+
+    class JOverflowSub(JOverflow):
+        pass
+
+    pairs += [(CapacityOverflowError("x"), JOverflow("x")),
+              (Overflow("x"), JOverflowSub("x"))]
+    pairs += [(e, e) for e in (ValueError(), TypeError(), KeyError(),
+                               IndexError(), RuntimeError(), OSError(),
+                               ZeroDivisionError())]
+    kinds = [errors.classify(e) for e, _ in pairs]
+    assert kinds == [jerrors.classify(e) for _, e in pairs]
+    assert kinds[:len(faults)] == ["transient"] * len(faults)
+    assert kinds[len(faults):len(faults) + 6] == ["permanent"] * 6
+    assert kinds[-3:] == ["transient"] * 3
+
+
 # ---------------------------------------------------------------------------
 # isolation and no-fallback guarantees
 # ---------------------------------------------------------------------------
@@ -160,7 +270,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     checked = {f.relative_to(ROOT).as_posix() for f in files}
     assert {f"src/repro_torch/{m}.py" for m in (
         "engine/local", "engine/federated", "core/rewriter", "configs/lubm",
-        "configs/bsbm")} <= checked
+        "configs/bsbm", "obs/metrics", "obs/trace", "obs/telemetry",
+        "adaptive/stats", "adaptive/migrate", "adaptive/repartition",
+        "faults/errors")} <= checked
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "repro", "flax", "optax"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
