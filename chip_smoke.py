@@ -109,6 +109,24 @@ order; any failure exits non-zero:
    1; shutdown(grace_s=0) with requests queued, each resolved with
    ShutdownError while the batches in flight complete. Every answer
    equals evaluate_bgp; scan_select and join_select launched;
+4c. faults, replication, adaptive — on phase 4's store, partition and
+   engines (answer cache off): two passes of the 14 templates under
+   FaultPlan(seed=5, dispatch_fail_rate=0.5) with RetryPolicy(
+   max_attempts=8) (failures injected and retried, none shed, the kernel
+   launches equal to the same fault-free passes'), then with no policy
+   (every failed cut resolved with InjectedDispatchError); a FakeClock
+   shard-down window for shard 1 (shed templates = uncovered_templates,
+   the covered ones exact, the restore builds no engine, the peak memory
+   while degraded); replicate_hot() (collectives before and after, the
+   engines it builds, serve() ms before and after), then
+   mark_shard_down(1) with the 14 templates queued (uncovered ones
+   typed at once, covered ones drained exact, degraded_served) and
+   mark_shard_up(); the adaptive controller (window 64, checks every 32)
+   over a two-phase drifting stream of 192 requests, 32 a serve() (its
+   events, migrations and each migrate()'s ms), then the same under
+   FaultPlan(abort_migrations=99) (epoch stays 0, migration_aborts =
+   injected). Every delivered answer equals evaluate_bgp; scan_select,
+   join_ranges and join_select launched;
 5. expand path — LUBM at scale 0.1 under join_impl="expand": the same
    checks, compat_select launched once per expand join (11), scan_hits
    and scan_select launched, compat_matrix, join_ranges and join_select
@@ -247,12 +265,17 @@ from repro_torch.kernels.segment_spmm.ref import \
 from repro_torch.kg.generator import (generate_bsbm,  # noqa: E402
                                       generate_lubm)
 from repro_torch.kg.workloads import bsbm_queries, lubm_queries  # noqa: E402
+from repro_torch.adaptive.controller import AdaptiveConfig  # noqa: E402
 from repro_torch.adaptive.repartition import \
     incremental_repartition  # noqa: E402
-from repro_torch.faults import ShutdownError  # noqa: E402
+from repro_torch.faults import (FaultPlan,  # noqa: E402
+                                InjectedDispatchError, RetryPolicy,
+                                ShardDownError, ShutdownError,
+                                degraded_placement, uncovered_templates)
 from repro_torch.launch.serve import (PipelineConfig,  # noqa: E402
-                                      WorkloadServer, replay_paced,
-                                      request_stream, two_phase_weights)
+                                      WorkloadServer, drifting_stream,
+                                      replay_paced, request_stream,
+                                      two_phase_weights)
 from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.models.gnn.egnn import EGNN  # noqa: E402
 from repro_torch.models.gnn.equiformer_v2 import EquiformerV2  # noqa: E402
@@ -2264,6 +2287,311 @@ def phase_pipeline(main_path: dict, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: the fault layer, hot-edge replication and the adaptive
+# controller on phase 4's store
+# ---------------------------------------------------------------------------
+
+CHAOS_SEED, CHAOS_RATE, CHAOS_ATTEMPTS = 5, 0.5, 8
+DOWN_SHARD = 1
+SERVE_REPS = 5               # timed serve() calls before and after replication
+ADAPT_CONFIG = dict(window=64, check_every=32, min_requests=32)
+ADAPT_PHASE, ADAPT_CHUNK = 96, 32
+
+
+def fault_server(main_path: dict, **kw):
+    """A server on phase 4's store, partition and engine cache (sorted join,
+    backend cuda, answer cache off), deadline flushes off."""
+    pipe = {"clock": kw.pop("clock")} if "clock" in kw else {}
+    return WorkloadServer(main_path["queries"], main_path["part"],
+                          join_impl="sorted", backend="cuda", device=DEV,
+                          cache=main_path["cache"], answer_cache=False,
+                          pipeline=PipelineConfig(deadline_ms=None, **pipe),
+                          **kw)
+
+
+def check_results(stream, results, oracle, what: str, shed=frozenset()):
+    """Every answer of ``stream`` equals the oracle; a template in
+    ``shed`` was rejected (None) instead."""
+    for (name, _), res in zip(stream, results):
+        if name in shed:
+            if res is not None:
+                raise AssertionError(f"{what}: {name} answered while shed")
+            continue
+        if res is None:
+            raise AssertionError(f"{what}: {name} not answered")
+        rows, n, ovf = res
+        if ovf or not np.array_equal(rows, oracle[name]) \
+                or n != len(oracle[name]):
+            raise AssertionError(f"{what}: {name} differs from the oracle")
+
+
+def serve_passes(server, passes) -> list:
+    out = []
+    for p in passes:
+        out += server.serve(p)
+    torch.cuda.synchronize()
+    return out
+
+
+def path_launches() -> dict:
+    c = counts()
+    return {k: c[k] for k in ("scan_select", "join_ranges", "join_select")}
+
+
+def timed_serves(server, one_pass, reps: int) -> list[float]:
+    """ms of ``reps`` serve() calls of one pass each, synchronised."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.serve(one_pass)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_faults(main_path: dict, card: str) -> dict:
+    """The five checks of phase 4c; returns the kernel launches of the
+    phase."""
+    queries, oracle, part = (main_path["queries"], main_path["oracle"],
+                             main_path["part"])
+    cache = main_path["cache"]
+    one_pass = request_stream(queries, len(queries))
+    passes = [one_pass, one_pass]
+    stream = one_pass * 2
+    t_phase = time.perf_counter()
+    launched = {k: 0 for k in OPS}
+    reset_counts()
+
+    def restart():
+        """Add the launches since the last restart to the phase's, and set
+        the counts to 0."""
+        for k, v in counts().items():
+            launched[k] += v
+        reset_counts()
+
+    # 1. chaos with retry: an injected failure fires before the batch is
+    # staged, so the retried passes launch what the fault-free ones do
+    plain = serve_passes(fault_server(main_path), passes)
+    check_results(stream, plain, oracle, "fault-free passes")
+    want = path_launches()
+    restart()
+    server = fault_server(
+        main_path, faults=FaultPlan(seed=CHAOS_SEED,
+                                    dispatch_fail_rate=CHAOS_RATE),
+        retry=RetryPolicy(max_attempts=CHAOS_ATTEMPTS))
+    results = serve_passes(server, passes)
+    got = path_launches()
+    check_results(stream, results, oracle, "chaos with retry")
+    server.telemetry.check_invariants()
+    st, inj = server.stats, server.faults.injected
+    if not (inj["dispatch"] > 0 and st["retries"] > 0 and st["shed"] == 0):
+        raise AssertionError(f"chaos with retry: injected {inj}, stats {st}")
+    if got != want:
+        raise AssertionError(f"chaos with retry launched {got}, the "
+                             f"fault-free passes {want}")
+    log(f"  chaos with retry (seed {CHAOS_SEED}, rate {CHAOS_RATE}, "
+        f"max_attempts {CHAOS_ATTEMPTS}): injected {inj}, retries "
+        f"{st['retries']}, shed 0, flushes {flushes(server)}; launches "
+        f"{got} equal the fault-free passes'; every answer equals "
+        f"evaluate_bgp [{card}]")
+
+    # 2. chaos without retry: every failed cut resolves typed
+    restart()
+    server = fault_server(
+        main_path, faults=FaultPlan(seed=CHAOS_SEED,
+                                    dispatch_fail_rate=CHAOS_RATE))
+    tickets = [server.submit(n, p, _pump=False) for n, p in one_pass]
+    server.drain()
+    tickets += [server.submit(n, p, _pump=False) for n, p in one_pass]
+    server.drain()
+    failed = [t for t in tickets if t.error is not None]
+    if not failed or any(not isinstance(t.error, InjectedDispatchError)
+                         or t.result is not None for t in failed):
+        raise AssertionError("chaos without retry: failed tickets "
+                             f"{[(t.name, t.error) for t in failed]}")
+    check_tickets([t for t in tickets if t.error is None], oracle,
+                  "chaos without retry")
+    st = server.stats
+    if st["served"] != len(tickets) or st["shed"] != len(failed):
+        raise AssertionError(f"chaos without retry: stats {st}")
+    server.telemetry.check_invariants()
+    log(f"  chaos without retry: {len(failed)} of {len(tickets)} resolved "
+        f"with InjectedDispatchError (injected {server.faults.injected}), "
+        f"the rest equal evaluate_bgp; served {st['served']} [{card}]")
+
+    # 3. a shard-down window on a FakeClock: healthy, inside, after
+    restart()
+    clock = FakeClock()
+    server = fault_server(main_path, clock=clock, faults=FaultPlan(
+        shard_down=((DOWN_SHARD, 1.0, 2.0),)))
+    torch.cuda.reset_peak_memory_stats(DEV)
+    base_healthy = torch.cuda.memory_allocated(DEV)
+    healthy = serve_passes(server, [one_pass])
+    peak_healthy = torch.cuda.max_memory_allocated(DEV)
+    check_results(one_pass, healthy, oracle, "before the window")
+    clock.t += 1.5
+    lost = uncovered_templates(queries, *degraded_placement(part,
+                                                            DOWN_SHARD))
+    misses = cache.misses
+    torch.cuda.reset_peak_memory_stats(DEV)
+    base = torch.cuda.memory_allocated(DEV)
+    inside = serve_passes(server, [one_pass])
+    peak = torch.cuda.max_memory_allocated(DEV)
+    built_down = cache.misses - misses
+    if server.degraded != DOWN_SHARD or server.shed_templates != lost:
+        raise AssertionError(f"shard-down window: degraded "
+                             f"{server.degraded}, shed "
+                             f"{sorted(server.shed_templates)}, uncovered "
+                             f"{sorted(lost)}")
+    check_results(one_pass, inside, oracle, "inside the window", shed=lost)
+    clock.t += 1.0
+    misses = cache.misses
+    after = serve_passes(server, [one_pass])
+    built_up = cache.misses - misses
+    check_results(one_pass, after, oracle, "after the window")
+    st = server.stats
+    if server.degraded is not None or built_up:
+        raise AssertionError(f"restore: degraded {server.degraded}, "
+                             f"{built_up} engines built")
+    log(f"  shard {DOWN_SHARD} down for [1.0, 2.0) s: shed "
+        f"{sorted(lost)} (= uncovered_templates) with ShardDownError, "
+        f"the other {len(queries) - len(lost)} equal evaluate_bgp, "
+        f"degraded_served {st['degraded_served']}; engines built by the "
+        f"degrade {built_down}, by the restore {built_up}; "
+        f"max_memory_allocated of the pass while degraded {peak:,} bytes, "
+        f"{peak - base:,} above the {base:,} allocated before it (both "
+        f"states' blocks on the card once it entered the window); of the "
+        f"healthy pass {peak_healthy:,}, {peak_healthy - base_healthy:,} "
+        f"above {base_healthy:,}; epoch {server.epoch} [{card}]")
+
+    # 4. replication, then failover around the same shard
+    restart()
+    server = fault_server(main_path)
+    serve_passes(server, [one_pass])
+    before_ms = timed_serves(server, one_pass, SERVE_REPS)
+    restart()
+    serve_passes(server, [one_pass])
+    launches_before = path_launches()
+    misses = cache.misses
+    t0 = time.perf_counter()
+    rep = server.replicate_hot()
+    torch.cuda.synchronize()
+    rep_ms = (time.perf_counter() - t0) * 1e3
+    restart()
+    check_results(one_pass, serve_passes(server, [one_pass]), oracle,
+                  "after replicate_hot")
+    launches_after = path_launches()
+    built = cache.misses - misses
+    after_ms = timed_serves(server, one_pass, SERVE_REPS)
+    if not rep["replicated_triples"] or sum(rep["collectives_after"]) \
+            >= sum(rep["collectives_before"]):
+        raise AssertionError(f"replicate_hot: {rep}")
+    log(f"  replicate_hot: {rep['replicated_units']} unit copies, "
+        f"{rep['replicated_triples']} triples, {rep['plans_rewritten']} "
+        f"plans rewritten ({rep['queries_affected']}), collectives "
+        f"{rep['collectives_before']} -> {rep['collectives_after']}, "
+        f"cap_grew {rep['cap_grew']}, {built} engines built, "
+        f"{rep_ms:.3f} ms; every answer equals evaluate_bgp [{card}]")
+    log(f"  serve() of one pass, median of {SERVE_REPS}: "
+        f"{float(np.median(before_ms)):.3f} ms before "
+        f"{[round(t, 3) for t in before_ms]}, "
+        f"{float(np.median(after_ms)):.3f} ms after "
+        f"{[round(t, 3) for t in after_ms]}; launches a pass "
+        f"{launches_before} -> {launches_after} [{card}]")
+    restart()
+    misses = cache.misses
+    queued = [server.submit(n, p, _pump=False) for n, p in one_pass]
+    down = server.mark_shard_down(DOWN_SHARD)
+    shed = set(down["shed_templates"])
+    if any(not (t.done and isinstance(t.error, ShardDownError))
+           for t in queued if t.name in shed):
+        raise AssertionError("failover: a queued uncovered ticket was not "
+                             "resolved at once")
+    server.drain()
+    covered = [t for t in queued if t.name not in shed]
+    check_tickets(covered, oracle, "failover")
+    st = server.stats
+    if covered and not st["degraded_served"]:
+        raise AssertionError(f"failover: degraded_served 0, stats {st}")
+    built_down = cache.misses - misses
+    misses = cache.misses
+    up = server.mark_shard_up()
+    check_results(one_pass, serve_passes(server, [one_pass]), oracle,
+                  "after the restore")
+    log(f"  failover with {len(queued)} queued: {down}; {len(shed)} "
+        f"resolved at once with ShardDownError, {len(covered)} drained "
+        f"equal to evaluate_bgp (degraded_served "
+        f"{st['degraded_served']}), {built_down} engines built; "
+        f"mark_shard_up {up}, {cache.misses - misses} engines built "
+        f"[{card}]")
+
+    # 5. the adaptive controller on a drifting stream, then under aborts
+    wa, wb = two_phase_weights(queries)
+    drift = drifting_stream(queries, [(ADAPT_PHASE, wa), (ADAPT_PHASE, wb)],
+                            seed=0)
+    for aborts in (0, 99):
+        restart()
+        server = fault_server(
+            main_path, adaptive=AdaptiveConfig(**ADAPT_CONFIG),
+            faults=FaultPlan(abort_migrations=aborts) if aborts else None)
+        migrate, mig_ms = server.migrate, []
+
+        def timed_migrate(new_part, _migrate=migrate, _ms=mig_ms):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return _migrate(new_part)
+            finally:
+                torch.cuda.synchronize()
+                _ms.append((time.perf_counter() - t0) * 1e3)
+
+        server.migrate = timed_migrate
+        misses = cache.misses
+        results = []
+        for i in range(0, len(drift), ADAPT_CHUNK):
+            results += server.serve(drift[i:i + ADAPT_CHUNK])
+        torch.cuda.synchronize()
+        check_results(drift, results, oracle,
+                      f"adaptive (abort_migrations={aborts})")
+        events = [(e.severity, round(e.divergence, 4), e.mode,
+                   e.moved_triples, e.budget_triples,
+                   round(e.cost_before, 3), round(e.cost_after, 3))
+                  for e in server.adaptive.events]
+        st = server.stats
+        if aborts:
+            injected = server.faults.injected["migration_abort"]
+            if server.epoch != 0 or st["migration_aborts"] != injected:
+                raise AssertionError(
+                    f"adaptive under aborts: epoch {server.epoch}, "
+                    f"migration_aborts {st['migration_aborts']}, injected "
+                    f"{injected}")
+            log(f"  adaptive under abort_migrations=99: epoch 0, "
+                f"migration_aborts {st['migration_aborts']} = injected; "
+                f"events (severity, divergence, mode, moved, budget, cost "
+                f"before, after) {events}; every answer equals "
+                f"evaluate_bgp [{card}]")
+        else:
+            reports = [e.migration for e in server.adaptive.events
+                       if e.migration is not None]
+            log(f"  adaptive ({ADAPT_CONFIG}, {len(drift)} requests of a "
+                f"two-phase drift, {ADAPT_CHUNK} a serve()): events "
+                f"(severity, divergence, mode, moved, budget, cost before, "
+                f"after) {events}; {server.adaptive.n_migrations} "
+                f"migrations, epoch {server.epoch}, migrate() ms "
+                f"{[round(t, 3) for t in mig_ms]}, reports {reports}; "
+                f"{cache.misses - misses} engines built; every answer "
+                f"equals evaluate_bgp [{card}]")
+    restart()
+    for k in ("scan_select", "join_ranges", "join_select"):
+        if launched[k] <= 0:
+            raise AssertionError(f"phase 4c never launched {k}")
+    log(f"  phase 4c launches {launched}; "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launched
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the per-query engine (the paper's execution path)
 # ---------------------------------------------------------------------------
 
@@ -2925,6 +3253,12 @@ def main() -> None:
         "/ drain / shutdown, batches retired on CUDA events, migrate()")
     pipe_counts = phase_pipeline(main_path, card)
 
+    log("[4c/11] faults, replication and the adaptive controller on phase "
+        "4's store and partition: chaos with and without retry, a "
+        "shard-down window, replicate_hot then failover, adaptive "
+        "migrations and aborted ones")
+    fault_counts = phase_faults(main_path, card)
+
     log("[5/11] expand path: LUBM scale 0.1, join expand, backend cuda")
     expand_counts, _ = serve_path(0.1, "expand")
     for k in ("compat_select", "scan_hits", "scan_select"):
@@ -3021,6 +3355,8 @@ def main() -> None:
     for name in ("scan_select", "join_ranges", "join_select"):
         if pipe_counts[name]:
             paths[name] += "; pipeline (phase 4b)"
+        if fault_counts[name]:
+            paths[name] += "; faults, replication, adaptive (phase 4c)"
     for name in ("scan_select", "join_ranges", "join_select",
                  "compat_select"):
         if pq_launches[name]:
@@ -3030,7 +3366,8 @@ def main() -> None:
     log("[11/11] kernels: " + ", ".join(
         f"{r['name']} ok launches={r['launches']}" for r in rec.values())
         + f"; main path launches {main_counts}, pipeline launches "
-        f"{pipe_counts}, expand path launches "
+        f"{pipe_counts}, faults, replication and adaptive launches "
+        f"{fault_counts}, expand path launches "
         f"{expand_counts}, per-query engine launches {pq_launches}, "
         f"clustering launches {cluster_counts}, xDeepFM "
         f"launches {xdeepfm_counts}, LM launches (prefill of "

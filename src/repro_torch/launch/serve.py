@@ -21,6 +21,14 @@ arrivals (--arrival-ms), per-bucket queues flush when full or when the
 oldest queued request's deadline budget (--deadline-ms) expires, batches
 retire when their outputs' CUDA event fires, and the run reports
 p50/p95/p99 latency plus flush-reason counters.
+
+--chaos SPEC arms seeded fault injection (failed dispatches, flush delays,
+a shard-down window, migration aborts; see repro_torch.faults.FaultPlan)
+with retries on unless --no-retry. --replicate copies the hottest safe cut
+features onto their queries' primary shards after warmup. --adaptive
+tracks the live template mix, detects drift and migrates shards under a
+budget between batches; pair it with --drift, a two-phase stream whose mix
+shifts halfway through.
 """
 from __future__ import annotations
 
@@ -36,7 +44,10 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.adaptive.controller import (AdaptiveConfig,
+                                             AdaptiveController)
 from repro_torch.adaptive.migrate import MigrationPlan
+from repro_torch.adaptive.replicate import plan_hot_replication
 from repro_torch.adaptive.stats import WorkloadTracker, plan_shards
 from repro_torch.core.features import pattern_feature
 from repro_torch.core.partitioner import (Partitioning, centralized_partition,
@@ -51,7 +62,11 @@ from repro_torch.engine.batch import (EngineCache, OutputFetch,
 from repro_torch.engine.federated import ShardedKG
 from repro_torch.engine.planner import make_plan
 from repro_torch.engine.primitives import check_backend
-from repro_torch.faults import MigrationAbortedError, ShutdownError
+from repro_torch.faults import (DeadlineExceededError, FaultInjector,
+                                FaultPlan, MigrationAbortedError,
+                                RetryExhaustedError, RetryPolicy,
+                                ShardDownError, ShutdownError, classify,
+                                degraded_placement, uncovered_templates)
 from repro_torch.kg.generator import generate_bsbm, generate_lubm
 from repro_torch.kg.workloads import bsbm_queries, lubm_queries
 from repro_torch.obs import DEFAULT_CLOCK, Telemetry
@@ -63,9 +78,10 @@ class Counter(str, enum.Enum):
     hit the same entry). ``stats`` is the flat view; the labeled
     per-bucket / per-template series live in the server's ``telemetry``
     registry. Invariant: served == cache_hits + executed + deduped + shed.
-    The retry, timeout, degraded-mode and migration-abort counters stay 0
-    until those layers are ported, except migration_aborts, which
-    ``migrate()`` counts."""
+    retries, timeouts and shed move under a `RetryPolicy` and fault
+    injection; degraded_served and shard_down while a shard is down
+    (`mark_shard_down`); migration_aborts when a `migrate()` prepare rolls
+    back."""
 
     SERVED = "served"                  # requests delivered (hits + executed)
     EXECUTED = "executed"              # unique instances dispatched to engines
@@ -123,10 +139,12 @@ class Ticket:
     "drain"; "hit" for answer-cache hits that never queued; "shed" for
     tickets resolved with a typed error before any dispatch).
 
-    A ticket resolved with a typed error (``ShutdownError`` past a
-    shutdown's grace budget) has ``done=True``, ``result=None`` and the
-    error in ``error`` — callers distinguish answers from rejections by
-    ``error is None``. ``attempts`` stays 0 until a retry layer is ported.
+    ``attempts`` counts dispatch attempts under a RetryPolicy; a ticket
+    that exhausts its budget (or hits a permanent fault, its absolute
+    retry deadline, an uncovered degraded template, or a shutdown's grace
+    budget) resolves with ``done=True``, ``result=None`` and the typed
+    fault in ``error`` — callers distinguish answers from rejections by
+    ``error is None``.
     """
 
     name: str
@@ -162,6 +180,7 @@ class _Inflight(NamedTuple):
     inverse: list | None              # fan-out map, None when dedup is off
     out: OutputFetch                  # engine outputs on their way to host
     epoch: int                        # serving epoch at dispatch
+    degraded: bool = False            # dispatched while a shard was down
 
 
 _UNSET = object()     # "use the config default" sentinel for submit()
@@ -180,6 +199,7 @@ class _ServingState(NamedTuple):
     tr: torch.Tensor
     va: torch.Tensor
     perms: torch.Tensor
+    shed: frozenset = frozenset()     # templates shed while degraded
 
 
 class WorkloadServer:
@@ -212,6 +232,27 @@ class WorkloadServer:
 
     backend: "cuda" (hand-written kernels; plain versions on CPU tensors)
     or "torch" (plain PyTorch primitives) — bit-identical results.
+
+    faults (a `FaultPlan` or `FaultInjector`, repro_torch.faults) arms
+    seeded fault injection: dispatch failures, flush delays, shard-down
+    windows and migration aborts. retry (a `RetryPolicy`) re-enqueues the
+    tickets of a transiently failed flush at the queue front with
+    decorrelated-jitter backoff; exhausted tickets resolve to typed errors.
+    An injected failure fires before the batch is staged, so a failed
+    attempt launches nothing, and its retry dispatches through the same
+    engine and backend. With faults=None and retry=None no try wraps the
+    dispatch. An error the card reports when a batch completes
+    (`OutputFetch.ready` / `wait`) is not caught: it propagates out of
+    pump() or drain().
+
+    adaptive=True (or an `AdaptiveConfig`) attaches an
+    `AdaptiveController`: every routed request feeds its sliding-window
+    tracker, drift checks run after pump() completions and after serve(),
+    and a detected drift triggers a budgeted repartition applied through
+    `migrate()` while batches of the old epoch may still be in flight.
+    `replicate_hot()` copies hot cut features onto their queries' primary
+    shards; `mark_shard_down()` / `mark_shard_up()` serve around a down
+    shard from its units' replicas. Each bumps the epoch.
     """
 
     ANSWER_CACHE_CAP = 65536
@@ -224,7 +265,9 @@ class WorkloadServer:
                  answer_cache: bool | int = True, backend: str = "cuda",
                  kernel_blocks=None,
                  pipeline: PipelineConfig | None = None,
-                 telemetry: Telemetry | None = None, device="cuda"):
+                 telemetry: Telemetry | None = None, device="cuda",
+                 faults: FaultPlan | FaultInjector | None = None,
+                 retry: RetryPolicy | None = None, adaptive=None):
         """Build the serving state for ``part`` on ``device``; engines are
         built lazily on the first dispatch that touches each bucket.
 
@@ -256,7 +299,22 @@ class WorkloadServer:
         self._latencies: deque[tuple] = deque(maxlen=self.ANSWER_CACHE_CAP)
         self._seq = 0
         self._evictions_seen = self.cache.evictions
-        self.tracker = WorkloadTracker()   # feeds the shard-load gauges
+
+        self.retry = retry
+        if faults is None or isinstance(faults, FaultInjector):
+            self.faults = faults
+        else:
+            self.faults = FaultInjector(faults)
+        self._retry_after: dict[int, float] = {}   # bucket -> backoff until
+        self._backoff_prev: dict[int, float] = {}  # bucket -> last backoff
+        self._degraded: int | None = None          # down shard, if any
+        self._pre_degraded: _ServingState | None = None
+
+        # the shard-load gauges read this tracker until an adaptive
+        # controller attaches below; then its tracker (sized by the
+        # adaptive window) takes over through the `tracker` property
+        self._tracker = WorkloadTracker()
+        self.adaptive = None
 
         plans = {q.name: make_plan(q, part,
                                    params=self.params_spec.get(q.name))
@@ -264,10 +322,15 @@ class WorkloadServer:
         self._state = self._build_state(0, part, ShardedKG.build(part), plans)
         self._refresh_obs()
 
+        if adaptive is not None and adaptive is not False:
+            cfg = adaptive if isinstance(adaptive, AdaptiveConfig) else None
+            self.adaptive = AdaptiveController(self, cfg)
+
     # ---- state ---------------------------------------------------------
 
     def _build_state(self, epoch: int, part: Partitioning, kg: ShardedKG,
-                     plans: dict) -> _ServingState:
+                     plans: dict, shed: frozenset = frozenset(),
+                     ) -> _ServingState:
         buckets = bucket_plans([plans[q.name] for q in self.queries])
         route: dict[str, tuple[int, int]] = {}
         for bi, b in enumerate(buckets):
@@ -275,7 +338,7 @@ class WorkloadServer:
                 route[plan.query.name] = (bi, pi)
         tr, va, pe = kg_tensors(kg, None, self.device)
         return _ServingState(epoch, part, kg, plans, buckets, route,
-                             tr, va, pe)
+                             tr, va, pe, shed)
 
     @property
     def part(self) -> Partitioning:
@@ -304,8 +367,21 @@ class WorkloadServer:
 
     @property
     def epoch(self) -> int:
-        """Serving epoch: bumped by every migrate()."""
+        """Serving epoch: bumped by every migrate()/replicate_hot() (and by
+        mark_shard_down()/mark_shard_up() transitions)."""
         return self._state.epoch
+
+    @property
+    def degraded(self) -> int | None:
+        """The down shard the server is currently serving around, or
+        None when every shard is healthy."""
+        return self._degraded
+
+    @property
+    def shed_templates(self) -> frozenset:
+        """Templates rejected under the current epoch (no live replica
+        coverage while degraded); empty when healthy."""
+        return self._state.shed
 
     @property
     def n_buckets(self) -> int:
@@ -328,6 +404,15 @@ class WorkloadServer:
         """Per-bucket cross-shard gather sites — the bucket-level WawPart
         cut counts (0 = gather-free engine)."""
         return [bucket_collectives(b.signature) for b in self._state.buckets]
+
+    @property
+    def tracker(self) -> WorkloadTracker:
+        """The live workload tracker feeding the shard-load gauges: the
+        adaptive controller's when one is attached, else the server's own,
+        so the gauges are published either way."""
+        if self.adaptive is not None:
+            return self.adaptive.tracker
+        return self._tracker
 
     def _refresh_obs(self) -> None:
         """Re-publish the state gauges (epoch, per-bucket cut collectives)
@@ -378,7 +463,10 @@ class WorkloadServer:
         exception during prepare rolls back (the old epoch keeps serving,
         no ticket is lost or duplicated, `migration_aborts` counts it) and
         surfaces as `MigrationAbortedError` (ValueError for bad input
-        passes through unchanged).
+        passes through unchanged). Migration is refused while degraded — a
+        placement computed against the healthy topology must not land
+        while a shard is down — and an armed `FaultPlan.abort_migrations`
+        aborts it after the KG deltas are applied.
 
           1. per-shard triple deltas applied to the ShardedKG (block
              capacity kept when the new shards still fit, so engines keep
@@ -401,33 +489,36 @@ class WorkloadServer:
         st = self._state
         try:
             # ---- prepare: build the entire next state off to the side
+            if self._degraded is not None:
+                raise MigrationAbortedError(
+                    f"migration refused while shard {self._degraded} is "
+                    f"down (degraded placement is temporary)")
             mig = MigrationPlan.build(st.part, new_part)
             kg = mig.apply_kg(st.kg, new_part)
+            if self.faults is not None:
+                self.faults.check_migration_abort()
             same_catalog = new_part.catalog is st.part.catalog
             moved_units = set()
             if same_catalog:
-                keys = set(st.part.unit_shard) | set(new_part.unit_shard)
+                # a unit counts as moved when its set of copies changed:
+                # a repartition drops the replicas replicate_hot() added,
+                # and a plan that read a dropped copy on its primary shard
+                # must gather again (the JAX package's migrate compares
+                # primary homes only, and answers such plans from the
+                # rows that are gone)
+                keys = (set(st.part.unit_shard) | set(new_part.unit_shard)
+                        | set(st.part.replicas) | set(new_part.replicas))
                 moved_units = {u for u in keys
-                               if st.part.unit_shard.get(u)
-                               != new_part.unit_shard.get(u)}
-            plans: dict = {}
-            rewritten = 0
-            for q in self.queries:
-                old_plan = st.plans[q.name]
-                # same catalog => same unit_shard key set (incremental moves
-                # reassign values only), so one placement's resolution covers
-                # both sides of the move
-                if same_catalog and not self._query_units(q, new_part) \
-                        & moved_units:
-                    plans[q.name] = old_plan
-                    continue
-                caps = ([s.scan_cap for s in old_plan.steps],
-                        old_plan.table_cap)
-                plans[q.name] = make_plan(q, new_part,
-                                          params=self.params_spec.get(q.name),
-                                          capacities=caps)
-                rewritten += 1
-
+                               if st.part.unit_copies(u)
+                               != new_part.unit_copies(u)}
+            # same catalog => same unit_shard key set (incremental moves
+            # reassign values only), so one placement's resolution covers
+            # both sides of the move
+            stale = {q.name for q in self.queries
+                     if not same_catalog
+                     or self._query_units(q, new_part) & moved_units}
+            rewritten = len(stale)
+            plans = self._replan(new_part, stale)
             new_state = self._build_state(st.epoch + 1, new_part, kg, plans)
         except Exception as exc:
             # ---- rollback: nothing was swapped; old epoch keeps serving
@@ -443,10 +534,7 @@ class WorkloadServer:
         # ---- commit: the swap (nothing below can throw partway)
         old_sigs = {b.signature for b in st.buckets}
         new_sigs = {b.signature for b in new_state.buckets}
-        self._state = new_state
-        self._answers.clear()        # every cached answer is pre-migration
-        self._answers_epoch = new_state.epoch
-        self._refresh_obs()
+        self._swap_state(new_state)
         self.telemetry.count("epoch_bumps", kind="migrate")
         self.telemetry.trace.instant(
             "migration", args={"epoch": new_state.epoch,
@@ -459,6 +547,203 @@ class WorkloadServer:
                 "signatures_reused": len(new_sigs & old_sigs),
                 "signatures_new": len(new_sigs - old_sigs),
                 "cap_grew": kg.cap > st.kg.cap}
+
+    def _swap_state(self, new_state: _ServingState) -> None:
+        """Commit an epoch bump: swap the serving state, drop the answer
+        cache (one cache per epoch) and re-publish the state gauges."""
+        self._state = new_state
+        self._answers.clear()
+        self._answers_epoch = new_state.epoch
+        self._refresh_obs()
+
+    def _replan(self, part: Partitioning, names, **kw) -> dict:
+        """The current plans, with the templates in ``names`` re-planned on
+        ``part`` at their old scan and table capacities (so surviving
+        bucket signatures keep their engines)."""
+        plans = dict(self._state.plans)
+        for q in self.queries:
+            if q.name in names:
+                old = plans[q.name]
+                plans[q.name] = make_plan(
+                    q, part, params=self.params_spec.get(q.name),
+                    capacities=([s.scan_cap for s in old.steps],
+                                old.table_cap), **kw)
+        return plans
+
+    # ---- hot cut-edge replication --------------------------------------
+
+    def replicate_hot(self, query_weights: dict[str, float] | None = None, *,
+                      top_k: int = 4, budget_frac: float = 0.25) -> dict:
+        """Replicate the workload's hottest safe cut features onto their
+        queries' primary shards, removing those cross-shard gathers.
+
+        query_weights defaults to the adaptive tracker's live window (when
+        attached and non-empty), then the partitioning's recorded workload
+        weights, then uniform; top_k bounds how many candidates are taken
+        and budget_frac bounds replicated triples as a fraction of the
+        store. The ShardedKG is rebuilt with the replica rows appended (the
+        old block capacity kept when they fit, so unchanged engines keep
+        their input shapes) and put on the device, only the affected
+        queries re-plan (capacities reused), and the epoch bump swaps the
+        state, drops the answer cache and re-routes queued requests.
+        Results stay bit-identical: replication changes where a step's
+        rows are read, never which rows exist.
+
+        Returns a report dict: epoch, replicated_units/_triples,
+        plans_rewritten, queries_affected, collectives_before/_after
+        (per bucket), cap_grew.
+        """
+        st = self._state
+        if query_weights is None and self.adaptive is not None:
+            snap = self.adaptive.tracker.snapshot()
+            if snap.total:
+                query_weights = dict(snap.counts)
+        if query_weights is None:
+            # uniform when the partitioning was built without a recorded
+            # workload mix (meta stores {} then)
+            query_weights = st.part.meta.get("query_weights") or None
+
+        report = plan_hot_replication(st.part, self.queries, query_weights,
+                                      top_k=top_k, budget_frac=budget_frac)
+        before = self.collective_counts()
+        out = {"epoch": st.epoch, "replicated_units": 0,
+               "replicated_triples": 0, "plans_rewritten": 0,
+               "queries_affected": [],
+               "collectives_before": before, "collectives_after": before,
+               "cap_grew": False}
+        if not report.replicas:
+            return out
+
+        new_part = st.part.with_replicas(report.replicas)
+        kg = ShardedKG.build(new_part, min_cap=st.kg.cap)
+        affected = {name for c in report.chosen for name in c.queries}
+        plans = self._replan(new_part, affected)
+        self._swap_state(self._build_state(st.epoch + 1, new_part, kg,
+                                           plans))
+        self.telemetry.count("epoch_bumps", kind="replicate")
+        self.telemetry.trace.instant(
+            "replication", args={"epoch": st.epoch + 1,
+                                 "replicated_triples": report.total_triples})
+        out.update(
+            epoch=st.epoch + 1,
+            replicated_units=sum(len(ts) for ts in report.replicas.values()),
+            replicated_triples=report.total_triples,
+            plans_rewritten=len(affected),
+            queries_affected=sorted(affected),
+            collectives_after=self.collective_counts(),
+            cap_grew=kg.cap > st.kg.cap)
+        return out
+
+    # ---- degraded mode (shard down) -------------------------------------
+
+    def mark_shard_down(self, shard: int) -> dict:
+        """Enter degraded mode: serve around `shard` using live replicas.
+
+        Builds the degraded primary-only placement (`degraded_placement`:
+        units homed on the down shard re-home onto a live replica holder),
+        re-plans every still-coverable template with the down shard
+        forbidden as the plan's primary (capacities reused, and the block
+        capacity kept, so surviving bucket signatures keep their engines),
+        puts the degraded blocks on the device and swaps the state under a
+        new epoch. Covered templates keep serving exactly. Templates that
+        need a unit whose only copy was on the down shard go into the
+        state's `shed` set: queued tickets for them resolve at once with
+        `ShardDownError`, and new submits shed without queueing.
+
+        The healthy state is kept verbatim, device tensors included, for
+        `mark_shard_up()`; batches dispatched on either epoch hold their
+        own state's tensors until they complete. Raises RuntimeError if
+        already degraded (one down shard at a time) and ValueError for a
+        shard outside the placement. Returns a report dict: epoch, shard,
+        shed_templates, lost_units, rehomed_units.
+        """
+        if self._degraded is not None:
+            raise RuntimeError(f"already degraded (shard {self._degraded} "
+                               f"down); mark_shard_up() first")
+        st = self._state
+        tele = self.telemetry
+        dpart, lost = degraded_placement(st.part, shard)
+        shed = uncovered_templates(self.queries, dpart, lost)
+        rehomed = sum(1 for u, s in st.part.unit_shard.items()
+                      if s == shard and dpart.unit_shard[u] != shard)
+        # a shed template keeps its old plan, so buckets and route still
+        # cover it (the shed check fires before any dispatch can reach it)
+        plans = self._replan(dpart, {q.name for q in self.queries} - shed,
+                             forbid_ppn=frozenset({shard}))
+        kg = ShardedKG.build(dpart, min_cap=st.kg.cap)
+        new_state = self._build_state(st.epoch + 1, dpart, kg, plans,
+                                      shed=shed)
+        self._pre_degraded = st
+        self._degraded = shard
+        self._retry_after.clear()  # backoff lanes are per-epoch buckets
+        self._backoff_prev.clear()
+        self._swap_state(new_state)
+        tele.count("epoch_bumps", kind="degrade")
+        tele.count("shard_down", shard=str(shard))
+        tele.trace.instant("shard_down",
+                           args={"shard": shard, "epoch": new_state.epoch,
+                                 "shed_templates": len(shed)})
+        # already-queued tickets for uncovered templates shed now — they
+        # can never dispatch under this epoch
+        self._sync_queues()
+        for bi in list(self._queues):
+            keep = [t for t in self._queues[bi] if t.name not in shed]
+            for t in self._queues[bi]:
+                if t.name in shed:
+                    self._resolve_error(
+                        t, ShardDownError(
+                            f"template {t.name!r} has no live replica "
+                            f"coverage with shard {shard} down"), bi=bi)
+            if keep:
+                self._queues[bi] = keep
+            else:
+                del self._queues[bi]
+            tele.gauge("queue_depth", len(keep), bucket=str(bi))
+        return {"epoch": new_state.epoch, "shard": shard,
+                "shed_templates": sorted(shed), "lost_units": len(lost),
+                "rehomed_units": rehomed}
+
+    def mark_shard_up(self) -> dict | None:
+        """Leave degraded mode: restore the saved healthy state.
+
+        The healthy placement, blocks (already on the device), plans and
+        buckets swap back under a new epoch (`epoch_bumps{kind=restore}`):
+        the bucket signatures are the healthy ones, so the EngineCache
+        serves every engine without building one. Queued tickets re-route
+        lazily (`_sync_queues`) and the answer cache drops. No-op
+        returning None when not degraded.
+        """
+        if self._degraded is None:
+            return None
+        new_state = self._pre_degraded._replace(epoch=self._state.epoch + 1)
+        self._degraded = None
+        self._pre_degraded = None
+        self._retry_after.clear()
+        self._backoff_prev.clear()
+        self._swap_state(new_state)
+        self.telemetry.count("epoch_bumps", kind="restore")
+        self.telemetry.trace.instant("shard_up",
+                                     args={"epoch": new_state.epoch})
+        return {"epoch": new_state.epoch}
+
+    def _poll_faults(self, now: float) -> None:
+        """Drive injector-scheduled shard-down windows off the clock.
+
+        Called at the top of submit/pump/drain: enters degraded mode when
+        a window opens, restores when it closes (windows are relative to
+        the injector's arming — its first poll).
+        """
+        inj = self.faults
+        if inj is None or not inj.enabled:
+            return
+        down = inj.shard_down_now(now)
+        if down == self._degraded:
+            return
+        if self._degraded is not None:
+            self.mark_shard_up()
+        if down is not None:
+            inj.injected["shard_down"] += 1
+            self.mark_shard_down(down)
 
     # ---- continuous-batching pipeline ----------------------------------
 
@@ -477,18 +762,27 @@ class WorkloadServer:
 
         Raises KeyError for a template name outside the workload and
         ValueError for a param vector wider than the bucket executes with.
+
+        While degraded (a shard down), a template in the state's shed set
+        returns an already-done Ticket carrying a `ShardDownError` — the
+        fast typed rejection — instead of queueing work that could never
+        dispatch exactly.
         """
         now = self.pipeline.clock()
+        self._poll_faults(now)
         self._sync_queues()
         st = self._state
         tele = self.telemetry
         bi, pi = st.route[name]
         plan = st.buckets[bi].plans[pi]
-        # cache hits still feed the tracker: the load gauges must see the
-        # real mix even at high hit rates
+        # cache hits still feed the tracker: drift detection and the load
+        # gauges must see the real mix even at high hit rates
         if self._track:
-            self.tracker.observe(name, cut_joins=len(plan.cut_steps),
-                                  shards=plan_shards(plan))
+            if self.adaptive is not None:
+                self.adaptive.record(name, plan)
+            else:
+                self._tracker.observe(name, cut_joins=len(plan.cut_steps),
+                                      shards=plan_shards(plan))
             if plan.cut_steps:
                 tele.count("observed_cut_joins", len(plan.cut_steps),
                            template=name)
@@ -503,6 +797,13 @@ class WorkloadServer:
                         deadline_s=None if budget is None
                         else now + budget / 1e3)
         self._seq += 1
+
+        if st.shed and name in st.shed:
+            self._resolve_error(
+                ticket, ShardDownError(
+                    f"template {name!r} has no live replica coverage "
+                    f"with shard {self._degraded} down"), bi=bi)
+            return ticket
 
         if self._answers and self._answers_epoch != st.epoch:
             self._answers.clear()
@@ -549,17 +850,25 @@ class WorkloadServer:
         has expired (the *partial* bucket dispatch that bounds tail
         latency), and retires in-flight batches whose outputs have reached
         the host (their CUDA event has fired). Returns the number of
-        requests completed by this call.
+        requests completed by this call, and runs the adaptive drift check
+        after completions.
+
+        A bucket inside its retry backoff window (a transient dispatch
+        failure re-enqueued its tickets) or an injected flush-delay window
+        is skipped this pump — its tickets dispatch on a later pump or at
+        drain().
         """
         now = self.pipeline.clock()
+        self._poll_faults(now)
         self._sync_queues()
         before = int(self.telemetry.total("served"))
         for bi in list(self._queues):
-            while len(self._queues.get(bi, ())) >= self.pipeline.max_batch:
+            while (len(self._queues.get(bi, ())) >= self.pipeline.max_batch
+                   and not self._held(bi, now)):
                 self._flush(bi, "full", now, limit=self.pipeline.max_batch)
         for bi in list(self._queues):
             q = self._queues.get(bi)
-            if not q:
+            if not q or self._held(bi, now):
                 continue
             due = min((t.deadline_s for t in q if t.deadline_s is not None),
                       default=None)
@@ -568,7 +877,10 @@ class WorkloadServer:
         self._retire()
         self.telemetry.gauge("inflight", len(self._inflight))
         self._refresh_shard_load()
-        return int(self.telemetry.total("served")) - before
+        done = int(self.telemetry.total("served")) - before
+        if done and self.adaptive is not None and self._track:
+            self.adaptive.maybe_adapt()
+        return done
 
     def drain(self) -> int:
         """Flush every queued request and retire all in-flight batches.
@@ -580,16 +892,26 @@ class WorkloadServer:
         With everything settled, the telemetry counter invariants are
         enforced (`Telemetry.check_invariants`) — a RuntimeError here
         means a serving-path accounting bug, not bad user input.
+
+        Under fault injection and retry, drain ignores backoff and
+        flush-delay windows (it is the barrier) and flushes until the
+        queues are empty: every re-enqueued ticket either dispatches or
+        exhausts its attempts into a typed error, so the retry budget
+        bounds the rounds.
         """
-        self.pipeline.clock()   # a barrier reads the clock on entry, as
-        #                         submit and pump do
+        self._poll_faults(self.pipeline.clock())
         self._sync_queues()
         before = int(self.telemetry.total("served"))
+        rounds = 0
         while self._queues:
             now = self.pipeline.clock()
             for bi in list(self._queues):
                 if self._queues.get(bi):
                     self._flush(bi, "drain", now)
+            rounds += 1
+            if rounds > 100_000:
+                raise RuntimeError("drain() made no progress after "
+                                   "100000 flush rounds")
         while self._inflight:
             self._complete(self._inflight.popleft())
         self.telemetry.gauge("inflight", 0)
@@ -601,7 +923,8 @@ class WorkloadServer:
         """Graceful-shutdown barrier with a bounded grace budget.
 
         Tries to drain normally for up to `grace_s` seconds on the
-        pipeline clock; once the budget expires — or immediately when
+        pipeline clock (backoff and delay windows are ignored, like
+        drain); once the budget expires — or immediately when
         ``grace_s <= 0`` — every still-queued ticket resolves with a
         typed `ShutdownError` (counted as shed, so the telemetry
         invariants hold for the partial run). In-flight batches always
@@ -614,6 +937,7 @@ class WorkloadServer:
         before = int(self.telemetry.total("served"))
         self._sync_queues()
         if grace_s > 0:
+            rounds = 0
             while self._queues and clock() < deadline:
                 now = clock()
                 for bi in list(self._queues):
@@ -621,6 +945,9 @@ class WorkloadServer:
                         self._flush(bi, "drain", now)
                     if clock() >= deadline:
                         break
+                rounds += 1
+                if rounds > 100_000:
+                    break
         shed_n = 0
         for bi in list(self._queues):
             for t in self._queues.pop(bi):
@@ -732,7 +1059,13 @@ class WorkloadServer:
         copy to pinned host memory behind a CUDA event, and enqueues the
         in-flight record. Completes the oldest in-flight batch when
         max_inflight would be exceeded — the pipeline's backpressure, and
-        its only wait besides drain(). A dispatch error propagates.
+        its only wait besides drain().
+
+        Without faults or a retry policy a dispatch error propagates. With
+        either, the injector's draw, the staging, the launches and the
+        start of the copies sit in one try: a failure leaves no in-flight
+        record and goes to `_flush_failed`. The injected draw comes first,
+        so an injected failure stages and launches nothing.
         """
         q = self._queues[bi]
         take, rest = (q[:limit], q[limit:]) if limit is not None \
@@ -762,11 +1095,25 @@ class WorkloadServer:
         tele.observe("dedup_fanout", len(take) / len(unique), bucket=b_lab)
         fn = self._engine(bucket)
         t_stage = tr.clock() if tr.enabled else now
-        pd, params = stage_batch(bucket, pad_requests_pow2(unique),
-                                 device=self.device)
-        t_call = tr.clock() if tr.enabled else now
-        with tele.annotation(f"dispatch/bucket{bi}"):
-            out = fetch_outputs(fn(st.tr, st.va, st.perms, pd, params))
+        if self.faults is None and self.retry is None:
+            pd, params = stage_batch(bucket, pad_requests_pow2(unique),
+                                     device=self.device)
+            t_call = tr.clock() if tr.enabled else now
+            with tele.annotation(f"dispatch/bucket{bi}"):
+                out = fetch_outputs(fn(st.tr, st.va, st.perms, pd, params))
+        else:
+            try:
+                if self.faults is not None:
+                    self.faults.on_dispatch(bi)
+                pd, params = stage_batch(bucket, pad_requests_pow2(unique),
+                                         device=self.device)
+                t_call = tr.clock() if tr.enabled else now
+                with tele.annotation(f"dispatch/bucket{bi}"):
+                    out = fetch_outputs(fn(st.tr, st.va, st.perms, pd,
+                                           params))
+            except Exception as exc:
+                self._flush_failed(bi, take, exc, now)
+                return
         t_dispatch = self.pipeline.clock()
         if tr.enabled:
             lane = f"bucket{bi}"
@@ -779,14 +1126,23 @@ class WorkloadServer:
             t.t_dispatch = t_dispatch
             t.epoch = st.epoch
         self._inflight.append(_Inflight(bucket, bi, take, unique, inverse,
-                                        out, st.epoch))
+                                        out, st.epoch,
+                                        self._degraded is not None))
         while len(self._inflight) > self.pipeline.max_inflight:
             self._complete(self._inflight.popleft())
         tele.gauge("inflight", len(self._inflight))
 
-    def _resolve_error(self, ticket: Ticket, err: Exception, *,
-                       bi: int) -> None:
-        """Resolve one ticket to a typed error result (counted as shed).
+    def _held(self, bi: int, now: float) -> bool:
+        """Whether pump() skips bucket bi at `now`: it sits inside its
+        retry backoff window or an injected flush-delay window."""
+        return (self._retry_after.get(bi, 0.0) > now
+                or (self.faults is not None
+                    and self.faults.flush_delayed(bi, now)))
+
+    def _resolve_error(self, ticket: Ticket, err: Exception, *, bi: int,
+                       timeout: bool = False) -> None:
+        """Resolve one ticket to a typed error result (counted as shed,
+        and as a timeout with ``timeout``).
 
         The ticket completes like any served request — done flips, the
         latency is observed, the trace span closes — but `result` stays
@@ -804,6 +1160,8 @@ class WorkloadServer:
         tele = self.telemetry
         tele.count("served", template=ticket.name)
         tele.count("shed", template=ticket.name)
+        if timeout:
+            tele.count("timeouts", template=ticket.name)
         tele.observe("request_latency_ms",
                      (now - ticket.t_enqueue) * 1e3)
         if tele.trace.enabled:
@@ -814,6 +1172,64 @@ class WorkloadServer:
             tele.trace.async_end(span, ticket.seq, ts=now)
         self._latencies.append((bi, ticket.t_enqueue, ticket.t_flush,
                                 ticket.t_dispatch, now))
+
+    def _flush_failed(self, bi: int, take: list[Ticket], exc: Exception,
+                      now: float) -> None:
+        """Recover from a failed dispatch of bucket bi's cut tickets.
+
+        `classify` splits the world in two: a *permanent* fault
+        (CapacityOverflowError, bad-input errors) — or any fault with no
+        RetryPolicy attached — resolves every ticket in the cut to a typed
+        error at once. A *transient* fault (a `RuntimeError`, the CUDA
+        out-of-memory error among them) re-enqueues the surviving tickets
+        at the *front* of the bucket's queue (their seq order is kept, so
+        epoch order and re-routing stay right) and arms a backoff window
+        for the bucket; tickets past the policy's absolute deadline
+        resolve as timeouts, tickets out of attempts as
+        RetryExhaustedError.
+        """
+        tele = self.telemetry
+        kind = classify(exc)
+        if tele.trace.enabled:
+            tele.trace.instant("dispatch_fault",
+                               args={"bucket": bi, "kind": kind,
+                                     "error": type(exc).__name__})
+        policy = self.retry
+        if kind == "permanent" or policy is None:
+            for t in take:
+                t.attempts += 1
+                self._resolve_error(t, exc, bi=bi)
+            return
+        survivors: list[Ticket] = []
+        for t in take:
+            t.attempts += 1
+            hard = None if policy.deadline_ms is None \
+                else t.t_enqueue + policy.deadline_ms / 1e3
+            if hard is not None and now >= hard:
+                self._resolve_error(
+                    t, DeadlineExceededError(
+                        f"{t.name!r} past its {policy.deadline_ms:g} ms "
+                        f"retry deadline after {t.attempts} attempts"),
+                    bi=bi, timeout=True)
+            elif t.attempts >= policy.max_attempts:
+                err = RetryExhaustedError(
+                    f"{t.attempts} dispatch attempts failed for "
+                    f"{t.name!r}: {exc}")
+                err.__cause__ = exc
+                self._resolve_error(t, err, bi=bi)
+            else:
+                survivors.append(t)
+        if not survivors:
+            return
+        tele.count("retries", len(survivors), bucket=str(bi))
+        # front of the queue: a retried ticket never reorders behind
+        # requests submitted after it (take was cut in seq order)
+        self._queues[bi] = survivors + self._queues.get(bi, [])
+        tele.gauge("queue_depth", len(self._queues[bi]), bucket=str(bi))
+        back = policy.backoff_s(max(t.attempts for t in survivors),
+                                self._backoff_prev.get(bi))
+        self._backoff_prev[bi] = back
+        self._retry_after[bi] = now + back
 
     def _retire(self) -> int:
         """Complete in-flight batches whose outputs have reached the host.
@@ -865,6 +1281,8 @@ class WorkloadServer:
             t.t_done = now
             t.done = True
             tele.count("served", template=t.name)
+            if rec.degraded:
+                tele.count("degraded_served", template=t.name)
             tele.observe("request_latency_ms",
                          (t.t_done - t.t_enqueue) * 1e3)
             if tr.enabled:
@@ -893,12 +1311,16 @@ class WorkloadServer:
         submitted (without intermediate flushes) and one drain() delivers
         them — each bucket appearing among the cache misses dispatches
         exactly once, in order of first appearance, identical instances
-        collapse (dedup), and each result is (solutions, count, overflow).
-        Raises KeyError / ValueError per submit().
+        collapse (dedup), and each result is (solutions, count, overflow),
+        or None for a request resolved with a typed error. With adaptivity
+        on, a drift check (and possibly a migration) runs after the batch
+        completes. Raises KeyError / ValueError per submit().
         """
         tickets = [self.submit(name, pv, _pump=False)
                    for name, pv in requests]
         self.drain()
+        if self.adaptive is not None and self._track:
+            self.adaptive.maybe_adapt()
         return [t.result for t in tickets]
 
     def _engine(self, bucket):
@@ -921,8 +1343,8 @@ class WorkloadServer:
 
     @contextmanager
     def tracking_paused(self):
-        """Serve without feeding the workload tracker (warmup,
-        steady-state timing)."""
+        """Serve without feeding the workload tracker or running drift
+        checks (warmup, steady-state timing)."""
         track, self._track = self._track, False
         try:
             yield self
@@ -958,10 +1380,12 @@ def build_dataset(dataset: str, scale: float, seed: int = 0):
     return generate_bsbm(int(1000 * scale), seed=seed), bsbm_queries()
 
 
-def build_partition(method: str, store, queries, n_shards: int):
+def build_partition(method: str, store, queries, n_shards: int,
+                    query_weights: dict[str, float] | None = None):
     """Partition `store` by method: "wawpart" | "random" | "centralized"."""
     if method == "wawpart":
-        return wawpart_partition(store, queries, n_shards=n_shards)
+        return wawpart_partition(store, queries, n_shards=n_shards,
+                                 query_weights=query_weights)
     if method == "random":
         return random_partition(store, queries, n_shards=n_shards, seed=0)
     return centralized_partition(store, queries)
@@ -1204,6 +1628,27 @@ def main(argv: list[str] | None = None) -> None:
                     help="after the timed loop, compare every served answer "
                          "with the oracle (evaluate_bgp in the plan's join "
                          "order) and print how many agree")
+    ap.add_argument("--replicate", action="store_true",
+                    help="after warmup, replicate the hottest safe cut "
+                         "features onto their queries' primary shards "
+                         "(removes those cross-shard gathers)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="track the live workload, detect drift, and migrate "
+                         "shards under a budget between batches")
+    ap.add_argument("--drift", action="store_true",
+                    help="serve a two-phase stream whose template mix shifts "
+                         "halfway (instead of round-robin)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="stream sampling seed (the --drift stream)")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="arm seeded fault injection, e.g. "
+                         "'dispatch=0.1/4,down=1@0.2:0.6,seed=7' (see "
+                         "repro_torch.faults.FaultPlan.parse); transient "
+                         "failures are retried unless --no-retry")
+    ap.add_argument("--no-retry", action="store_true",
+                    help="no RetryPolicy under --chaos: a failed dispatch "
+                         "resolves its tickets with typed errors on the "
+                         "first attempt")
     args = ap.parse_args(argv)
     if args.batch < 1:
         ap.error("--batch must be >= 1")
@@ -1214,27 +1659,46 @@ def main(argv: list[str] | None = None) -> None:
         torch.cuda.memory._record_memory_history(stacks="python")
 
     store, queries = build_dataset(args.dataset, args.scale)
-    stream = request_stream(queries, args.requests)
+    phase_a_weights = None
+    if args.drift:
+        phase_a_weights, wb = two_phase_weights(queries)
+        half = args.requests // 2
+        stream = drifting_stream(
+            queries, [(half, phase_a_weights), (args.requests - half, wb)],
+            seed=args.seed)
+    else:
+        stream = request_stream(queries, args.requests)
     pipeline_cfg = PipelineConfig(
         deadline_ms=args.deadline_ms if args.deadline_ms > 0 else None,
         max_batch=args.batch)
     clock = pipeline_cfg.clock   # one timebase: partition timing, serving
     #                              timing, tickets and trace spans agree
     t0 = clock()
-    part = build_partition(args.method, store, queries, args.n_shards)
+    part = build_partition(args.method, store, queries, args.n_shards,
+                           query_weights=phase_a_weights)
     t_part = clock() - t0
+    adaptive = None
+    if args.adaptive:
+        adaptive = AdaptiveConfig(window=max(64, args.batch * 4),
+                                  check_every=args.batch,
+                                  min_requests=min(64, args.batch))
     telemetry = Telemetry(trace=args.trace_out is not None,
                           annotate=args.profile is not None)
+    fault_plan = FaultPlan.parse(args.chaos) if args.chaos else None
+    retry = RetryPolicy() if (fault_plan is not None
+                              and not args.no_retry) else None
     server = WorkloadServer(queries, part, join_impl=args.join,
                             max_per_row=args.max_per_row or None,
                             dedup=not args.no_dedup, backend=args.backend,
                             answer_cache=not args.no_cache,
                             pipeline=pipeline_cfg, telemetry=telemetry,
-                            device=device)
+                            device=device, faults=fault_plan, retry=retry,
+                            adaptive=adaptive)
     print(f"{args.dataset}: {len(store):,} triples -> {part.n_shards} shards "
           f"{part.shard_sizes.tolist()} ({t_part:.1f}s partitioning), "
           f"{len(queries)} template queries in {server.n_buckets} buckets, "
-          f"backend={args.backend}, device={device}")
+          f"backend={args.backend}, device={device}"
+          + (", adaptive" if args.adaptive else ""))
     print(f"  per-bucket collective counts (WawPart cuts): "
           f"{server.collective_counts()}")
 
@@ -1250,6 +1714,16 @@ def main(argv: list[str] | None = None) -> None:
             for n in (1, 2, 4, 8, 16, 32):
                 if n <= args.batch:
                     server.warmup(stream[:n])
+        if args.replicate:
+            rep = server.replicate_hot()
+            print(f"  replicated {rep['replicated_units']} unit copies "
+                  f"({rep['replicated_triples']} triples), rewrote "
+                  f"{rep['plans_rewritten']} plans; collectives "
+                  f"{rep['collectives_before']} -> "
+                  f"{rep['collectives_after']}, cap grew "
+                  f"{rep['cap_grew']}")
+            for i in range(0, len(stream), args.batch):
+                server.warmup(stream[i:i + args.batch])
         _sync(device)
         server.reset_stats()
         ops = kernel_ops()
@@ -1274,8 +1748,9 @@ def main(argv: list[str] | None = None) -> None:
                     _sync(device)
                     per_call.append(time.perf_counter() - t_call)
                 dt = time.perf_counter() - t0
-        n_solutions = sum(res[1] for res in results)
-        overflows = sum(bool(res[2]) for res in results)
+        answered = [res for res in results if res is not None]
+        n_solutions = sum(res[1] for res in answered)
+        overflows = sum(bool(res[2]) for res in answered)
         st = server.stats
         print(f"served {len(stream)} requests in {dt * 1e3:.1f} ms  "
               f"({len(stream) / dt:,.0f} queries/sec, batch={args.batch})")
@@ -1289,8 +1764,10 @@ def main(argv: list[str] | None = None) -> None:
             print(f"  peak device memory "
                   f"{torch.cuda.max_memory_allocated(device):,} bytes "
                   f"(torch.cuda.max_memory_allocated)")
+        per_epoch = "" if server.epoch \
+            else f" (<= {server.n_buckets} buckets)"
         print(f"  solutions={n_solutions:,}  overflows={overflows}  "
-              f"engines={server.n_compiles} (<= {server.n_buckets} buckets)"
+              f"engines={server.n_compiles}{per_epoch}"
               f"  dedup: {st['executed']}/{st['served']} instances executed")
         if args.pipeline:
             ls = server.latency_stats()
@@ -1305,20 +1782,41 @@ def main(argv: list[str] | None = None) -> None:
                   f"drain={st['flush_drain']}  "
                   f"queue_depth={server.queue_depth()} "
                   f"inflight={server.n_inflight}")
+        if server.faults is not None and server.faults.enabled:
+            inj = server.faults.injected
+            print(f"  chaos: injected dispatch_failures={inj['dispatch']} "
+                  f"shard_down={inj['shard_down']}; recovered "
+                  f"retries={st['retries']} shed={st['shed']} "
+                  f"timeouts={st['timeouts']} "
+                  f"degraded_served={st['degraded_served']}")
         if st["cache_hits"] or st["cache_misses"]:
             total = st["cache_hits"] + st["cache_misses"]
             print(f"  answer cache: {st['cache_hits']}/{total} hits "
                   f"({st['cache_hits'] / max(1, total):.0%})")
+        if server.adaptive is not None:
+            print(f"  adaptive: epoch={server.epoch}, "
+                  f"{server.adaptive.n_migrations} migrations")
+            for ev in server.adaptive.events:
+                mig = ev.migration or {}
+                print(f"    [{ev.severity}] divergence={ev.divergence:.3f} "
+                      f"mode={ev.mode} moved={ev.moved_triples}"
+                      f"/{ev.budget_triples} budget, "
+                      f"cost {ev.cost_before:.0f}->{ev.cost_after:.0f}"
+                      + (f", rewrote {mig['plans_rewritten']} plans, "
+                         f"reused {mig['signatures_reused']} engine sigs"
+                         if mig else ""))
         if args.check:
             from repro_torch.engine.oracle import evaluate_bgp
             by_name = {q.name: q for q in queries}
             oracle = {name: evaluate_bgp(
                 store, by_name[name], order=server.plans[name].meta["order"])
                 for name in {name for name, _ in stream}}
-            agree = sum(np.array_equal(res[0], oracle[name])
+            agree = sum(res is not None and np.array_equal(res[0],
+                                                           oracle[name])
                         for (name, _), res in zip(stream, results))
-            print(f"  oracle: {agree}/{len(stream)} answers equal "
-                  f"evaluate_bgp")
+            print(f"  oracle: {agree}/{len(answered)} answers equal "
+                  f"evaluate_bgp ({len(stream) - len(answered)} resolved "
+                  f"with a typed error)")
         if args.profile:
             _report_profile(prof, device, dt, args.profile)
         if args.memory_peak:

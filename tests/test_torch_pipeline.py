@@ -359,7 +359,7 @@ def test_serve_is_submit_plus_drain(world):
     assert [_result(r) for r in res] == [_result(t.result) for t in tickets]
 
 
-@pytest.mark.parametrize("kw", ["faults", "retry", "adaptive", "mesh"])
+@pytest.mark.parametrize("kw", ["mesh"])
 def test_unported_layers_are_refused(world, kw):
     _, sides, _ = world
     s = sides["torch"]

@@ -248,6 +248,57 @@ def test_classify_copies_agree_on_every_error_type():
     assert kinds[-3:] == ["transient"] * 3
 
 
+def _fields(cls) -> list:
+    return [(f.name, repr(f.default), repr(f.default_factory()) if
+             f.default_factory is not dataclasses.MISSING else None)
+            for f in dataclasses.fields(cls)]
+
+
+def test_fault_and_adaptive_copies_public_values():
+    """The copied fault and adaptive modules export the reference's names,
+    and their value types carry its fields and defaults."""
+    import inspect
+
+    from repro import adaptive as j_adaptive
+    from repro import faults as j_faults
+    from repro.adaptive import controller as j_controller
+    from repro.adaptive import drift as j_drift
+    from repro.adaptive import replicate as j_replicate
+
+    from repro_torch import adaptive, faults
+    from repro_torch.adaptive import controller, drift, replicate
+
+    assert faults.__all__ == j_faults.__all__
+    assert set(j_adaptive.__all__) <= set(adaptive.__all__)
+    for mod, jmod in ((faults.inject, j_faults.inject),
+                      (faults.retry, j_faults.retry),
+                      (faults.degraded, j_faults.degraded),
+                      (controller, j_controller), (drift, j_drift),
+                      (replicate, j_replicate)):
+        names = sorted(n for n, v in vars(jmod).items()
+                       if not n.startswith("__")
+                       and getattr(v, "__module__", None) == jmod.__name__)
+        assert names == sorted(
+            n for n, v in vars(mod).items() if not n.startswith("__")
+            and getattr(v, "__module__", None) == mod.__name__), jmod
+        for name in names:
+            got, want = getattr(mod, name), getattr(jmod, name)
+            if dataclasses.is_dataclass(want):
+                assert _fields(got) == _fields(want), name
+            else:
+                assert str(inspect.signature(got)) \
+                    == str(inspect.signature(want)), name
+    assert drift.SEVERITIES == j_drift.SEVERITIES
+    det, jdet = drift.DriftDetector(), j_drift.DriftDetector()
+    assert vars(det) == vars(jdet)
+    assert faults.FaultInjector().injected \
+        == j_faults.FaultInjector().injected
+    assert dataclasses.astuple(faults.RetryPolicy()) \
+        == dataclasses.astuple(j_faults.RetryPolicy())
+    assert dataclasses.asdict(controller.AdaptiveConfig()) \
+        == dataclasses.asdict(j_controller.AdaptiveConfig())
+
+
 # ---------------------------------------------------------------------------
 # isolation and no-fallback guarantees
 # ---------------------------------------------------------------------------
@@ -272,7 +323,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "engine/local", "engine/federated", "core/rewriter", "configs/lubm",
         "configs/bsbm", "obs/metrics", "obs/trace", "obs/telemetry",
         "adaptive/stats", "adaptive/migrate", "adaptive/repartition",
-        "faults/errors")} <= checked
+        "adaptive/replicate", "adaptive/drift", "adaptive/controller",
+        "faults/errors", "faults/inject", "faults/retry",
+        "faults/degraded")} <= checked
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "repro", "flax", "optax"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
