@@ -127,6 +127,29 @@ order; any failure exits non-zero:
    FaultPlan(abort_migrations=99) (epoch stays 0, migration_aborts =
    injected). Every delivered answer equals evaluate_bgp; scan_select,
    join_ranges and join_select launched;
+4d. mesh — on phase 4's LUBM(1) store: the multi-device path on
+   torch.distributed, one gloo rank (process) per shard, every rank on
+   the one card. 3 ranks over phase 4's WawPart partition and a random
+   one (seed 0): every bucket (all its members, one call) through
+   make_sharded_batched_engine with both joins (the expand join under
+   the random placement, and over 8 shards, with gather_cap 65,535: its
+   gathered matches would pass compat_select's 2^31 pairs an instance),
+   each rank's outputs equal
+   to the single-device engine's on the card (SHA-1 of the bytes), its
+   counted all_gathers equal to bucket_collectives, its launches equal to
+   the single-device call's (WawPart sorted: phase 4's scan_select,
+   join_ranges, join_select); run_sharded of the 14 templates (WawPart
+   both joins, random sorted, and centralized on a mesh of one in this
+   process; max_per_row 1,024), every answer equal to evaluate_bgp, its
+   gathers n_gathers; the mesh-routed server (rank 0
+   serves, the others run serve_worker): two passes of the 14 templates,
+   every answer equal to evaluate_bgp, serve() ms beside phase 4's, the
+   first pass with the answer cache off timed 5 times, the gathers a pass
+   equal to the cuts, then replicate_hot() and the gathers after it
+   (fewer). Then 8 ranks over an 8-shard WawPart partition, both joins,
+   the same checks. Prints gathers and gathered bytes per bucket and per
+   template under WawPart against random, each rank's device and peak
+   memory;
 5. expand path — LUBM at scale 0.1 under join_impl="expand": the same
    checks, compat_select launched once per expand join (11), scan_hits
    and scan_select launched, compat_matrix, join_ranges and join_select
@@ -190,6 +213,7 @@ per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import subprocess
@@ -272,10 +296,16 @@ from repro_torch.faults import (FaultPlan,  # noqa: E402
                                 InjectedDispatchError, RetryPolicy,
                                 ShardDownError, ShutdownError,
                                 degraded_placement, uncovered_templates)
+from repro_torch.engine.batch import (bucket_collectives,  # noqa: E402
+                                      shard_perms)
+from repro_torch.engine.federated import run_sharded  # noqa: E402
+from repro_torch.launch.mesh import make_engine_mesh, spawn  # noqa: E402
 from repro_torch.launch.serve import (PipelineConfig,  # noqa: E402
                                       WorkloadServer, drifting_stream,
                                       replay_paced, request_stream,
+                                      serve_worker, stop_workers,
                                       two_phase_weights)
+from repro_torch.sharding.rules import kg_local  # noqa: E402
 from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.models.gnn.egnn import EGNN  # noqa: E402
 from repro_torch.models.gnn.equiformer_v2 import EquiformerV2  # noqa: E402
@@ -2097,7 +2127,7 @@ def serve_path(scale: float, join_impl: str, passes: int = 2, *,
     answers = {name: rows for (name, _), (rows, _, _) in zip(stream, results)}
     return launched, {"store": store, "part": part, "oracle": oracle,
                       "answers": answers, "queries": queries,
-                      "cache": server.cache}
+                      "cache": server.cache, "per_call": per_call}
 
 
 # ---------------------------------------------------------------------------
@@ -2590,6 +2620,356 @@ def phase_faults(main_path: dict, card: str) -> dict:
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
     return launched
 
+
+# ---------------------------------------------------------------------------
+# phase 4d: the mesh, one rank per shard on torch.distributed
+# ---------------------------------------------------------------------------
+
+MESH_BACKEND = "gloo"        # several ranks on the one card
+MESH_TIMEOUT = 300.0         # seconds a collective may wait for a rank
+MESH_JOIN = 600.0            # seconds a spawn's ranks get in all
+MESH_WIDE = 8                # shards (ranks) of the wide WawPart run
+MESH_MPR = 1024              # run_sharded's max_per_row: phase 6's LUBM(1)
+MESH_SERVE_REPS = 5          # timed first-pass serve() calls (cache off)
+# the expand join under the random placement and over 8 shards gathers
+# up to 3 x 65,536 and 8 x 65,536 matches against bucket 4's 32,768 table
+# rows, past compat_select's 2^31 pairs an instance; gather_cap compacts
+# the gathered matches to the most that stays under it (32,768 x 65,535),
+# losslessly: a scan cap of 65,536 or less is 1.5 times its pattern's
+# count in the whole store plus 8, and the owner gate keeps each triple
+# once, so no gathered block holds more than 43,690 matches
+MESH_GATHER_CAP = (2 ** 31 - 1) // 32768
+
+
+def digest(outs) -> str:
+    """A SHA-1 of a (table, mask, overflow)'s shapes, dtypes and bytes."""
+    h = hashlib.sha1()
+    for t in outs:
+        a = t.cpu().numpy() if isinstance(t, torch.Tensor) else t
+        h.update(f"{a.shape}{a.dtype}".encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def mesh_buckets(mesh, kg, buckets, join: str, gather_cap) -> list[dict]:
+    """Every bucket of ``kg`` through the mesh engine (all members, one
+    call each) on this rank: the outputs' digest, the counted gathers and
+    gathered bytes, the kernel launches and the call's ms."""
+    tr, va, pe = kg_local(kg, mesh, shard_perms(kg))
+    cache = engine_batch.EngineCache()
+    out = []
+    for b in buckets:
+        fn = cache.get(b.signature, join_impl=join, mesh=mesh, backend="cuda",
+                       gather_cap=gather_cap)
+        pd, params = engine_batch.stage_batch(
+            b, [(i, None) for i in range(len(b.plans))], mesh=mesh)
+        torch.cuda.synchronize()
+        reset_counts()
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        res = fn(tr, va, pe, pd, params)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out.append({"digest": digest(res), "gathers": mesh.collectives,
+                    "bytes": mesh.gathered_bytes, "launches": counts(),
+                    "ms": ms})
+    return out
+
+
+def mesh_rank(mesh, job: dict) -> dict:
+    """One rank of phase 4d: the bucket runs, run_sharded of each
+    template, and (for a job with "serve") the mesh-routed server on rank
+    0 while the other ranks run serve_worker."""
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    out = {"rank": mesh.rank, "device": str(mesh.device),
+           "name": torch.cuda.get_device_name(mesh.device),
+           "count": torch.cuda.device_count(), "buckets": {}, "pq": {}}
+    for (label, join), (kg, buckets, cap) in job["buckets"].items():
+        out["buckets"][(label, join)] = mesh_buckets(mesh, kg, buckets, join,
+                                                     cap)
+    for (label, join), (kg, plans) in job.get("pq", {}).items():
+        runs = {}
+        for name, plan in plans.items():
+            reset_counts()
+            mesh.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_sharded(plan, kg, mesh, join_impl=join,
+                              max_per_row=MESH_MPR, backend="cuda")
+            torch.cuda.synchronize()
+            runs[name] = {"res": res, "gathers": mesh.collectives,
+                          "bytes": mesh.gathered_bytes,
+                          "ms": (time.perf_counter() - t0) * 1e3,
+                          "launches": counts()}
+        out["pq"][(label, join)] = runs
+    if "serve" in job:
+        if mesh.rank:
+            out["worker"] = serve_worker(mesh)
+        else:
+            try:
+                out["serve"] = mesh_serve(mesh, *job["serve"])
+            finally:
+                stop_workers(mesh)
+    out["peak"] = torch.cuda.max_memory_allocated(mesh.device)
+    return out
+
+
+def mesh_serve(mesh, queries, part, oracle) -> dict:
+    """Rank 0 of phase 4d's server: two passes of the 14 templates as
+    phase 4 serves them, the first-pass serve() ms with the answer cache
+    off, then replicate_hot() and a pass after it, each pass's counted
+    gathers."""
+    one_pass = request_stream(queries, len(queries))
+    server = WorkloadServer(queries, part, join_impl="sorted",
+                            backend="cuda", mesh=mesh)
+    server.warmup(one_pass)
+    torch.cuda.synchronize()
+    mesh.reset_counts()
+    reset_counts()
+    per_call, results = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        results += server.serve(one_pass)
+        torch.cuda.synchronize()
+        per_call.append((time.perf_counter() - t0) * 1e3)
+    check_results(one_pass * 2, results, oracle, "mesh server")
+    out = {"per_call": per_call, "launches": counts(),
+           "gathers": mesh.collectives, "bytes": mesh.gathered_bytes,
+           "cuts": server.collective_counts(), "stats": server.stats}
+    cold = WorkloadServer(queries, part, join_impl="sorted", backend="cuda",
+                          mesh=mesh, cache=server.cache, answer_cache=False)
+    check_results(one_pass, cold.serve(one_pass), oracle, "mesh server")
+    out["first_pass_ms"] = timed_serves(cold, one_pass, MESH_SERVE_REPS)
+    rep = server.replicate_hot()
+    mesh.reset_counts()
+    after = server.serve(one_pass)
+    torch.cuda.synchronize()
+    check_results(one_pass, after, oracle, "mesh server after replicate_hot")
+    out.update(replicate=rep, gathers_after=mesh.collectives,
+               bytes_after=mesh.gathered_bytes)
+    return out
+
+
+def mesh_reference(kg, buckets, join: str, gather_cap) -> list[dict]:
+    """The single-device engine on the card over the same calls: each
+    bucket's outputs' digest and launches; no overflow flag may be
+    set."""
+    tr, va, pe = engine_batch.kg_tensors(kg, None, DEV)
+    cache = engine_batch.EngineCache()
+    out = []
+    for bi, b in enumerate(buckets):
+        fn = cache.get(b.signature, join_impl=join, backend="cuda",
+                       gather_cap=gather_cap)
+        pd, params = engine_batch.stage_batch(
+            b, [(i, None) for i in range(len(b.plans))], device=DEV)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn(tr, va, pe, pd, params)
+        torch.cuda.synchronize()
+        out.append({"digest": digest(res), "launches": counts(),
+                    "ms": (time.perf_counter() - t0) * 1e3})
+        if res[2].any():
+            raise AssertionError(f"{join} bucket {bi} (gather_cap "
+                                 f"{gather_cap}): overflow flag set")
+    return out
+
+
+def check_mesh_buckets(label: str, join: str, ranks, ref, buckets) -> dict:
+    """Every rank's outputs equal the single-device engine's, its counted
+    gathers bucket_collectives, its launches the single-device call's."""
+    cuts = [bucket_collectives(b.signature) for b in buckets]
+    for r in ranks:
+        got = r["buckets"][(label, join)]
+        for bi, (g, want, cut) in enumerate(zip(got, ref, cuts)):
+            what = f"{label} {join} bucket {bi} rank {r['rank']}"
+            if g["digest"] != want["digest"]:
+                raise AssertionError(f"{what}: outputs differ from the "
+                                     "single-device engine's on the card")
+            if g["gathers"] != cut:
+                raise AssertionError(f"{what}: {g['gathers']} gathers for "
+                                     f"bucket_collectives {cut}")
+            if g["launches"] != want["launches"]:
+                raise AssertionError(f"{what}: launches {g['launches']}, "
+                                     f"single device {want['launches']}")
+    total = {k: sum(c["launches"][k] for c in ref) for k in OPS}
+    return {"cuts": cuts, "bytes": [c["bytes"] for c in ranks[0]["buckets"][
+        (label, join)]], "launches": {k: v for k, v in total.items() if v},
+        "ms": [round(c["ms"], 3) for c in ranks[0]["buckets"][
+            (label, join)]], "ref_ms": [round(c["ms"], 3) for c in ref]}
+
+
+def phase_mesh(main_path: dict, main_counts: dict, card: str) -> dict:
+    """Phase 4d on phase 4's LUBM(1) store: 3 gloo ranks (WawPart and
+    random, both joins, run_sharded, the server) and 8 (WawPart), all on
+    the one card. Returns the kernel launches per rank of the bucket
+    runs."""
+    t_phase = time.perf_counter()
+    store, queries, oracle = (main_path["store"], main_path["queries"],
+                              main_path["oracle"])
+    parts = {"wawpart": main_path["part"],
+             "random": random_partition(store, queries, n_shards=3, seed=0)}
+    job, refs, plans_of = {"buckets": {}, "pq": {}}, {}, {}
+    for label, part in parts.items():
+        kg = ShardedKG.build(part)
+        plans = pq_plans(queries, part)
+        buckets = engine_batch.bucket_plans(list(plans.values()))
+        plans_of[label] = (plans, buckets)
+        for join in ("expand", "sorted"):
+            cap = MESH_GATHER_CAP if (join, label) == ("expand", "random") \
+                else None
+            job["buckets"][(label, join)] = (kg, buckets, cap)
+            refs[(label, join)] = mesh_reference(kg, buckets, join, cap)
+        job["pq"][(label, "sorted")] = (kg, plans)
+    job["pq"][("wawpart", "expand")] = job["pq"][("wawpart", "sorted")]
+    job["serve"] = (queries, parts["wawpart"], oracle)
+    t0 = time.perf_counter()
+    ranks = spawn(3, mesh_rank, job, backend=MESH_BACKEND, device="cuda",
+                  timeout=MESH_TIMEOUT, join_timeout=MESH_JOIN)
+    t_spawn3 = time.perf_counter() - t0
+    shared = {(r["device"], r["name"], r["count"]) for r in ranks}
+    log(f"  3 ranks ({MESH_BACKEND}), {t_spawn3:.1f} s from spawn to the "
+        f"last rank's exit; devices {sorted(shared)}: "
+        + ("every rank on the one card" if len(shared) == 1
+           and torch.cuda.device_count() == 1 else "several cards"))
+    summary = {}
+    for (label, join) in job["buckets"]:
+        summary[(label, join)] = check_mesh_buckets(
+            label, join, ranks, refs[(label, join)],
+            plans_of[label][1])
+        cap = job["buckets"][(label, join)][2]
+        log(f"  {label} {join}"
+            + (f" (gather_cap {cap})" if cap else "")
+            + ": every bucket's outputs on every rank equal "
+            f"the single-device engine's on the card; gathers a call "
+            f"{summary[(label, join)]['cuts']} = bucket_collectives; "
+            f"gathered bytes a rank {summary[(label, join)]['bytes']}; "
+            f"launches a rank {summary[(label, join)]['launches']} = the "
+            f"single-device calls'; ms a call on rank 0 (a rank's first "
+            f"call holds its start-up) {summary[(label, join)]['ms']} "
+            f"(single device "
+            f"{summary[(label, join)]['ref_ms']})")
+    want = {k: main_counts[k] for k in ("scan_select", "join_ranges",
+                                        "join_select")}
+    got = {k: summary[("wawpart", "sorted")]["launches"].get(k, 0)
+           for k in want}
+    if got != want:
+        raise AssertionError(f"mesh WawPart sorted: launches a rank {got}, "
+                             f"phase 4's {want}")
+    if not summary[("wawpart", "expand")]["launches"].get("compat_select"):
+        raise AssertionError("mesh WawPart expand: no compat_select")
+
+    for (label, join), (kg, plans) in job["pq"].items():
+        rows = {}
+        for r in ranks:
+            for name, run in r["pq"][(label, join)].items():
+                if r["rank"] == 0:
+                    rows[name] = (run["gathers"], run["bytes"],
+                                  round(run["ms"], 3))
+                rows_, n, ovf = run["res"]
+                if ovf or not np.array_equal(rows_, oracle[name]):
+                    raise AssertionError(f"run_sharded {label} {join} "
+                                         f"{name} rank {r['rank']}: differs "
+                                         "from the oracle")
+                if run["gathers"] != plans[name].n_gathers:
+                    raise AssertionError(f"run_sharded {label} {join} "
+                                         f"{name}: {run['gathers']} gathers "
+                                         f"for n_gathers "
+                                         f"{plans[name].n_gathers}")
+        log(f"  run_sharded {label} {join} (max_per_row {MESH_MPR}): every "
+            f"template on every rank equals evaluate_bgp; (gathers = "
+            f"n_gathers, gathered bytes a rank, ms on rank 0) {rows}")
+    # the centralized placement (phase 6's third) is one shard: a mesh of
+    # one, in this process, with no process group and no gather
+    one = make_engine_mesh(1, device=DEV)
+    cpart = centralized_partition(store, queries)
+    ckg = ShardedKG.build(cpart)
+    for name, plan in pq_plans(queries, cpart).items():
+        rows_, n, ovf = run_sharded(plan, ckg, one, join_impl="sorted",
+                                    max_per_row=MESH_MPR, backend="cuda")
+        if ovf or not np.array_equal(rows_, oracle[name]):
+            raise AssertionError(f"run_sharded centralized {name}: differs "
+                                 "from the oracle")
+    if one.collectives:
+        raise AssertionError(f"centralized: {one.collectives} gathers")
+    log(f"  run_sharded centralized (a mesh of one, sorted): every template "
+        f"equals evaluate_bgp, no gather")
+    for label in parts:
+        runs = ranks[0]["pq"][(label, "sorted")]
+        log(f"  the distributed join's cost, {label}: gathers "
+            f"{sum(r['gathers'] for r in runs.values())} and gathered bytes "
+            f"{sum(r['bytes'] for r in runs.values()):,} a rank over the 14 "
+            f"templates (run_sharded, sorted); bucket engine "
+            f"{sum(summary[(label, 'sorted')]['cuts'])} gathers and "
+            f"{sum(summary[(label, 'sorted')]['bytes']):,} bytes a rank")
+
+    srv = ranks[0]["serve"]
+    served = {k: srv["launches"][k] for k in want}
+    if served != want:
+        raise AssertionError(f"mesh server: launches on rank 0 {served}, "
+                             f"phase 4's {want}")
+    workers = [r["worker"] for r in ranks[1:]]
+    if any(w["collectives"] != workers[0]["collectives"] for w in workers) \
+            or srv["gathers"] != sum(srv["cuts"]):
+        raise AssertionError(f"mesh server gathers: rank 0 {srv['gathers']} "
+                             f"for cuts {srv['cuts']}; workers "
+                             f"{[w['collectives'] for w in workers]}")
+    rep = srv["replicate"]
+    if not (srv["gathers_after"] == sum(rep["collectives_after"])
+            < sum(rep["collectives_before"])):
+        raise AssertionError(f"replicate_hot: gathers {srv['gathers']} -> "
+                             f"{srv['gathers_after']}, report {rep}")
+    log(f"  mesh server (rank 0 serves, ranks 1-2 serve_worker): two passes "
+        f"of the 14 templates, every answer equals evaluate_bgp; serve() "
+        f"{[round(t, 3) for t in srv['per_call']]} ms (phase 4, one card: "
+        f"{[round(t * 1e3, 3) for t in main_path['per_call']]} ms); "
+        f"first pass, answer cache off, {MESH_SERVE_REPS} calls "
+        f"{[round(t, 3) for t in srv['first_pass_ms']]} ms (median "
+        f"{np.median(srv['first_pass_ms']):.3f}); launches on rank 0 "
+        f"{ {k: v for k, v in srv['launches'].items() if v} }; gathers "
+        f"{srv['gathers']} ({srv['bytes']:,} bytes) for cuts {srv['cuts']}; "
+        f"replicate_hot: {rep['replicated_triples']} triples, cuts "
+        f"{rep['collectives_before']} -> {rep['collectives_after']}, "
+        f"gathers a pass {srv['gathers']} -> {srv['gathers_after']} "
+        f"({srv['bytes']:,} -> {srv['bytes_after']:,} bytes); workers "
+        f"(states, dispatches, gathered bytes) "
+        f"{[(w['states'], w['dispatches'], w['gathered_bytes'])
+            for w in workers]}")
+    log(f"  peak memory a rank (max_memory_allocated, 3 ranks): "
+        f"{[r['peak'] for r in ranks]} bytes")
+
+    wide = wawpart_partition(store, queries, n_shards=MESH_WIDE)
+    kg8 = ShardedKG.build(wide)
+    buckets8 = engine_batch.bucket_plans(pq_plans(queries, wide).values())
+    job8 = {"buckets": {}}
+    refs8 = {}
+    for join in ("expand", "sorted"):
+        cap = MESH_GATHER_CAP if join == "expand" else None
+        job8["buckets"][("wawpart8", join)] = (kg8, buckets8, cap)
+        refs8[join] = mesh_reference(kg8, buckets8, join, cap)
+    t0 = time.perf_counter()
+    ranks8 = spawn(MESH_WIDE, mesh_rank, job8, backend=MESH_BACKEND,
+                   device="cuda", timeout=MESH_TIMEOUT,
+                   join_timeout=MESH_JOIN)
+    t_spawn8 = time.perf_counter() - t0
+    for join in ("expand", "sorted"):
+        s8 = check_mesh_buckets("wawpart8", join, ranks8, refs8[join],
+                                buckets8)
+        log(f"  WawPart {MESH_WIDE} shards {wide.shard_sizes.tolist()}, "
+            f"{join}"
+            + (f" (gather_cap {MESH_GATHER_CAP})" if join == "expand" else "")
+            + ": every bucket's outputs on every rank equal the "
+            f"single-device engine's on the card; gathers a call "
+            f"{s8['cuts']} = bucket_collectives; gathered bytes a rank "
+            f"{s8['bytes']}; launches a rank {s8['launches']}; ms a call "
+            f"on rank 0 (a rank's first call holds its start-up) "
+            f"{s8['ms']} (single device {s8['ref_ms']})")
+    log(f"  8 ranks: {t_spawn8:.1f} s from spawn to the last rank's exit, "
+        f"devices {sorted({(r['device'], r['count']) for r in ranks8})}, "
+        f"peak memory a rank {[r['peak'] for r in ranks8]} bytes; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {k: v for k, v in summary[("wawpart", "sorted")]["launches"]
+            .items()}
 
 # ---------------------------------------------------------------------------
 # phase 6: the per-query engine (the paper's execution path)
@@ -3259,6 +3639,11 @@ def main() -> None:
         "migrations and aborted ones")
     fault_counts = phase_faults(main_path, card)
 
+    log("[4d/11] mesh on phase 4's store: one gloo rank per shard on the "
+        "one card; 3 ranks (WawPart and random, both joins; run_sharded; "
+        "the mesh-routed server; replicate_hot) and 8 (WawPart)")
+    mesh_counts = phase_mesh(main_path, main_counts, card)
+
     log("[5/11] expand path: LUBM scale 0.1, join expand, backend cuda")
     expand_counts, _ = serve_path(0.1, "expand")
     for k in ("compat_select", "scan_hits", "scan_select"):
@@ -3359,6 +3744,9 @@ def main() -> None:
             paths[name] += "; faults, replication, adaptive (phase 4c)"
     for name in ("scan_select", "join_ranges", "join_select",
                  "compat_select"):
+        if mesh_counts.get(name) or name == "compat_select":
+            paths[name] += ("; mesh, 3 and 8 gloo ranks on the one card "
+                            "(phase 4d)")
         if pq_launches[name]:
             paths[name] += "; per-query engine (phase 6)"
     for name, path in paths.items():
@@ -3367,7 +3755,8 @@ def main() -> None:
         f"{r['name']} ok launches={r['launches']}" for r in rec.values())
         + f"; main path launches {main_counts}, pipeline launches "
         f"{pipe_counts}, faults, replication and adaptive launches "
-        f"{fault_counts}, expand path launches "
+        f"{fault_counts}, mesh launches a rank (WawPart, sorted) "
+        f"{mesh_counts}, expand path launches "
         f"{expand_counts}, per-query engine launches {pq_launches}, "
         f"clustering launches {cluster_counts}, xDeepFM "
         f"launches {xdeepfm_counts}, LM launches (prefill of "

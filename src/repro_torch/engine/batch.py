@@ -30,9 +30,17 @@ an ``expand`` of the matches across a gathered-shard dim, so every instance
 sees all S blocks. The primitives run on the "torch" backend (plain
 PyTorch) or the "cuda" backend (the hand-written kg_scan / kg_join
 kernels); results are bit-identical.
+
+On a mesh (`repro_torch.launch.mesh.EngineMesh`, one rank per shard) the
+same engine runs on every rank over the rank's own shard (a shard dim of
+1), and a cut step's gather is one real ``all_gather`` of the matches and
+their mask packed together, in the same shard-major order: the gathers
+per call are `bucket_collectives(sig)` (`make_sharded_batched_engine`,
+`run_sharded_batched`).
 """
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import NamedTuple
@@ -40,8 +48,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.engine.federated import (ShardedKG, check_gather_cap,
-                                          raise_on_overflow, resolve_device)
+from repro_torch.engine.federated import (AXIS, ShardedKG, check_gather_cap,
+                                          check_mesh, gather_matches,
+                                          gather_outputs, raise_on_overflow,
+                                          resolve_device)
 from repro_torch.engine.planner import PhysicalPlan, pad_plan
 from repro_torch.engine.primitives import (EQ_PAIRS, INT_MAX, KernelBlocks,
                                            check_backend, compact,
@@ -49,6 +59,7 @@ from repro_torch.engine.primitives import (EQ_PAIRS, INT_MAX, KernelBlocks,
                                            join_select, pair_mask, scan_hits,
                                            scan_select, select_cap, take,
                                            take_rows)
+from repro_torch.sharding.rules import kg_local
 
 _INT_MAX = int(INT_MAX)
 
@@ -437,11 +448,33 @@ def _join_merge(table, tmask, m_blocks, mm_blocks, pos0, kind, col,
 # bucket engine
 # ---------------------------------------------------------------------------
 
+def _gather_matches(m, mm, mesh, *, blocks: bool):
+    """A cut step's gather of every shard's owner-masked matches (…, S_i,
+    C, 3) / (…, S_i, C), shard-major: (…, S_i, S, C, …) blocks for the
+    merge join, or (…, S_i, S·C, …) for the other joins.
+
+    Without a mesh S_i = S and every instance sees one copy of all S
+    blocks (an expand, the all_gather under a shard-axis vmap). On a mesh
+    S_i = 1 and the ranks' blocks arrive by one counted all_gather
+    (`federated.gather_matches`)."""
+    if mesh is None:
+        B, S, C = mm.shape
+        m = m[:, None].expand(B, S, S, C, 3)
+        mm = mm[:, None].expand(B, S, S, C)
+    else:
+        m, mm = gather_matches(mesh, m, mm)
+    if blocks:
+        return m, mm
+    B, Si, S, C = mm.shape
+    return m.reshape(B, Si, S * C, 3), mm.reshape(B, Si, S * C)
+
+
 def make_batched_engine(sig: BucketSignature, *, join_impl: str = "expand",
                         max_per_row: int | None = None,
                         gather_cap: int | None = None,
                         backend: str = "cuda",
-                        kernel_blocks: KernelBlocks | None = None):
+                        kernel_blocks: KernelBlocks | None = None,
+                        mesh=None):
     """Build engine(triples, valid, perms, pdata, params) ->
     (table, mask, overflow) for one bucket signature. The engine is
     plan-agnostic: every member plan of any bucket with this signature runs
@@ -465,22 +498,33 @@ def make_batched_engine(sig: BucketSignature, *, join_impl: str = "expand",
     versions on CPU tensors), bit-identically. On "cuda" the
     merge path scans the permuted view directly, so one select launch of
     the scan both matches and compacts it.
+
+    mesh: an `EngineMesh` of ``sig.n_shards`` ranks. Every rank then calls
+    the engine with its own shard's blocks (triples (1, N, 3), valid
+    (1, N), perms (1, 3, N), from `sharding.rules.kg_local`) and the same
+    PlanData and params, and gets its own rows: (B, 1, R, V), (B, 1, R),
+    (B, 1). Its kernels run over B instances where the single-device
+    engine's run over B·S, so each rank launches them as often.
     """
     check_gather_cap(gather_cap)
     check_backend(backend, kernel_blocks)
     S, L, V, R = sig.n_shards, sig.n_steps, sig.n_vars, sig.table_cap
+    S_loc = S if mesh is None else 1
 
     def engine(triples, valid, perms, pd: PlanData, params):
         """A batch of requests interpreted against the sharded KG."""
         dev = triples.device
         B = params.shape[0]
         N = triples.shape[-2]
-        table = torch.full((B, S, R, V), -1, dtype=torch.int32, device=dev)
-        tmask = torch.zeros((B, S, R), dtype=torch.bool, device=dev)
+        table = torch.full((B, S_loc, R, V), -1, dtype=torch.int32,
+                           device=dev)
+        tmask = torch.zeros((B, S_loc, R), dtype=torch.bool, device=dev)
         tmask[..., 0] = True
-        overflow = torch.zeros((B, S), dtype=torch.bool, device=dev)
-        tr = triples.expand(B, S, N, 3)
-        shard = torch.arange(S, device=dev)
+        overflow = torch.zeros((B, S_loc), dtype=torch.bool, device=dev)
+        tr = triples.expand(B, S_loc, N, 3)
+        shard = torch.arange(S_loc, device=dev)
+        mine = slice(None) if mesh is None \
+            else slice(mesh.rank, mesh.rank + 1)
 
         for i in range(L):
             cap = sig.scan_caps[i]
@@ -491,15 +535,15 @@ def make_batched_engine(sig: BucketSignature, *, join_impl: str = "expand",
                 spo = torch.where(pidx >= 0, torch.gather(params, 1, at), spo)
             spo = spo[:, None]                                   # (B, 1, 3)
             eq = pd.eq[:, i, None] if sig.eq_bits[i] else None
-            va = valid.expand(B, S, N)
+            va = valid.expand(B, S_loc, N)
             gather = sig.gather_bits[i] and S > 1
             if gather:
                 # owner gate folded into the validity mask so the fused
                 # scan's hit-count already reflects it (== hit & owner)
-                va = va & pd.owner[:, i, :, None]
+                va = va & pd.owner[:, i, mine, None]
             merge = (i > 0 and join_impl == "sorted" and sig.sorted_bits[i])
             kind, col = pd.kind[:, i, None], pd.col[:, i, None]  # (B, 1, 3)
-            kind, col = kind.expand(B, S, 3), col.expand(B, S, 3)
+            kind, col = kind.expand(B, S_loc, 3), col.expand(B, S_loc, 3)
 
             if merge:   # matches per block, pos0-key-sorted by construction
                 pos0 = torch.argmax((pd.kind[:, i] == 1).to(torch.int32),
@@ -518,24 +562,21 @@ def make_batched_engine(sig: BucketSignature, *, join_impl: str = "expand",
                     m, mm, step_ovf = _materialize_view(tr, perm, hit, cap,
                                                         backend=backend)
                 if gather:                       # every instance sees all S
-                    m = m[:, None].expand(B, S, *m.shape[1:])
-                    mm = mm[:, None].expand(B, S, *mm.shape[1:])
+                    m, mm = _gather_matches(m, mm, mesh, blocks=True)
                 else:
                     m, mm = m[:, :, None], mm[:, :, None]
                 K = sig.fanout_caps[i] if max_per_row is None \
                     else min(max_per_row, sig.fanout_caps[i])
                 t2, m2, ovf_j = _join_merge(
-                    table, tmask, m, mm, pos0[:, None].expand(B, S), kind,
-                    col, sig.new_modes[i], max_per_row=K,
+                    table, tmask, m, mm, pos0[:, None].expand(B, S_loc),
+                    kind, col, sig.new_modes[i], max_per_row=K,
                     verify_mask=sig.verify_masks[i], backend=backend)
             else:
                 m, mm, step_ovf = _materialize(tr, va, spo, eq, cap,
                                                backend=backend)
                 if gather:
                     C = m.shape[-2]
-                    m = m[:, None].expand(B, S, S, C, 3).reshape(B, S, S * C,
-                                                                 3)
-                    mm = mm[:, None].expand(B, S, S, C).reshape(B, S, S * C)
+                    m, mm = _gather_matches(m, mm, mesh, blocks=False)
                     if gather_cap is not None and gather_cap < S * C:
                         m, mm, ovf_g = compact(m, mm, gather_cap,
                                                backend=backend)
@@ -561,6 +602,41 @@ def make_batched_engine(sig: BucketSignature, *, join_impl: str = "expand",
     return engine
 
 
+def make_sharded_batched_engine(sig: BucketSignature, mesh, *,
+                                join_impl: str = "expand",
+                                max_per_row: int | None = None,
+                                gather_cap: int | None = None,
+                                backend: str = "cuda",
+                                kernel_blocks: KernelBlocks | None = None):
+    """The mesh counterpart of the single-device bucket engine: the same
+    call, fn(triples, valid, perms, pdata, params) -> (table, mask,
+    overflow), with the same (B, S, …) result on every rank, but the shard
+    axis is the mesh's ranks. Each rank passes its own shard's blocks
+    (`sharding.rules.kg_local`), scans and joins run rank-locally, only
+    the steps whose owner metadata marks a partition cut gather across
+    the ranks (`bucket_collectives(sig)` counted gathers a call), and one
+    gather of the outputs restores the single-device layout.
+
+    ``fn.local`` is the engine without that last gather: each rank's own
+    (B, 1, …) rows (the mesh-routed server collects them on rank 0).
+    Raises ValueError when the mesh has no "shards" axis of exactly
+    ``sig.n_shards`` ranks.
+    """
+    check_mesh(mesh, sig.n_shards, AXIS)
+    local = make_batched_engine(sig, join_impl=join_impl,
+                                max_per_row=max_per_row,
+                                gather_cap=gather_cap, backend=backend,
+                                kernel_blocks=kernel_blocks, mesh=mesh)
+
+    def fn(triples, valid, perms, pd: PlanData, params):
+        """One rank's blocks in, every rank's rows out (B, S, …)."""
+        return gather_outputs(mesh, *local(triples, valid, perms, pd,
+                                           params))
+
+    fn.local = local
+    return fn
+
+
 class EngineCache:
     """Engine cache: one bucket engine per (signature, options).
 
@@ -569,7 +645,9 @@ class EngineCache:
     engine and a cuda engine for one signature never collide.
 
     `capacity` bounds the cache with LRU eviction (``None`` = unbounded);
-    `evictions` counts engines dropped.
+    `evictions` counts engines dropped. A mesh keys the cache too: the
+    single-device engine and a mesh's engine for one signature cache side
+    by side.
     """
 
     def __init__(self, capacity: int | None = None) -> None:
@@ -584,23 +662,33 @@ class EngineCache:
 
     def get(self, sig: BucketSignature, *, join_impl: str = "expand",
             max_per_row: int | None = None, gather_cap: int | None = None,
-            backend: str = "cuda",
+            mesh=None, backend: str = "cuda",
             kernel_blocks: KernelBlocks | None = None):
         """Return the engine for ``(sig, options)``, building on miss.
 
-        Raises ValueError on an unknown backend or a non-``KernelBlocks``
-        tiling (via ``check_backend``). A hit refreshes the entry's LRU
-        position when the cache is capped.
+        ``mesh=None`` returns the single-device engine; a mesh returns
+        `make_sharded_batched_engine`'s for that mesh. Raises ValueError
+        on an unknown backend or a non-``KernelBlocks`` tiling (via
+        ``check_backend``), or a mesh that does not fit the signature. A
+        hit refreshes the entry's LRU position when the cache is capped.
         """
         blocks = check_backend(backend, kernel_blocks)
-        key = (sig, join_impl, max_per_row, gather_cap, backend, blocks)
+        key = (sig, join_impl, max_per_row, gather_cap, mesh, backend,
+               blocks)
         fn = self._fns.get(key)
         if fn is None:
             self.misses += 1
-            fn = make_batched_engine(sig, join_impl=join_impl,
-                                     max_per_row=max_per_row,
-                                     gather_cap=gather_cap, backend=backend,
-                                     kernel_blocks=blocks)
+            if mesh is not None:
+                fn = make_sharded_batched_engine(
+                    sig, mesh, join_impl=join_impl, max_per_row=max_per_row,
+                    gather_cap=gather_cap, backend=backend,
+                    kernel_blocks=blocks)
+            else:
+                fn = make_batched_engine(sig, join_impl=join_impl,
+                                         max_per_row=max_per_row,
+                                         gather_cap=gather_cap,
+                                         backend=backend,
+                                         kernel_blocks=blocks)
             self._fns[key] = fn
             while self.capacity is not None \
                     and len(self._fns) > self.capacity:
@@ -676,12 +764,14 @@ def assemble_batch(bucket: PlanBucket,
 
 def stage_batch(bucket: PlanBucket,
                 requests: list[tuple[int, np.ndarray | None]], *,
-                device="cuda") -> tuple[PlanData, torch.Tensor]:
+                device="cuda", mesh=None) -> tuple[PlanData, torch.Tensor]:
     """Assemble a request batch and start its host-to-device transfer:
     on a CUDA device from pinned host memory with ``non_blocking=True``, so
-    the copies are in flight when the engine is called. Raises ValueError
-    (from ``assemble_batch``) on an empty or oversized batch."""
-    dev = resolve_device(device)
+    the copies are in flight when the engine is called. Under a ``mesh``
+    the batch goes to this rank's device (every rank runs the same batch).
+    Raises ValueError (from ``assemble_batch``) on an empty or oversized
+    batch."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     pd, params = assemble_batch(bucket, requests)
     if dev.type != "cuda":
         return PlanData(*(t.to(dev) for t in pd)), params.to(dev)
@@ -730,6 +820,68 @@ def fetch_outputs(out) -> OutputFetch:
     event = torch.cuda.Event()
     event.record()
     return OutputFetch(host, event, out)
+
+
+def engine_cost(sig: BucketSignature, n_rows: int, *, batch: int = 1,
+                join_impl: str = "expand", gather_cap: int | None = None,
+                mesh=None) -> dict[str, float]:
+    """Integer operations and bytes of one bucket engine call, counted
+    from the signature and the shapes: ``batch`` requests over
+    ``sig.n_shards`` shard blocks of ``n_rows`` rows (the port's
+    counterpart of XLA's cost analysis, which it has no access to).
+
+    Each (request, shard) instance, per step, with C = min(scan cap, N),
+    R the table cap and V its width:
+
+    * the scan: reads the block (13 N bytes a shard, once for every
+      request) and the pattern (12 bytes), writes C selected rows (5 C +
+      4 bytes: index and mask, and the total) or, where C = N, the hit
+      mask (N bytes); 3 compares a row, 3 more where the step has an
+      equality gate;
+    * a cut step (``gather_bits``, S > 1) joins against the S blocks' C
+      rows, compacted to gather_cap when that is smaller;
+    * a merge join (``join_impl="sorted"`` and ``sorted_bits``, past the
+      first step) reads the S_b key blocks (4 bytes a key) and R row keys
+      and the row mask (5 R), writes lo and the counts (8 bytes a row and
+      block) and R pairs (5 R + 4); 2 ceil(log2(C + 1)) compares a row and
+      block;
+    * another join reads the table (4 R V + R) and the C' candidate
+      matches (13 C'), writes the kept rows (R) and R pairs (5 R + 4);
+      one compare a (row, candidate) pair; the first step compacts the
+      candidates alone (C' bytes read, 5 R + 4 written, C' operations).
+
+    On a mesh, the bytes that the cut gathers deliver (every rank
+    receives the S blocks of C rows, 16 bytes a row) are added. The counts
+    do not depend on the device.
+    """
+    S, R, V = sig.n_shards, sig.table_cap, sig.n_vars
+    inst = batch * S
+    ops = 0.0
+    nbytes = float(inst * (4 * R * V + R + 1))          # the outputs
+    for i in range(sig.n_steps):
+        C = min(sig.scan_caps[i], n_rows)
+        eq = sig.eq_bits[i]
+        nbytes += S * 13 * n_rows + inst * (12 + (3 if eq else 0))
+        nbytes += inst * (n_rows if C >= n_rows else 5 * C + 4)
+        ops += inst * n_rows * (6 if eq else 3)
+        gather = sig.gather_bits[i] and S > 1
+        if gather and mesh is not None:
+            nbytes += S * batch * S * C * 16
+        if i > 0 and join_impl == "sorted" and sig.sorted_bits[i]:
+            sb = S if gather else 1
+            nbytes += inst * (sb * C * 4 + 5 * R + sb * R * 8 + 5 * R + 4)
+            ops += inst * sb * R * 2 * math.ceil(math.log2(C + 1))
+            continue
+        cand = S * C if gather else C
+        if gather and gather_cap is not None:
+            cand = min(cand, gather_cap)
+        if i == 0:
+            nbytes += inst * (cand + 5 * R + 4)
+            ops += inst * cand
+        else:
+            nbytes += inst * (4 * R * V + R + 13 * cand + R + 5 * R + 4)
+            ops += inst * R * cand
+    return {"flops": ops, "bytes": nbytes}
 
 
 def extract_batch(bucket: PlanBucket,
@@ -800,7 +952,8 @@ def run_batched(bucket: PlanBucket, kg: ShardedKG,
                 gather_cap: int | None = None, cache: EngineCache | None = None,
                 perms: np.ndarray | None = None, dedup: bool = False,
                 strict: bool = False, backend: str = "cuda",
-                kernel_blocks: KernelBlocks | None = None, device="cuda"):
+                kernel_blocks: KernelBlocks | None = None, device="cuda",
+                mesh=None):
     """Execute a batch of requests against one bucket on ``device``.
 
     requests defaults to one zero-params request per member plan. perms
@@ -810,19 +963,26 @@ def run_batched(bucket: PlanBucket, kg: ShardedKG,
     CapacityOverflowError on any request's overflow flag. backend selects
     the primitives ("torch" | "cuda" — bit-identical results). Returns the
     list of per-request (solutions, count, overflow).
+
+    mesh: run on an `EngineMesh` instead, one rank per shard (SPMD: every
+    rank calls with the same arguments, runs its own shard on
+    ``mesh.device`` and returns the same list; ``device`` is not read).
     """
     check_gather_cap(gather_cap)
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if requests is None:
         requests = [(i, None) for i in range(len(bucket.plans))]
     exec_reqs, inverse = dedup_requests(requests, bucket.n_params) if dedup \
         else (requests, None)
     cache = cache if cache is not None else EngineCache()
     fn = cache.get(bucket.signature, join_impl=join_impl,
-                   max_per_row=max_per_row, gather_cap=gather_cap,
+                   max_per_row=max_per_row, gather_cap=gather_cap, mesh=mesh,
                    backend=backend, kernel_blocks=kernel_blocks)
     pd, params = stage_batch(bucket, exec_reqs, device=dev)
-    tr, va, pe = kg_tensors(kg, perms, dev)
+    if mesh is None:
+        tr, va, pe = kg_tensors(kg, perms, dev)
+    else:
+        tr, va, pe = kg_local(kg, mesh, perms)
     table, tmask, overflow = (t.cpu().numpy()
                               for t in fn(tr, va, pe, pd, params))
     if inverse is None:
@@ -831,6 +991,16 @@ def run_batched(bucket: PlanBucket, kg: ShardedKG,
         out = extract_fanout(bucket, exec_reqs, inverse, table, tmask,
                              overflow)
     if strict:
+        path = "batched" if mesh is None else "sharded"
         for (_, _, ovf), (idx, _) in zip(out, requests):
-            raise_on_overflow(ovf, bucket.plans[idx].query.name, "batched")
+            raise_on_overflow(ovf, bucket.plans[idx].query.name, path)
     return out
+
+
+def run_sharded_batched(bucket: PlanBucket, kg: ShardedKG, mesh,
+                        requests: list[tuple[int, np.ndarray | None]] | None
+                        = None, **kw):
+    """A bucket batch on a mesh, one rank per shard: `run_batched` with
+    ``mesh`` (SPMD; every rank gets the same results), the named entry
+    point as `federated.run_sharded` is for single plans."""
+    return run_batched(bucket, kg, requests, mesh=mesh, **kw)

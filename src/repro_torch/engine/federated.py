@@ -13,6 +13,11 @@ shards as an explicit leading dim (and any batch of parameter vectors as
 a further one before it), so a cut step's gather is the owner-masked
 matches of every shard laid out shard-major and broadcast to every shard
 row — the result of an ``all_gather`` under a shard-axis vmap.
+
+On a mesh (`repro_torch.launch.mesh.EngineMesh`, one rank per shard) the
+same engine holds the rank's own shard (a shard dim of 1) and a cut
+step's gather is a real ``all_gather`` across the ranks, in the same
+shard-major order; `run_sharded` runs it SPMD on every rank.
 """
 from __future__ import annotations
 
@@ -61,6 +66,61 @@ def check_gather_cap(gather_cap) -> None:
             gather_cap, (int, np.integer)) or gather_cap < 1:
         raise ValueError(
             f"gather_cap must be a positive int or None, got {gather_cap!r}")
+
+
+def check_mesh(mesh, n_shards: int, axis_name: str) -> None:
+    """A mesh engine's shard axis must be a mesh axis of exactly the
+    plan's shard count: each rank holds one shard block (the engines read
+    their rank's block), so a smaller axis would silently drop shards and
+    a missing axis names no rank per shard."""
+    if axis_name not in mesh.axis_names:
+        raise ValueError(f"mesh has axes {mesh.axis_names}, engine shard "
+                         f"axis {axis_name!r} is not one of them")
+    if mesh.shape[axis_name] != n_shards:
+        raise ValueError(
+            f"mesh axis {axis_name!r} has {mesh.shape[axis_name]} ranks "
+            f"but the plan has {n_shards} shards; mesh execution needs "
+            "exactly one device per shard (one rank each)")
+
+
+def pack_outputs(table, tmask, overflow) -> torch.Tensor:
+    """An engine's (table (…, R, V), tmask (…, R), overflow (…,)) as one
+    int32 tensor (…, R·V + R + 1), so that one collective moves all
+    three."""
+    lead = table.shape[:-2]
+    return torch.cat([table.reshape(*lead, -1),
+                      tmask.to(torch.int32).reshape(*lead, -1),
+                      overflow.to(torch.int32).reshape(*lead, 1)], dim=-1)
+
+
+def unpack_outputs(packed: torch.Tensor, r: int, v: int):
+    """The inverse of `pack_outputs` for a table of ``r`` rows by ``v``
+    columns."""
+    lead = packed.shape[:-1]
+    return (packed[..., :r * v].reshape(*lead, r, v),
+            packed[..., r * v:r * v + r].bool(),
+            packed[..., -1].bool())
+
+
+def gather_matches(mesh, m, mm):
+    """A cut step's gather on a mesh: every rank's matches (…, C, 3) and
+    mask (…, C), stacked in rank order as (…, S, C, 3) / (…, S, C) on every
+    rank. The two go packed in one int32 tensor (the mask as a fourth
+    column), so a cut step is one counted all_gather."""
+    packed = torch.cat([m, mm[..., None].to(torch.int32)], dim=-1)
+    g = torch.stack(mesh.cut_gather(packed), dim=-3)
+    return g[..., :3].contiguous(), g[..., 3].bool()
+
+
+def gather_outputs(mesh, table, tmask, overflow):
+    """Every rank's (…, 1, R, V) / (…, 1, R) / (…, 1) outputs laid out
+    shard-major as (…, S, R, V) / (…, S, R) / (…, S) on every rank, the
+    single-device layout: one all_gather of the three packed."""
+    if mesh.size == 1:
+        return table, tmask, overflow
+    r, v = table.shape[-2:]
+    parts = mesh.all_gather(pack_outputs(table, tmask, overflow))
+    return unpack_outputs(torch.cat(parts, dim=-2), r, v)
 
 
 def raise_on_overflow(overflow, query_name: str, path: str) -> None:
@@ -130,7 +190,7 @@ class ShardedKG:
 
 def make_engine(plan: PhysicalPlan, *, join_impl: str = "expand",
                 max_per_row: int = 64, gather_cap: int | None = None,
-                backend: str = "cuda", kernel_blocks=None):
+                backend: str = "cuda", kernel_blocks=None, mesh=None):
     """Build engine(triples, valid, params) -> (table, mask, overflow).
 
     triples (S, N, 3) int32 and valid (S, N) bool are the shard blocks;
@@ -146,9 +206,16 @@ def make_engine(plan: PhysicalPlan, *, join_impl: str = "expand",
     kg_join kernels (plain versions on CPU tensors), bit-identical.
     kernel_blocks is validated as in the JAX package (the kernels fix
     their own tiles).
+
+    mesh: an `EngineMesh` of ``plan.n_shards`` ranks. Each rank then
+    passes its own shard block (triples (1, N, 3), valid (1, N)) and gets
+    its own rows (…, 1, R, V) / (…, 1, R) / (…, 1); a cut step gathers
+    every rank's owner-masked matches with one counted ``all_gather``, in
+    the single-device engine's shard-major order.
     """
     check_backend(backend, kernel_blocks)
     S = plan.n_shards
+    S_loc = S if mesh is None else 1
     R, V = plan.table_cap, max(1, plan.n_vars)
     steps = [step for step in plan.steps if not step.is_noop]
 
@@ -156,11 +223,11 @@ def make_engine(plan: PhysicalPlan, *, join_impl: str = "expand",
                params: torch.Tensor):
         dev = triples.device
         lead = tuple(params.shape[:-1])
-        table = torch.full((*lead, S, R, V), -1, dtype=torch.int32,
+        table = torch.full((*lead, S_loc, R, V), -1, dtype=torch.int32,
                            device=dev)
-        tmask = torch.zeros((*lead, S, R), dtype=torch.bool, device=dev)
+        tmask = torch.zeros((*lead, S_loc, R), dtype=torch.bool, device=dev)
         tmask[..., 0] = True
-        overflow = torch.zeros((*lead, S), dtype=torch.bool, device=dev)
+        overflow = torch.zeros((*lead, S_loc), dtype=torch.bool, device=dev)
 
         for step in steps:
             spo = [torch.tensor(v, dtype=torch.int32, device=dev)
@@ -181,14 +248,19 @@ def make_engine(plan: PhysicalPlan, *, join_impl: str = "expand",
                                      device=dev)
                 C = S * step.scan_cap
                 mlead = m.shape[:-3]
-                m = m.reshape(*mlead, 1, C, 3)
-                mm = (mm & owner[:, None]).reshape(*mlead, 1, C)
+                if mesh is None:
+                    m = m.reshape(*mlead, 1, C, 3)
+                    mm = (mm & owner[:, None]).reshape(*mlead, 1, C)
+                else:   # every rank's block, in rank order
+                    m, mm = gather_matches(mesh, m, mm & owner[mesh.rank])
+                    m = m.reshape(*mlead, 1, C, 3)
+                    mm = mm.reshape(*mlead, 1, C)
                 if gather_cap is not None and gather_cap < C:
                     m, mm, ovf2 = compact(m, mm, gather_cap,
                                           backend=backend)
                     overflow = overflow | ovf2
-                m = m.expand(*mlead, S, *m.shape[-2:])
-                mm = mm.expand(*mlead, S, mm.shape[-1])
+                m = m.expand(*mlead, S_loc, *m.shape[-2:])
+                mm = mm.expand(*mlead, S_loc, mm.shape[-1])
 
             if join_impl == "sorted":
                 table, tmask, ovf3 = join_step_sorted(
@@ -224,6 +296,42 @@ def run_vmapped(plan: PhysicalPlan, kg: ShardedKG,
     res = _extract(plan, *engine(triples, valid, torch.from_numpy(p).to(dev)))
     if strict:
         raise_on_overflow(res[2], plan.query.name, "vmapped")
+    return res
+
+
+def run_sharded(plan: PhysicalPlan, kg: ShardedKG, mesh,
+                params: np.ndarray | None = None, *,
+                join_impl: str = "expand", max_per_row: int = 64,
+                gather_cap: int | None = None, axis: str | None = None,
+                strict: bool = False, backend: str = "cuda",
+                kernel_blocks=None):
+    """Run one query plan on a mesh, one rank per shard (the counterpart
+    of the JAX package's ``shard_map`` run).
+
+    SPMD: every rank calls it with the same arguments. Each rank runs the
+    engine over its own block of ``kg`` on ``mesh.device``, cut steps
+    gather across the ranks, and one gather of the outputs brings the
+    PPN's row to every rank, so every rank returns the same (solutions,
+    count, overflow). strict=True raises CapacityOverflowError (the
+    message names the sharded path) instead of returning a truncated
+    result. Raises ValueError on an invalid gather_cap (before the mesh
+    is read) and on a mesh without one rank per shard.
+    """
+    from repro_torch.sharding.rules import kg_local
+
+    check_gather_cap(gather_cap)
+    axis = axis or AXIS
+    check_mesh(mesh, plan.n_shards, axis)
+    engine = make_engine(plan, join_impl=join_impl, max_per_row=max_per_row,
+                         gather_cap=gather_cap, backend=backend,
+                         kernel_blocks=kernel_blocks, mesh=mesh)
+    p = np.zeros((max(1, plan.n_params),), np.int32) if params is None \
+        else np.asarray(params, np.int32)
+    triples, valid, _ = kg_local(kg, mesh)
+    out = engine(triples, valid, torch.from_numpy(p).to(mesh.device))
+    res = _extract(plan, *gather_outputs(mesh, *out))
+    if strict:
+        raise_on_overflow(res[2], plan.query.name, "sharded")
     return res
 
 

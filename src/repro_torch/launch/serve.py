@@ -22,6 +22,11 @@ oldest queued request's deadline budget (--deadline-ms) expires, batches
 retire when their outputs' CUDA event fires, and the run reports
 p50/p95/p99 latency plus flush-reason counters.
 
+--sharded serves through a mesh of --n-shards processes, one a shard
+(torch.distributed, --dist-backend gloo by default; several gloo ranks
+share one card): rank 0 runs the server, the others its engines' shards,
+and a cut step gathers across the ranks.
+
 --chaos SPEC arms seeded fault injection (failed dispatches, flush delays,
 a shard-down window, migration aborts; see repro_torch.faults.FaultPlan)
 with retries on unless --no-retry. --replicate copies the hottest safe cut
@@ -52,14 +57,15 @@ from repro_torch.adaptive.stats import WorkloadTracker, plan_shards
 from repro_torch.core.features import pattern_feature
 from repro_torch.core.partitioner import (Partitioning, centralized_partition,
                                           random_partition, wawpart_partition)
-from repro_torch.engine.batch import (EngineCache, OutputFetch,
+from repro_torch.engine.batch import (EngineCache, OutputFetch, PlanData,
                                       bucket_collectives, bucket_plans,
                                       canonical_params, dedup_requests,
-                                      extract_batch, extract_fanout,
-                                      fetch_outputs, kg_tensors,
-                                      pad_requests_pow2, resolve_device,
-                                      stage_batch)
-from repro_torch.engine.federated import ShardedKG
+                                      engine_cost, extract_batch,
+                                      extract_fanout, fetch_outputs,
+                                      kg_tensors, pad_requests_pow2,
+                                      resolve_device, stage_batch)
+from repro_torch.engine.federated import (AXIS, ShardedKG, check_mesh,
+                                          pack_outputs, unpack_outputs)
 from repro_torch.engine.planner import make_plan
 from repro_torch.engine.primitives import check_backend
 from repro_torch.faults import (DeadlineExceededError, FaultInjector,
@@ -69,7 +75,9 @@ from repro_torch.faults import (DeadlineExceededError, FaultInjector,
                                 degraded_placement, uncovered_templates)
 from repro_torch.kg.generator import generate_bsbm, generate_lubm
 from repro_torch.kg.workloads import bsbm_queries, lubm_queries
+from repro_torch.launch.mesh import EngineMesh, check_dist_backend, spawn
 from repro_torch.obs import DEFAULT_CLOCK, Telemetry
+from repro_torch.sharding.rules import kg_local
 
 
 class Counter(str, enum.Enum):
@@ -200,6 +208,7 @@ class _ServingState(NamedTuple):
     va: torch.Tensor
     perms: torch.Tensor
     shed: frozenset = frozenset()     # templates shed while degraded
+    key: int = 0                      # the blocks' key on the mesh's ranks
 
 
 class WorkloadServer:
@@ -253,6 +262,19 @@ class WorkloadServer:
     `replicate_hot()` copies hot cut features onto their queries' primary
     shards; `mark_shard_down()` / `mark_shard_up()` serve around a down
     shard from its units' replicas. Each bumps the epoch.
+
+    mesh (an `EngineMesh` of the partitioning's shard count, this process
+    its rank 0) routes every bucket through the mesh, one rank per shard:
+    rank 0 owns the server (queues, tickets, clock, faults, telemetry)
+    and holds shard 0; every other rank runs `serve_worker(mesh)`. A
+    dispatch sends the epoch's shard blocks once per state, then the
+    bucket's signature and options and the staged batch, runs shard 0,
+    and gathers every rank's rows on rank 0, where they go to the host as
+    on one device. Cut steps gather across the ranks
+    (`collective_counts`; the mesh counts them). `close()` (or
+    `shutdown()`) stops the other ranks. A failure once a dispatch is out
+    breaks the mesh (`EngineMesh.broken`): later dispatches raise.
+    ``device`` is then the mesh's.
     """
 
     ANSWER_CACHE_CAP = 65536
@@ -267,14 +289,29 @@ class WorkloadServer:
                  pipeline: PipelineConfig | None = None,
                  telemetry: Telemetry | None = None, device="cuda",
                  faults: FaultPlan | FaultInjector | None = None,
-                 retry: RetryPolicy | None = None, adaptive=None):
+                 retry: RetryPolicy | None = None, adaptive=None,
+                 mesh=None):
         """Build the serving state for ``part`` on ``device``; engines are
         built lazily on the first dispatch that touches each bucket.
 
         Raises ValueError on an unknown backend or invalid kernel_blocks,
+        on a mesh without one rank per shard or of which this process is
+        not rank 0, TypeError on a mesh that is not an `EngineMesh`, and
         RuntimeError when ``device`` is CUDA and no card is available.
         """
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            if not isinstance(mesh, EngineMesh):
+                raise TypeError(f"mesh must be a repro_torch EngineMesh "
+                                f"(launch.mesh), got {type(mesh).__name__}")
+            if mesh.rank != 0:
+                raise ValueError(f"the server runs on rank 0 of its mesh, "
+                                 f"not rank {mesh.rank}; the other ranks "
+                                 "run serve_worker(mesh)")
+            self.device = mesh.device
+        self._sent: set[int] = set()           # state keys the ranks hold
         self.queries = list(queries)
         self.join_impl = join_impl
         self.max_per_row = max_per_row
@@ -336,9 +373,15 @@ class WorkloadServer:
         for bi, b in enumerate(buckets):
             for pi, plan in enumerate(b.plans):
                 route[plan.query.name] = (bi, pi)
-        tr, va, pe = kg_tensors(kg, None, self.device)
+        if self.mesh is None:
+            tr, va, pe = kg_tensors(kg, None, self.device)
+            key = 0
+        else:
+            check_mesh(self.mesh, part.n_shards, AXIS)
+            tr, va, pe = kg_local(kg, self.mesh)
+            key = self.mesh.new_key()
         return _ServingState(epoch, part, kg, plans, buckets, route,
-                             tr, va, pe, shed)
+                             tr, va, pe, shed, key)
 
     @property
     def part(self) -> Partitioning:
@@ -443,6 +486,33 @@ class WorkloadServer:
             tele.gauge("shard_requests", snap.shard_load.get(s, 0),
                        shard=str(s))
         tele.gauge("shard_load_imbalance", snap.imbalance(n_shards))
+
+    def record_engine_costs(self) -> dict[str, list[float]]:
+        """Publish each bucket engine's integer operations and bytes.
+
+        Counts one call at the padded batch of one request
+        (`engine.batch.engine_cost`, from the signature and the block
+        shapes: the bytes each step's kernels read and write and their
+        compares; on a mesh the bytes the cut gathers deliver too), sets
+        the `engine_flops` / `engine_bytes` gauges and returns {"flops":
+        [...], "bytes": [...]} in bucket order. The counts do not depend
+        on the device: a relative weight across buckets, not a time.
+        """
+        st = self._state
+        batch = len(pad_requests_pow2([(0, None)]))
+        flops: list[float] = []
+        nbytes: list[float] = []
+        for bi, bucket in enumerate(st.buckets):
+            cost = engine_cost(bucket.signature, st.kg.cap, batch=batch,
+                               join_impl=self.join_impl,
+                               gather_cap=self.gather_cap, mesh=self.mesh)
+            self.telemetry.gauge("engine_flops", cost["flops"],
+                                 bucket=str(bi))
+            self.telemetry.gauge("engine_bytes", cost["bytes"],
+                                 bucket=str(bi))
+            flops.append(cost["flops"])
+            nbytes.append(cost["bytes"])
+        return {"flops": flops, "bytes": nbytes}
 
     # ---- migration -----------------------------------------------------
 
@@ -960,8 +1030,16 @@ class WorkloadServer:
         self.telemetry.gauge("inflight", 0)
         self._refresh_shard_load()
         self.telemetry.check_invariants()
+        self.close()
         drained = int(self.telemetry.total("served")) - before - shed_n
         return {"drained": drained, "shed": shed_n}
+
+    def close(self) -> None:
+        """Stop the mesh's other ranks: their `serve_worker` loops return.
+        A no-op without a mesh or once they were stopped; a dispatch after
+        it raises RuntimeError."""
+        if self.mesh is not None:
+            stop_workers(self.mesh)
 
     def queue_depth(self) -> int:
         """Requests enqueued but not yet flushed into a dispatch."""
@@ -1094,6 +1172,8 @@ class WorkloadServer:
             unique, inverse = reqs, None
         tele.observe("dedup_fanout", len(take) / len(unique), bucket=b_lab)
         fn = self._engine(bucket)
+        if self.mesh is not None:
+            fn = self._mesh_dispatch(fn.local, bucket, st)
         t_stage = tr.clock() if tr.enabled else now
         if self.faults is None and self.retry is None:
             pd, params = stage_batch(bucket, pad_requests_pow2(unique),
@@ -1329,16 +1409,66 @@ class WorkloadServer:
         Publishes the EngineCache's LRU eviction delta (the cache may be
         shared across servers, so each server counts only what it saw
         grow)."""
-        fn = self.cache.get(bucket.signature, join_impl=self.join_impl,
-                            max_per_row=self.max_per_row,
-                            gather_cap=self.gather_cap,
-                            backend=self.backend,
-                            kernel_blocks=self.kernel_blocks)
+        fn = self.cache.get(bucket.signature, mesh=self.mesh,
+                            **self._engine_options())
         ev = self.cache.evictions
         if ev > self._evictions_seen:
             self.telemetry.count("engine_cache_evictions",
                                  ev - self._evictions_seen)
             self._evictions_seen = ev
+        return fn
+
+    def _engine_options(self) -> dict:
+        """The engine options a dispatch sends to the mesh's ranks."""
+        return {"join_impl": self.join_impl, "max_per_row": self.max_per_row,
+                "gather_cap": self.gather_cap, "backend": self.backend,
+                "kernel_blocks": self.kernel_blocks}
+
+    def _send_state(self, st: _ServingState) -> None:
+        """Send ``st``'s shard blocks to the other ranks, once per state.
+        The ranks drop the states this server no longer needs (neither
+        the current one nor the healthy one kept while degraded)."""
+        if st.key in self._sent:
+            return
+        keep = {self._state.key, st.key}
+        if self._pre_degraded is not None:
+            keep.add(self._pre_degraded.key)
+        drop = sorted(self._sent - keep)
+        self.mesh.broadcast_object(("state", st.key, st.kg.triples,
+                                    st.kg.valid, drop))
+        self._sent = (self._sent - set(drop)) | {st.key}
+
+    def _mesh_dispatch(self, local, bucket, st: _ServingState):
+        """The dispatch seam on a mesh: fn(tr, va, perms, pd, params) sends
+        ``st``'s blocks (once), then the dispatch with the staged batch, to
+        the other ranks before rank 0 launches its own shard, and gathers
+        every rank's rows on rank 0 as (B, S, R, V) / (B, S, R) / (B, S).
+
+        A failure once the dispatch is out (a collective, or rank 0's own
+        shard) leaves the ranks out of step: the others may wait in a
+        gather rank 0 will not join. The mesh is then marked broken and
+        every later dispatch raises at once; the other ranks fail at
+        their next collective with rank 0 or at the group's timeout."""
+        mesh, sig = self.mesh, bucket.signature
+
+        def fn(tr, va, pe, pd, params):
+            if mesh.closed or mesh.broken:
+                why = mesh.broken or "its ranks were stopped"
+                raise RuntimeError(f"the mesh serves no more: {why}")
+            try:
+                self._send_state(st)
+                mesh.broadcast_object(("dispatch", st.key, sig,
+                                       self._engine_options(),
+                                       PlanData(*(t.cpu() for t in pd)),
+                                       params.cpu()))
+                parts = mesh.gather(pack_outputs(*local(tr, va, pe, pd,
+                                                        params)))
+            except BaseException as exc:
+                mesh.broken = f"out of step since {type(exc).__name__}: {exc}"
+                raise
+            return unpack_outputs(torch.cat(parts, dim=-2), sig.table_cap,
+                                  sig.n_vars)
+
         return fn
 
     @contextmanager
@@ -1371,6 +1501,65 @@ class WorkloadServer:
         self.telemetry.reset_counters()
         self.telemetry.trace.clear()
         self._latencies.clear()
+
+
+def stop_workers(mesh) -> None:
+    """Send "stop" to the other ranks of ``mesh`` once (their
+    `serve_worker` loops return) and mark the mesh closed. A broken mesh
+    sends nothing: its ranks are out of step and fail on their own."""
+    if not mesh.closed and not mesh.broken and mesh.size > 1:
+        mesh.broadcast_object(("stop",))
+    mesh.closed = True
+
+
+def serve_worker(mesh) -> dict:
+    """The loop of every rank but 0 under a mesh-routed `WorkloadServer`.
+
+    Waits on rank 0's broadcast commands until "stop":
+
+    * ("state", key, triples, valid, drop): an epoch's shard blocks; the
+      rank keeps its own (`sharding.rules.kg_local`) under ``key`` and
+      drops the states in ``drop``;
+    * ("dispatch", key, signature, options, PlanData, params): the rank
+      runs its shard of the bucket's engine on the state ``key`` and the
+      staged batch, and sends its rows to rank 0 (one gather);
+    * ("stop",): return.
+
+    Returns {"states": n, "dispatches": n, "collectives": [cut gathers of
+    each dispatch], "gathered_bytes": n}. Any error propagates: the
+    rank's process fails, and rank 0's next collective with it fails.
+    """
+    if mesh.rank == 0:
+        raise ValueError("rank 0 runs the server; serve_worker runs on "
+                         "the other ranks")
+    states: dict[int, tuple] = {}
+    cache = EngineCache()
+    out = {"states": 0, "dispatches": 0, "collectives": [],
+           "gathered_bytes": 0}
+    while True:
+        cmd = mesh.broadcast_object()
+        if cmd[0] == "stop":
+            return out
+        if cmd[0] == "state":
+            _, key, triples, valid, drop = cmd
+            for k in drop:
+                states.pop(k, None)
+            states[key] = kg_local(ShardedKG.from_arrays(triples, valid),
+                                   mesh)
+            out["states"] += 1
+        elif cmd[0] == "dispatch":
+            _, key, sig, opts, pd, params = cmd
+            pd = PlanData(*(t.to(mesh.device) for t in pd))
+            params = params.to(mesh.device)
+            local = cache.get(sig, mesh=mesh, **opts).local
+            c0, b0 = mesh.collectives, mesh.gathered_bytes
+            rows = pack_outputs(*local(*states[key], pd, params))
+            mesh.gather(rows)
+            out["dispatches"] += 1
+            out["collectives"].append(mesh.collectives - c0)
+            out["gathered_bytes"] += mesh.gathered_bytes - b0
+        else:
+            raise ValueError(f"unknown mesh command {cmd[0]!r}")
 
 
 def build_dataset(dataset: str, scale: float, seed: int = 0):
@@ -1649,13 +1838,52 @@ def main(argv: list[str] | None = None) -> None:
                     help="no RetryPolicy under --chaos: a failed dispatch "
                          "resolves its tickets with typed errors on the "
                          "first attempt")
+    ap.add_argument("--sharded", action="store_true",
+                    help="serve through a mesh of --n-shards processes, one "
+                         "a shard (torch.distributed): rank 0 runs the "
+                         "server, cut steps gather across the ranks")
+    ap.add_argument("--dist-backend", choices=("gloo", "nccl"),
+                    default="gloo",
+                    help="process-group backend under --sharded (gloo runs "
+                         "several ranks on one card; nccl needs a card a "
+                         "rank)")
+    ap.add_argument("--dist-timeout", type=float, default=300.0,
+                    help="seconds every collective of --sharded may wait "
+                         "for a rank before it fails")
     args = ap.parse_args(argv)
     if args.batch < 1:
         ap.error("--batch must be >= 1")
     device = resolve_device(args.device)
+    if args.memory_peak and device.type != "cuda":
+        ap.error("--memory-peak needs a CUDA device")
+    if not args.sharded:
+        _serve(args, device, None)
+        return
+    n_ranks = 1 if args.method == "centralized" else args.n_shards
+    try:
+        check_dist_backend(args.dist_backend, n_ranks)
+    except ValueError as exc:
+        ap.error(str(exc))
+    spawn(n_ranks, _serve_rank, args, backend=args.dist_backend,
+          device=device, timeout=args.dist_timeout,
+          join_timeout=float("inf"))
+
+
+def _serve_rank(mesh, args) -> None:
+    """One rank of the --sharded CLI: rank 0 serves, the others work."""
+    if mesh.rank != 0:
+        serve_worker(mesh)
+        return
+    try:
+        _serve(args, mesh.device, mesh)
+    finally:
+        stop_workers(mesh)
+
+
+def _serve(args, device: torch.device, mesh) -> None:
+    """The CLI's run on ``device`` (or on rank 0 of ``mesh``): partition,
+    warm up, serve the stream and report."""
     if args.memory_peak:
-        if device.type != "cuda":
-            ap.error("--memory-peak needs a CUDA device")
         torch.cuda.memory._record_memory_history(stacks="python")
 
     store, queries = build_dataset(args.dataset, args.scale)
@@ -1693,11 +1921,14 @@ def main(argv: list[str] | None = None) -> None:
                             answer_cache=not args.no_cache,
                             pipeline=pipeline_cfg, telemetry=telemetry,
                             device=device, faults=fault_plan, retry=retry,
-                            adaptive=adaptive)
+                            adaptive=adaptive, mesh=mesh)
     print(f"{args.dataset}: {len(store):,} triples -> {part.n_shards} shards "
           f"{part.shard_sizes.tolist()} ({t_part:.1f}s partitioning), "
           f"{len(queries)} template queries in {server.n_buckets} buckets, "
           f"backend={args.backend}, device={device}"
+          + (f", torch.distributed mesh {mesh.shape} ({mesh.backend}, "
+             f"{mesh.size} ranks, rank 0 on {mesh.device})"
+             if mesh is not None else "")
           + (", adaptive" if args.adaptive else ""))
     print(f"  per-bucket collective counts (WawPart cuts): "
           f"{server.collective_counts()}")
@@ -1724,8 +1955,14 @@ def main(argv: list[str] | None = None) -> None:
                   f"{rep['cap_grew']}")
             for i in range(0, len(stream), args.batch):
                 server.warmup(stream[i:i + args.batch])
+        if args.metrics_out:
+            # the per-bucket operation and byte counts ride along in the
+            # metrics snapshot
+            server.record_engine_costs()
         _sync(device)
         server.reset_stats()
+        if mesh is not None:
+            mesh.reset_counts()
         ops = kernel_ops()
         for op in ops.values():
             op.launches = 0
@@ -1759,7 +1996,11 @@ def main(argv: list[str] | None = None) -> None:
                   f"{np.median(per_call) * 1e3:.3f} ms of {len(per_call)} "
                   f"{[round(t * 1e3, 3) for t in per_call]}")
         print(f"  kernel launches "
-              f"{({k: op.launches for k, op in ops.items()})}")
+              f"{({k: op.launches for k, op in ops.items()})}"
+              + ("" if mesh is None else " on rank 0"))
+        if mesh is not None:
+            print(f"  mesh cut gathers on rank 0: {mesh.collectives} "
+                  f"({mesh.gathered_bytes:,} bytes gathered)")
         if device.type == "cuda":
             print(f"  peak device memory "
                   f"{torch.cuda.max_memory_allocated(device):,} bytes "

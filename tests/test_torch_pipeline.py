@@ -361,9 +361,12 @@ def test_serve_is_submit_plus_drain(world):
 
 @pytest.mark.parametrize("kw", ["mesh"])
 def test_unported_layers_are_refused(world, kw):
+    """The mesh is ported (tests/test_torch_serve_sharded.py); what the
+    server refuses is a mesh that is not the port's own EngineMesh, such
+    as the JAX package's."""
     _, sides, _ = world
     s = sides["torch"]
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match="EngineMesh"):
         serve.WorkloadServer(s.qs, s.part, device="cpu", **{kw: object()})
 
 
