@@ -205,7 +205,28 @@ order; any failure exits non-zero:
    call) and a profiled breakdown;
    Equiformer-v2's energies unchanged within 1e-4 relative under a random
    rotation and translation;
-11. summary — every kernel's launches on its path.
+11. training — through the port's runtime (runtime/trainer.Trainer, AdamW,
+   the cosine schedule, checkpoints, the prefetcher): gather_rows,
+   bag_sum, cin_layer, flash_attention and jaccard_distance raise on the
+   card under autograd (and run under no_grad), segment_spmm's gradient
+   equals its plain version's; GCN (phase 10's ogbn-products batch) and
+   EGNN, NequIP, Equiformer-v2 full() (the molecule batch) for 3 steps
+   each, every aggregate through segment_spmm (2, 8, 5 and 12 launches a
+   step), one step's gradients against use_kernel=False within 1e-4 of
+   each leaf's largest |plain| (2e-3 for Equiformer-v2, whose leaky_relu
+   attention scores can take the other slope under float32 order noise);
+   xDeepFM full() through
+   launch/train.build_task: two probe steps (2,048, 8,192) predict the
+   step's peak, the batch is 65,536 halved while that passes 70 GB, 30
+   steps (ms a step, peak, a profiled step, the loss of the last 5 steps
+   below the first 5's, no kernel launched: the training lookup and CIN
+   are the plain path), two steps at batch 256 on the card against the
+   CPU, a run failed at step 4 and resumed from its step-3 checkpoint
+   under build/ against two clean runs (the gaps printed; bit-identical
+   if the clean runs are), and --compress (int8 EF) through the CLI;
+   granite-3-8b's widths at 2 layers in float32, batch 2 x 4,096, 12
+   steps (ms a step, peak, the loss falls, flash_attention not launched);
+12. summary — every kernel's launches on its path.
 
 The last three lines are the card's name and power limit, a JSON line of
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -216,6 +237,8 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -314,6 +337,16 @@ from repro_torch.models.gnn.nequip import NequIP  # noqa: E402
 from repro_torch.models.recsys.xdeepfm import (XDeepFM,  # noqa: E402
                                                field_offsets)
 from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.models.transformer import \
+    loss_fn as lm_loss_fn  # noqa: E402
+from repro_torch.models.gnn import egnn as egnn_mod  # noqa: E402
+from repro_torch.models.gnn import equiformer_v2 as eq_mod  # noqa: E402
+from repro_torch.models.gnn import gcn as gcn_mod  # noqa: E402
+from repro_torch.models.gnn import nequip as nequip_mod  # noqa: E402
+from repro_torch.data import Prefetcher  # noqa: E402
+from repro_torch.launch.train import build_task  # noqa: E402
+from repro_torch.runtime.trainer import Trainer, TrainTask  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
@@ -3586,23 +3619,415 @@ def phase_gnn() -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training through the port's runtime (runtime/trainer.Trainer)
+# ---------------------------------------------------------------------------
+
+# xDeepFM trains at train_batch (65,536), halved while the step's peak,
+# predicted from two probe steps (the peak is an offset plus a slope in the
+# batch: every activation is linear in it), passes TRAIN_PEAK_LIMIT
+TRAIN_PEAK_LIMIT = 70e9
+TRAIN_PROBES = (2048, 8192)
+XDEEPFM_TRAIN_STEPS = 30
+# the resume and int8 EF checks: the full config at a smaller batch
+RESUME_BATCH, RESUME_STEPS, RESUME_EVERY, RESUME_FAIL = 8192, 6, 3, 4
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_ckpt"
+# card against CPU: two steps (step 0 runs at lr 0 in the warmup) at batch
+# 256 from the same weights; loss and gradient norm float32 sums in other
+# orders (rtol 1e-5); the weights after step 1 (lr 1e-4) within a tenth of
+# that lr: the first steps move an entry by lr g / (|g| + eps), which an
+# order difference in a gradient entry near eps moves by up to lr
+CARD_CPU_BATCH, CARD_CPU_LOSS_RTOL, CARD_CPU_WEIGHT_ATOL = 256, 1e-5, 1e-5
+# GNN training: steps per model through the kernel (Trainer.run), and one
+# step's gradients with the kernel against use_kernel=False on the card,
+# each leaf within GRAD_SHARE of its largest |plain|: tests/test_kernels.py's
+# segment_spmm 1e-4, but 2e-3 for Equiformer-v2, whose attention scores
+# pass through leaky_relu: the kernel and the plain version sum a node's
+# messages in other float32 orders, a score within that noise of 0 then
+# takes the other slope in one run, and every gradient upstream of it
+# moves by a finite step (up to 3.3e-4 of a leaf's max |plain| seen on
+# `layers/11/attn_vec`, and in a second computation of the same gradient
+# on the same path)
+GNN_TRAIN_STEPS = 3
+GRAD_SHARE = {"gcn": 1e-4, "egnn": 1e-4, "nequip": 1e-4,
+              "equiformer_v2": 2e-3}
+# LM: granite-3-8b's widths at 2 layers in float32 (40 layers' parameters,
+# gradients and two moments at 16 bytes each would be 128 GB), batch 2 x
+# 4,096 tokens (train_4k's sequence; its batch of 256 is a mesh's)
+LM_TRAIN_LAYERS, LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 2, 2, 4096, 12
+
+
+def train_run(task, steps: int, **kw) -> tuple[Trainer, dict, int]:
+    """Trainer(task, **kw).run(steps=steps) with the peak memory reset
+    before it; returns (trainer, its result, max_memory_allocated)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    trainer = Trainer(task, **kw)
+    out = trainer.run(steps=steps)
+    torch.cuda.synchronize()
+    return trainer, out, torch.cuda.max_memory_allocated(DEV)
+
+
+def step_ms(log) -> float:
+    """Median ms of the steps after the first (which warms the allocator
+    and cuBLAS)."""
+    return float(np.median([r["dt"] for r in log[1:]])) * 1e3
+
+
+def loss_falls(log, name: str, k: int = 5) -> tuple[float, float]:
+    """The planted-signal criterion (tests/test_models_recsys.py): the mean
+    loss of the last k steps below the first k's; every loss finite."""
+    losses = [r["loss"] for r in log]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: a loss is not finite: {losses}")
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    if not last < first:
+        raise AssertionError(f"{name}: loss did not fall: {losses}")
+    return first, last
+
+
+def xdeepfm_task(batch: int, steps: int, compress: bool = False):
+    return build_task("xdeepfm", steps, batch, 0, compress, device=DEV,
+                      config="full")
+
+
+def xdeepfm_train_batch(card: str) -> int:
+    """The largest of 65,536 / 2^k whose predicted step peak fits
+    TRAIN_PEAK_LIMIT (one probe step at each of TRAIN_PROBES)."""
+    peaks = []
+    for b in TRAIN_PROBES:
+        _, _, peak = train_run(xdeepfm_task(b, 1), 1)
+        peaks.append(peak)
+    slope = (peaks[1] - peaks[0]) / (TRAIN_PROBES[1] - TRAIN_PROBES[0])
+
+    def predict(b):
+        return peaks[0] + slope * (b - TRAIN_PROBES[0])
+    batch = xdeepfm_configs.TRAIN_BATCH
+    while predict(batch) > TRAIN_PEAK_LIMIT:
+        batch //= 2
+    log(f"  xdeepfm step peak: {peaks[0]:,} bytes at batch "
+        f"{TRAIN_PROBES[0]:,}, {peaks[1]:,} at {TRAIN_PROBES[1]:,} "
+        f"({slope:,.0f} bytes an example); predicted at 65,536: "
+        f"{predict(65536):,.0f}; trains at {batch:,} (predicted "
+        f"{predict(batch):,.0f} <= {TRAIN_PEAK_LIMIT:,.0f}) [{card}]")
+    return batch
+
+
+def gap(log_a, log_b) -> float:
+    return max(abs(a["loss"] - b["loss"]) for a, b in zip(log_a, log_b))
+
+
+def weight_gap(tree_a, tree_b) -> float:
+    return max(float((a.detach() - b.detach().to(a.device)).abs().max())
+               for a, b in zip(tree_leaves(tree_a), tree_leaves(tree_b)))
+
+
+def phase_train_xdeepfm(card: str) -> dict:
+    """xDeepFM full() through build_task and the Trainer: the memory probe,
+    XDEEPFM_TRAIN_STEPS at the chosen batch (ms a step, peak, a profiled
+    step, loss first -> last), card against CPU, resume and int8 EF."""
+    cfg = xdeepfm_configs.full()
+    out = {}
+    batch = xdeepfm_train_batch(card)
+    reset_counts()
+    trainer, res, peak = train_run(xdeepfm_task(batch, XDEEPFM_TRAIN_STEPS),
+                                   XDEEPFM_TRAIN_STEPS)
+    c = counts()
+    if c["gather_rows"] or c["cin_layer"]:
+        raise AssertionError(f"xdeepfm training launched {c}: the training "
+                             f"lookup and CIN are the plain path")
+    first, last = loss_falls(res["log"], "xdeepfm")
+    ms = step_ms(res["log"])
+    model = res["params"]
+    n_params = sum(p.numel() for p in tree_leaves(model.param_tree()))
+    log(f"  xdeepfm full ({n_params:,} parameters, {cfg.total_vocab:,} "
+        f"embedding rows) at batch {batch:,}: {ms:.3f} ms a step (median of "
+        f"{XDEEPFM_TRAIN_STEPS - 1}); max_memory_allocated {peak:,} bytes; "
+        f"loss mean of the first 5 steps {first:.5f} -> last 5 {last:.5f}; "
+        f"gather_rows and cin_layer launches 0 (plain path) [{card}]")
+    tree = model.param_tree()
+    ef = {"_": torch.zeros((), device=DEV)}
+    extra = next(trainer.task.batches)
+    log("  xdeepfm training step, profiled: " + device_breakdown(
+        lambda: trainer._step(model, tree, res["opt"], ef, extra,
+                              XDEEPFM_TRAIN_STEPS)))
+    out["xdeepfm"] = dict(batch=batch, ms=ms, peak=peak)
+    del trainer, res, model, tree, extra
+    torch.cuda.empty_cache()
+
+    # card against CPU: the same weights, the same two batches
+    init = XDeepFM.random(cfg, torch.Generator(device=DEV).manual_seed(0))
+    host = tree_map(lambda t: t.detach().cpu(), init.param_tree())
+    del init
+    runs = []
+    for where in (DEV, torch.device("cpu")):
+        task = build_task("xdeepfm", 2, CARD_CPU_BATCH, 0, False,
+                          device=where, config="full")
+        task.init_params = lambda g, w=where: XDeepFM.from_jax(cfg, host,
+                                                               device=w)
+        runs.append(Trainer(task).run(steps=2))
+    cl, hl = runs[0]["log"], runs[1]["log"]
+    for a, b in zip(cl, hl):
+        for k in ("loss", "grad_norm"):
+            if not abs(a[k] - b[k]) <= CARD_CPU_LOSS_RTOL * abs(b[k]):
+                raise AssertionError(f"xdeepfm card vs CPU step {a['step']}: "
+                                     f"{k} {a[k]} vs {b[k]}")
+    wg = weight_gap(runs[0]["params"].param_tree(),
+                    runs[1]["params"].param_tree())
+    if not wg <= CARD_CPU_WEIGHT_ATOL:
+        raise AssertionError(f"xdeepfm card vs CPU: weights after 2 steps "
+                             f"differ by {wg}")
+    log(f"  xdeepfm card vs CPU, 2 steps at batch {CARD_CPU_BATCH}: losses "
+        f"{[r['loss'] for r in cl]} vs {[r['loss'] for r in hl]}, "
+        f"grad_norm {[r['grad_norm'] for r in cl]} vs "
+        f"{[r['grad_norm'] for r in hl]} (rtol {CARD_CPU_LOSS_RTOL}); "
+        f"weights max |diff| {wg:.3g} (<= {CARD_CPU_WEIGHT_ATOL})")
+    del runs, host
+    torch.cuda.empty_cache()
+
+    # resume: fail after a checkpoint, resume, against two clean runs
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        Trainer(xdeepfm_task(RESUME_BATCH, RESUME_STEPS),
+                ckpt_dir=str(CKPT_DIR), ckpt_every=RESUME_EVERY).run(
+            steps=RESUME_STEPS, fail_at_step=RESUME_FAIL)
+    except RuntimeError as e:
+        if "simulated node failure" not in str(e):
+            raise
+    else:
+        raise AssertionError("fail_at_step did not stop the run")
+    resumed = Trainer(xdeepfm_task(RESUME_BATCH, RESUME_STEPS),
+                      ckpt_dir=str(CKPT_DIR), ckpt_every=RESUME_EVERY).run(
+        steps=RESUME_STEPS)
+    ckpt_s = time.perf_counter() - t0
+    ckpt_bytes = sum(f.stat().st_size for f in CKPT_DIR.rglob("*")
+                     if f.is_file())
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    clean = [Trainer(xdeepfm_task(RESUME_BATCH, RESUME_STEPS)).run(
+        steps=RESUME_STEPS) for _ in range(2)]
+    if resumed["log"][0]["step"] != RESUME_EVERY:
+        raise AssertionError(f"resumed at {resumed['log'][0]['step']}")
+    clean_gap = gap(clean[0]["log"], clean[1]["log"])
+    clean_wgap = weight_gap(clean[0]["params"].param_tree(),
+                            clean[1]["params"].param_tree())
+    res_gap = gap(resumed["log"], clean[0]["log"][RESUME_EVERY:])
+    res_wgap = weight_gap(resumed["params"].param_tree(),
+                          clean[0]["params"].param_tree())
+    if clean_gap == 0 and clean_wgap == 0 and (res_gap or res_wgap):
+        raise AssertionError(f"xdeepfm: clean runs are bit-identical but the "
+                             f"resumed one differs ({res_gap}, {res_wgap})")
+    log(f"  xdeepfm resume at batch {RESUME_BATCH:,}: failed at step "
+        f"{RESUME_FAIL}, resumed from the step-{RESUME_EVERY} checkpoint "
+        f"({ckpt_bytes:,} bytes under build/, {ckpt_s:.1f} s for the two "
+        f"runs with their saves and restore); resumed vs clean: max |loss "
+        f"diff| {res_gap:.3g}, weights {res_wgap:.3g}; clean vs clean: "
+        f"{clean_gap:.3g}, weights {clean_wgap:.3g}")
+    out["resume"] = dict(res_gap=res_gap, res_wgap=res_wgap,
+                         clean_gap=clean_gap, clean_wgap=clean_wgap)
+    del resumed, clean
+    torch.cuda.empty_cache()
+
+    # int8 error feedback through the CLI
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "xdeepfm", "--config", "full", "--batch", str(RESUME_BATCH),
+           "--steps", str(RESUME_STEPS), "--compress", "--device", "cuda"]
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
+                                            / "src")}
+    run = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} failed:\n{run.stderr}")
+    line = run.stdout.strip().splitlines()[-1]
+    if not line.startswith("[xdeepfm] steps 0..") or "nan" in line:
+        raise AssertionError(f"--compress run printed {line!r}")
+    log(f"  {' '.join(cmd[2:])}: {line}")
+    return out
+
+
+def gnn_grad_check(name: str, model, loss_fn, g) -> float:
+    """One step's gradients with the kernel against use_kernel=False on the
+    card: each leaf's max |diff| within GRAD_SHARE[name] x its max |plain|.
+    Returns the worst max |diff| as a share of max |plain|."""
+    leaves = tree_leaves(model.param_tree())
+    for p in leaves:
+        p.requires_grad_(True)
+    grads = []
+    for use_kernel in (True, False):
+        loss, _ = loss_fn(model, g, use_kernel=use_kernel)
+        grads.append(torch.autograd.grad(loss, leaves, allow_unused=True))
+    worst = 0.0
+    for gk, gp in zip(*grads):
+        if gp is None:
+            continue
+        top = gp.abs().max().item()
+        err = (gk - gp).abs().max().item()
+        if not bool(torch.isfinite(gk).all()) or \
+                not err <= GRAD_SHARE[name] * top:
+            raise AssertionError(
+                f"{name}: a gradient with the kernel differs from the plain "
+                f"path's by {err} (max |plain| {top}, tolerance "
+                f"{GRAD_SHARE[name]} of it)")
+        if top > 0:
+            worst = max(worst, err / top)
+    return worst
+
+
+def phase_train_gnn(card: str) -> dict:
+    """Each GNN through the Trainer on phase 10's batches (GCN at
+    ogbn-products, the geometric models on 128 molecules), every
+    aggregate through segment_spmm; one step's gradients against the
+    plain path. Returns each model's launches."""
+    launched = {}
+    for name, mod, cls, cfg, shape in (
+            ("gcn", gcn_mod, GCN, gcn_cora.full("ogb_products"),
+             "ogb_products"),
+            ("egnn", egnn_mod, EGNN, egnn_configs.full(), "molecule"),
+            ("nequip", nequip_mod, NequIP, nequip_configs.full(),
+             "molecule"),
+            ("equiformer_v2", eq_mod, EquiformerV2, eq_configs.full(),
+             "molecule")):
+        g, _ = gnn_graph(shape)
+        model = cls.random(cfg, torch.Generator(device=DEV).manual_seed(0))
+        err = gnn_grad_check(name, model, mod.loss_fn, g)
+        del model
+
+        def batches(g=g):
+            while True:
+                yield g
+        task = TrainTask(name=name, init_params=lambda gen, cls=cls,
+                         cfg=cfg: cls.random(cfg, gen),
+                         loss_fn=mod.loss_fn, batches=batches(), lr=1e-3,
+                         warmup=10, total_steps=GNN_TRAIN_STEPS, device=DEV)
+        reset_counts()
+        _, res, peak = train_run(task, GNN_TRAIN_STEPS)
+        n = counts()["segment_spmm"]
+        if n != GNN_LAUNCHES[name] * GNN_TRAIN_STEPS:
+            raise AssertionError(f"{name}: {GNN_TRAIN_STEPS} steps launched "
+                                 f"segment_spmm {n} times")
+        losses = [r["loss"] for r in res["log"]]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: losses {losses}")
+        launched[name] = n
+        log(f"  {name} training ({shape}): {step_ms(res['log']):.3f} ms a "
+            f"step (median of {GNN_TRAIN_STEPS - 1}), segment_spmm "
+            f"{n // GNN_TRAIN_STEPS} launches a step (forwards; the "
+            f"backward is a gather), losses {[f'{x:.7g}' for x in losses]}, "
+            f"max_memory_allocated {peak:,} bytes; one step's gradients "
+            f"with the kernel against use_kernel=False: worst max |diff| "
+            f"{err:.3g} of the leaf's max |plain| (<= {GRAD_SHARE[name]}) "
+            f"[{card}]")
+        del res
+        torch.cuda.empty_cache()
+    return launched
+
+
+def phase_train_lm(card: str) -> dict:
+    """granite-3-8b's widths at LM_TRAIN_LAYERS layers in float32 through
+    the Trainer: ms a step, peak, the loss falls."""
+    cfg = dataclasses.replace(granite_3_8b.full(), n_layers=LM_TRAIN_LAYERS,
+                              dtype="float32")
+    task = TrainTask(
+        name=cfg.name, init_params=lambda g: Transformer.random(
+            cfg, seed=g.initial_seed(), device=g.device),
+        loss_fn=lambda m, b: lm_loss_fn(m.params, cfg, b["tokens"],
+                                        b["labels"]),
+        batches=Prefetcher(token_batches(cfg.vocab_size, LM_TRAIN_B,
+                                         LM_TRAIN_S, seed=1), device=DEV),
+        lr=1e-3, warmup=20, total_steps=LM_TRAIN_STEPS, device=DEV)
+    reset_counts()
+    _, res, peak = train_run(task, LM_TRAIN_STEPS)
+    if counts()["flash_attention"]:
+        raise AssertionError("LM training launched flash_attention: it "
+                             "trains through _sdpa")
+    first, last = loss_falls(res["log"], cfg.name, k=3)
+    n_params = sum(t.numel() for t in tree_leaves(res["params"].params))
+    ms = step_ms(res["log"])
+    log(f"  {cfg.name} widths at {LM_TRAIN_LAYERS} layers, float32, "
+        f"{n_params:,} parameters, batch {LM_TRAIN_B} x {LM_TRAIN_S:,}: "
+        f"{ms:.3f} ms a step (median of {LM_TRAIN_STEPS - 1}), "
+        f"max_memory_allocated {peak:,} bytes; loss mean of the first 3 "
+        f"steps {first:.4f} -> last 3 {last:.4f} [{card}]")
+    return dict(ms=ms, peak=peak)
+
+
+def guard_check() -> None:
+    """Each kernel without a backward raises on the card when an input
+    requires grad under grad mode; segment_spmm's gradient equals its
+    plain version's."""
+    t = torch.randn(64, 10, device=DEV, requires_grad=True)
+    ids = torch.arange(8, device=DEV)
+    q = torch.randn(1, 2, 8, 16, device=DEV, requires_grad=True)
+    xk = torch.randn(2, 1, 5, device=DEV, requires_grad=True)
+    cases = {
+        "gather_rows": lambda: emb_ops.gather_rows(t, ids),
+        "bag_sum": lambda: emb_ops.bag_sum(t, ids.reshape(2, 4)),
+        "cin_layer": lambda: cin_ops.cin_layer(
+            xk, torch.randn(2, 7, 5, device=DEV),
+            torch.randn(3, 1, 7, device=DEV)),
+        "flash_attention": lambda: fa_ops.flash_attention(q, q, q),
+        "jaccard_distance": lambda: jac_ops.jaccard_distance(
+            (t > 0).float().requires_grad_(True))}
+    for name, call in cases.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} ran under autograd on the card")
+        with torch.no_grad():
+            call()                     # and runs where nothing records it
+    vals = torch.randn(500, 7, device=DEV, requires_grad=True)
+    recv = torch.randint(-2, 42, (500,), device=DEV, dtype=torch.int32)
+    mask = torch.rand(500, device=DEV) < 0.8
+    up = torch.randn(40, 7, device=DEV)
+    (gk,) = torch.autograd.grad((seg_ops.segment_spmm(vals, recv, mask, 40)
+                                 * up).sum(), vals)
+    (gp,) = torch.autograd.grad((segment_spmm_ref(vals, recv, mask, 40)
+                                 * up).sum(), vals)
+    if not torch.equal(gk, gp):
+        raise AssertionError("segment_spmm's gradient differs from its "
+                             "plain version's")
+    log(f"  guard: {', '.join(cases)} raise under autograd on the card and "
+        f"run under torch.no_grad(); segment_spmm's gradient equals its "
+        f"plain version's (masked edges, receivers outside [0, n))")
+
+
+def phase_train(card: str) -> dict:
+    """Phase 11; returns the GNN training's segment_spmm launches."""
+    t0 = time.perf_counter()
+    guard_check()
+    gnn = phase_train_gnn(card)
+    _GRAPHS.clear()
+    torch.cuda.empty_cache()
+    xd_out = phase_train_xdeepfm(card)
+    lm_out = phase_train_lm(card)
+    log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+    return {"gnn": gnn, "xdeepfm": xd_out, "lm": lm_out}
+
+
 def main() -> None:
     t_start = time.perf_counter()
+
+    def at() -> str:
+        """Seconds since the start, for each phase's header."""
+        return f"({time.perf_counter() - t_start:.0f} s)"
     card = card_line()
-    log(f"[1/11] device: {card}; torch.cuda.get_device_name: "
+    log(f"[1/12] device: {card}; torch.cuda.get_device_name: "
         f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     # the plain versions' float32 products run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log(f"[2/11] build: {kernels.build():.2f} s (nvcc, "
+    log(f"[2/12] {at()} build: {kernels.build():.2f} s (nvcc, "
         f"{' '.join(kernels.NVCC_FLAGS)}; {len(kernels.SOURCES)} libraries)")
 
-    log("[3/11] kernels against their plain versions on the card")
+    log(f"[3/12] {at()} kernels against their plain versions on the card")
     rec = phase_kernels()
 
-    log("[4/11] main path: LUBM(1) scale 1.0, WawPart 3 shards from the "
+    log(f"[4/12] {at()} main path: LUBM(1) scale 1.0, WawPart 3 shards from the "
         f"Jaccard kernel, join sorted, backend cuda, {BATCH} requests per "
         "serve()")
     main_counts, main_path = serve_path(1.0, "sorted", kernel_partition=True)
@@ -3629,22 +4054,22 @@ def main() -> None:
         f"{main_counts['merge_joins']}, {main_counts['select_joins']} "
         f"expanding without verification)")
 
-    log("[4b/11] pipeline on phase 4's store and partition: submit / pump "
+    log(f"[4b/12] {at()} pipeline on phase 4's store and partition: submit / pump "
         "/ drain / shutdown, batches retired on CUDA events, migrate()")
     pipe_counts = phase_pipeline(main_path, card)
 
-    log("[4c/11] faults, replication and the adaptive controller on phase "
+    log(f"[4c/12] {at()} faults, replication and the adaptive controller on phase "
         "4's store and partition: chaos with and without retry, a "
         "shard-down window, replicate_hot then failover, adaptive "
         "migrations and aborted ones")
     fault_counts = phase_faults(main_path, card)
 
-    log("[4d/11] mesh on phase 4's store: one gloo rank per shard on the "
+    log(f"[4d/12] {at()} mesh on phase 4's store: one gloo rank per shard on the "
         "one card; 3 ranks (WawPart and random, both joins; run_sharded; "
         "the mesh-routed server; replicate_hot) and 8 (WawPart)")
     mesh_counts = phase_mesh(main_path, main_counts, card)
 
-    log("[5/11] expand path: LUBM scale 0.1, join expand, backend cuda")
+    log(f"[5/12] {at()} expand path: LUBM scale 0.1, join expand, backend cuda")
     expand_counts, _ = serve_path(0.1, "expand")
     for k in ("compat_select", "scan_hits", "scan_select"):
         if expand_counts[k] <= 0:
@@ -3670,7 +4095,7 @@ def main() -> None:
         f"make), compat_matrix 0, scan_select {expand_counts['scan_select']},"
         f" scan_hits {expand_counts['scan_hits']}")
 
-    log("[6/11] per-query engine (the paper's execution path): "
+    log(f"[6/12] {at()} per-query engine (the paper's execution path): "
         "run_vmapped over every template, backend cuda; LUBM(1) scale 1.0 "
         "under WawPart (expand and sorted joins), random and centralized "
         "(sorted join); BSBM 1,000 products under WawPart (both joins)")
@@ -3683,23 +4108,30 @@ def main() -> None:
         raise AssertionError("per-query engine launched compat_matrix")
     log(f"  per-query engine launches over its runs: {pq_launches}")
 
-    log(f"[7/11] clustering: {UNIVERSITIES * DEPARTMENTS * 14:,} LUBM query "
+    log(f"[7/12] {at()} clustering: {UNIVERSITIES * DEPARTMENTS * 14:,} LUBM query "
         "instances")
     cluster_counts = phase_clustering()
     if cluster_counts["jaccard_distance"] <= 0:
         raise AssertionError("clustering never launched jaccard_distance")
 
-    log("[8/11] xDeepFM serving forward, full config")
+    log(f"[8/12] {at()} xDeepFM serving forward, full config")
     xdeepfm_counts = phase_xdeepfm()
 
-    log("[9/11] LM serving: granite-3-8b full config, bf16, random weights "
+    log(f"[9/12] {at()} LM serving: granite-3-8b full config, bf16, random weights "
         "from seed 0; float32 checks at full width and 4 layers")
     lm_counts = phase_lm()
 
-    log("[10/11] GNN serving: GCN at the full ogbn-products size; EGNN, "
+    log(f"[10/12] {at()} GNN serving: GCN at the full ogbn-products size; EGNN, "
         "NequIP and Equiformer-v2 full configs on the molecule batch; "
         "random weights from seed 0")
     gnn_counts = phase_gnn()
+
+    log(f"[11/12] {at()} training through the port's Trainer: GCN at ogbn-products "
+        "and EGNN, NequIP, Equiformer-v2 on the molecule batch through "
+        "segment_spmm; xDeepFM full() (memory probe, resume, card vs CPU, "
+        "int8 EF through the CLI); granite-3-8b widths at 2 layers")
+    train = phase_train(card)
+    train_gnn = train["gnn"]
 
     rec["scan_hits"]["launches"] = expand_counts["scan_hits"]
     rec["scan_select"]["launches"] = main_counts["scan_select"]
@@ -3714,9 +4146,11 @@ def main() -> None:
         xdeepfm_counts["serve_bulk"]["cin_layer"]
     for name, c in lm_counts.items():
         rec[f"flash_attention[{name}]"]["launches"] = c["flash_attention"]
-    rec["segment_spmm[ogb_products]"]["launches"] = gnn_counts["gcn"]
+    rec["segment_spmm[ogb_products]"]["launches"] = (
+        gnn_counts["gcn"] + train_gnn["gcn"])
     rec["segment_spmm[molecule]"]["launches"] = sum(
-        gnn_counts[k] for k in ("egnn", "nequip", "equiformer_v2"))
+        gnn_counts[k] + train_gnn[k]
+        for k in ("egnn", "nequip", "equiformer_v2"))
     paths = {"scan_hits": "LUBM expand path (phase 5)",
              "scan_select": "LUBM main path (phase 4)",
              "join_ranges": "LUBM main path (phase 4)",
@@ -3731,9 +4165,11 @@ def main() -> None:
              "cin_layer[serve_bulk]": "xDeepFM forward at serve_bulk (phase 8)",
              "flash_attention[prefill]": "granite-3-8b prefill (phase 9)",
              "flash_attention[decode]": "granite-3-8b decode (phase 9)",
-             "segment_spmm[ogb_products]": "GCN forward (phase 10)",
+             "segment_spmm[ogb_products]": "GCN forward (phase 10); GNN "
+                                           "training (phase 11)",
              "segment_spmm[molecule]":
-                 "EGNN, NequIP, Equiformer-v2 forwards (phase 10)"}
+                 "EGNN, NequIP, Equiformer-v2 forwards (phase 10); GNN "
+                 "training (phase 11)"}
     # the per-query engine's kernels (phase 6), where it launched them; its
     # launches are printed with the phase, the records keep phase 4's and
     # 5's
@@ -3751,7 +4187,7 @@ def main() -> None:
             paths[name] += "; per-query engine (phase 6)"
     for name, path in paths.items():
         rec[name]["path"] = path
-    log("[11/11] kernels: " + ", ".join(
+    log(f"[12/12] {at()} kernels: " + ", ".join(
         f"{r['name']} ok launches={r['launches']}" for r in rec.values())
         + f"; main path launches {main_counts}, pipeline launches "
         f"{pipe_counts}, faults, replication and adaptive launches "
@@ -3762,7 +4198,8 @@ def main() -> None:
         f"launches {xdeepfm_counts}, LM launches (prefill of "
         f"{PREFILL_S:,} tokens, {DECODE_STEPS} decode steps) "
         f"{ {k: c['flash_attention'] for k, c in lm_counts.items()} }, GNN "
-        f"segment_spmm launches {gnn_counts}; total "
+        f"segment_spmm launches {gnn_counts}, GNN training segment_spmm "
+        f"launches ({GNN_TRAIN_STEPS} steps each) {train_gnn}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")

@@ -2,6 +2,9 @@
 non-gated GELU MLP (d_ff = 4 * d_model)."""
 from repro_torch.models.transformer import LMConfig
 
+FAMILY = "lm"
+SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+
 
 def full() -> LMConfig:
     return LMConfig(

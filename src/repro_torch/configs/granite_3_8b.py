@@ -4,6 +4,9 @@ vocab 49,155 is padded to 49,280 (=16*3,080) for TP divisibility (DESIGN §5).
 """
 from repro_torch.models.transformer import LMConfig
 
+FAMILY = "lm"
+SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+
 
 def full() -> LMConfig:
     return LMConfig(

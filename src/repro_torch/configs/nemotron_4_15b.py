@@ -2,6 +2,9 @@
 vocab 256,000."""
 from repro_torch.models.transformer import LMConfig
 
+FAMILY = "lm"
+SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+
 
 def full() -> LMConfig:
     return LMConfig(

@@ -2,8 +2,14 @@
 CIN 200-200-200, MLP 400-400."""
 from repro_torch.models.recsys.xdeepfm import XDeepFMConfig, default_vocab_sizes
 
+FAMILY = "recsys"
+SHAPES = ["train_batch", "serve_p99", "serve_bulk", "retrieval_cand"]
+
 # requests per forward of the two serving shapes
 SERVE_BATCH = {"serve_p99": 512, "serve_bulk": 262144}
+# examples per step of the train_batch shape (the reference's
+# launch/cells.RECSYS_SHAPE_DEFS)
+TRAIN_BATCH = 65536
 
 
 def full() -> XDeepFMConfig:

@@ -1,1 +1,5 @@
-"""Synthetic input streams (numpy, made from a seed)."""
+"""Synthetic input streams (numpy, made from a seed) and the background
+prefetcher."""
+from repro_torch.data.pipeline import Prefetcher
+
+__all__ = ["Prefetcher"]

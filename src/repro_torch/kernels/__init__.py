@@ -28,6 +28,13 @@ bulk and tensor copies) that cin and jaccard include, ``csrc/lookback.cuh``
 the decoupled look-back that kg_scan, kg_join and kg_compat share. Nothing here is
 imported or compiled when the package is imported, so the CPU-only test
 suite never needs a CUDA toolchain.
+
+Only segment_spmm has a backward (`segment_spmm.ops.SegmentSum`: the
+kernel forward, the plain gather that is a segment sum's transpose
+backward); it is the one kernel on a training forward. The others write
+their outputs through ``ctypes`` into tensors autograd knows nothing of,
+so each raises on the card when autograd would record it
+(`forbid_backward`) rather than train with a gradient quietly missing.
 """
 from __future__ import annotations
 
@@ -142,6 +149,23 @@ def require(t, name: str, dtype, ndim: int | None = None) -> None:
         raise ValueError(f"{name} must be contiguous")
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
+
+
+def needs_backward(*tensors) -> bool:
+    """Whether autograd records an op on ``tensors``: grad mode is on and
+    one of them (None skipped) requires grad."""
+    import torch
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def forbid_backward(name: str, plain: str, *tensors) -> None:
+    """Raise when `needs_backward` holds for a kernel with no backward."""
+    if needs_backward(*tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires "
+            f"grad with grad mode on; train through the plain route "
+            f"({plain}), or run under torch.no_grad()")
 
 
 def lead_strides(t, tail: int, lead: tuple) -> tuple:

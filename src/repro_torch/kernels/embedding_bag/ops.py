@@ -2,7 +2,8 @@
 
 A CPU tensor runs the plain version (`ref.gather_rows_ref`,
 `ref.bag_sum_ref`); a CUDA tensor launches the kernel, and anything the
-kernel does not take raises.
+kernel does not take raises, as does an input that requires grad under
+grad mode (the kernels have no backward).
 There is no fallback from the card to the plain version. Unlike the TPU op,
 the table is not padded to 128 lanes: at the full xDeepFM width that would
 copy its 26.4M rows on every call.
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import forbid_backward
 from repro_torch.kernels.embedding_bag.kernel import (bag_sum_kernel,
                                                      gather_rows_kernel)
 from repro_torch.kernels.embedding_bag.ref import bag_sum_ref, gather_rows_ref
@@ -20,6 +22,8 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """table: (V, D) float32; ids: (N,) integer -> (N, D) = table[ids]."""
     if table.device.type == "cpu":
         return gather_rows_ref(table, ids)
+    forbid_backward("gather_rows", "XDeepFM.embedding_lookup(use_kernel="
+                    "False)", table)
     out = gather_rows_kernel(table, ids.to(torch.int32).contiguous())
     gather_rows.launches += 1
     return out
@@ -35,6 +39,7 @@ def bag_sum(table: torch.Tensor, ids: torch.Tensor,
     float32. No JAX code path calls the reference op; this is an op only."""
     if table.device.type == "cpu":
         return bag_sum_ref(table, ids, weights)
+    forbid_backward("bag_sum", "ref.bag_sum_ref", table, weights)
     w = None if weights is None else \
         weights.to(torch.float32).contiguous()
     out = bag_sum_kernel(table, ids.to(torch.int32).contiguous(), w)

@@ -3,7 +3,8 @@
 A CPU tensor runs the plain version (`ref.attention_ref`); a CUDA tensor
 launches the route that `kernel.plan` picks by shape (a bf16 tensor-core
 prefill kernel, the split-KV decode pair or the CUDA-core kernel), and
-anything it does not take raises. There is no fallback from the card to the plain
+anything it does not take raises, as does an input that requires grad
+under grad mode (the kernels have no backward). There is no fallback from the card to the plain
 version, no repeated copy of the KV heads and no padding of S or T.
 ``flash_attention.launches`` counts the calls on the card and
 ``flash_attention.routes`` the route each one took.
@@ -15,6 +16,7 @@ from collections import Counter
 
 import torch
 
+from repro_torch.kernels import forbid_backward
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_kernel, plan)
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -41,6 +43,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, scale=scale,
                              q_start=q_start)
+    forbid_backward("flash_attention", "transformer._sdpa, use_kernel=False",
+                    q, k, v)
     route = plan(q, k, v, causal=causal, q_start=q_start)
     out = flash_attention_kernel(q, k, v, causal=causal, scale=scale,
                                  q_start=q_start, route=route)

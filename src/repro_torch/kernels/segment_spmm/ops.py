@@ -14,6 +14,13 @@ A CPU tensor runs a plain version (`ref.segment_spmm_ref`, or with a plan
 `ref.segment_spmm_plan_ref`, which reads the plan as the kernel does); a
 CUDA tensor launches the segment-sum kernel, and anything the kernel does
 not take raises. There is no fallback from the card to the plain version.
+
+On the card the op is differentiable (`SegmentSum`): the kernel is the
+forward, and the backward is the segment sum's transpose, a gather of the
+output gradient at each live edge's receiver in plain PyTorch
+(`ref.segment_spmm_backward`), as XLA transposes `jax.ops.segment_sum`.
+The TPU kernel has no backward of its own. The plain versions on the CPU
+are differentiable as they stand.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ from repro_torch.kernels.segment_spmm.kernel import (INT32_MAX, PIECE,
                                                      SegmentPlan,
                                                      check_values,
                                                      segment_spmm_kernel)
-from repro_torch.kernels.segment_spmm.ref import (segment_spmm_plan_ref,
+from repro_torch.kernels.segment_spmm.ref import (segment_spmm_backward,
+                                                  segment_spmm_plan_ref,
                                                   segment_spmm_ref)
 
 
@@ -86,6 +94,25 @@ def piece_table(offsets: torch.Tensor, piece: int) -> dict:
 segment_plan.builds = 0
 
 
+class SegmentSum(torch.autograd.Function):
+    """The segment-sum kernel under autograd: forward the kernel over a
+    built plan, backward `ref.segment_spmm_backward` (no kernel launch;
+    ``segment_spmm.launches`` counts forwards only)."""
+
+    @staticmethod
+    def forward(ctx, values: torch.Tensor, plan: SegmentPlan,
+                n_nodes: int) -> torch.Tensor:
+        ctx.plan, ctx.n_nodes = plan, n_nodes
+        return segment_spmm_kernel(values, plan, n_nodes)
+
+    @staticmethod
+    def backward(ctx, grad_out: torch.Tensor):
+        plan = ctx.plan
+        return (segment_spmm_backward(grad_out, plan.receivers,
+                                      plan.edge_mask, ctx.n_nodes),
+                None, None)
+
+
 def segment_spmm(values: torch.Tensor, receivers: torch.Tensor,
                  edge_mask: torch.Tensor, n_nodes: int, *,
                  assume_sorted: bool = False,
@@ -110,7 +137,7 @@ def segment_spmm(values: torch.Tensor, receivers: torch.Tensor,
     if plan is None:
         plan = segment_plan(receivers, edge_mask, n_nodes,
                             assume_sorted=assume_sorted)
-    out = segment_spmm_kernel(values, plan, n_nodes)
+    out = SegmentSum.apply(values, plan, n_nodes)
     segment_spmm.launches += 1
     return out
 

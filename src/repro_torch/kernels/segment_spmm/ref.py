@@ -39,3 +39,16 @@ def segment_spmm_plan_ref(values: torch.Tensor, order: torch.Tensor,
                       device=values.device)
     out.index_add_(0, node, rows.to(torch.float32))
     return out.to(values.dtype)
+
+
+def segment_spmm_backward(grad_out: torch.Tensor, receivers: torch.Tensor,
+                          edge_mask: torch.Tensor,
+                          n_nodes: int) -> torch.Tensor:
+    """The segment sum's transpose, a gather: grad_values[e] =
+    grad_out[receivers[e]] for a live edge whose receiver lies in
+    [0, n_nodes), else 0 (what XLA computes for `jax.ops.segment_sum`'s
+    gradient). (E, D) in grad_out's dtype."""
+    recv = receivers.to(torch.int64)
+    live = edge_mask.to(torch.bool) & (recv >= 0) & (recv < n_nodes)
+    rows = grad_out.index_select(0, torch.where(live, recv, 0))
+    return rows.masked_fill_(~live[:, None], 0)

@@ -4,7 +4,9 @@ The port of the reference's `models/gnn/common.py`. The reference
 aggregates with `jax.ops.segment_sum` and names the Pallas `segment_spmm`
 kernel as that aggregation's accelerated form; here `aggregate` scatters
 through the segment-sum op (`kernels.segment_spmm`): the hand-written CUDA
-kernel for tensors on the card, its plain `index_add_` version on the CPU.
+kernel for tensors on the card (differentiable: its backward is the plain
+gather that transposes a segment sum), its plain `index_add_` version on
+the CPU.
 ``use_kernel=False`` takes the plain version on any device, for the
 comparisons. Degrees, the edge softmax and per-graph pooling stay plain
 PyTorch (`index_add_`, `scatter_reduce_`), as they are plain `jax.ops` in
@@ -103,6 +105,14 @@ def graph_ids(g: GraphBatch) -> torch.Tensor:
         torch.zeros(g.node_mask.shape[0], dtype=torch.int32, device=g.device)
 
 
+def energy_loss(energy: torch.Tensor, g: GraphBatch):
+    """The geometric models' loss: the mean square of the per-graph
+    energies against `graph_targets`, in float32."""
+    loss = torch.mean(torch.square(energy.to(torch.float32)
+                                   - graph_targets(g)))
+    return loss, {"loss": loss}
+
+
 def graph_targets(g: GraphBatch) -> torch.Tensor:
     """Per-graph scalar regression targets derived from node labels
     (synthetic-energy convention shared by the geometric models)."""
@@ -114,7 +124,8 @@ def graph_targets(g: GraphBatch) -> torch.Tensor:
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A serving parameter: the kernels have no backward."""
+    """A parameter that serving leaves frozen: a trainer turns on its
+    gradient (through the model's `param_tree`)."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -140,6 +151,10 @@ class MLP(nn.Module):
         super().__init__()
         self.w = nn.ParameterList([frozen(w) for w, _ in layers])
         self.b = nn.ParameterList([frozen(b) for _, b in layers])
+
+    def param_tree(self) -> list[dict]:
+        """The reference's list of {"w", "b"} of these very tensors."""
+        return [{"w": w, "b": b} for w, b in zip(self.w, self.b)]
 
     @classmethod
     def from_jax(cls, layers: list[dict], device) -> MLP:

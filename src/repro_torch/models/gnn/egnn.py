@@ -2,8 +2,9 @@
 harmonics — messages from invariant distances, coordinate updates along
 relative vectors. Assigned config: 4 layers, d_hidden=64.
 
-The serving forward of the reference's `models/gnn/egnn.py`: two
-`aggregate` calls per layer (the coordinate mean and the message sum).
+The forward of the reference's `models/gnn/egnn.py`: two `aggregate`
+calls per layer (the coordinate mean and the message sum); `loss_fn` is
+the energies' mean square against `graph_targets`.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ from torch import nn
 from repro_torch.engine.batch import resolve_device
 from repro_torch.kernels.segment_spmm.ops import segment_plan
 from repro_torch.models.gnn.common import (MLP, GraphBatch, aggregate,
-                                           frozen, graph_ids, mlp_apply,
+                                           energy_loss, frozen, graph_ids,
+                                           mlp_apply,
                                            mlp_init, normal, segment_sum,
                                            to_tensor)
 
@@ -73,6 +75,14 @@ class EGNN(nn.Module):
         return cls(cfg, to_tensor(params["embed"], dev), layers,
                    MLP.from_jax(params["readout"], dev))
 
+    def param_tree(self) -> dict:
+        """The reference's `init_params` pytree of these very tensors."""
+        return {"embed": self.embed,
+                "layers": [{k: getattr(la, k).param_tree()
+                            for k in ("phi_e", "phi_x", "phi_h")}
+                           for la in self.layers],
+                "readout": self.readout.param_tree()}
+
     def forward(self, g: GraphBatch, *, use_kernel: bool = True):
         """Returns (per-graph energy (n_graphs,), final positions)."""
         n = g.positions.shape[0]
@@ -95,3 +105,8 @@ class EGNN(nn.Module):
         e_node = mlp_apply(self.readout, h)[:, 0] * g.node_mask
         energy = segment_sum(e_node, graph_ids(g), g.n_graphs)
         return energy, x
+
+
+def loss_fn(model: EGNN, g: GraphBatch, *, use_kernel: bool = True):
+    energy, _ = model(g, use_kernel=use_kernel)
+    return energy_loss(energy, g)

@@ -4,8 +4,9 @@ edge frame (the eSCN trick), with m_max truncation.
 
 Assigned config: 12 layers, 128 channels, l_max=6, m_max=2, 8 heads.
 
-The serving forward (per-graph energies) of the reference's
-`models/gnn/equiformer_v2.py`. Per-edge Wigner-D matrices are built on the
+The forward (per-graph energies) of the reference's
+`models/gnn/equiformer_v2.py`, and its `loss_fn` (the energies' mean
+square against `graph_targets`). Per-edge Wigner-D matrices are built on the
 device by the exact CG recursion (`so3.wigner_d_blocks`), and only the
 |m| <= m_max rows of the rotated features are materialized: per edge,
 Sum_l (2*min(l,m_max)+1) coefficients (29 for L=6, m=2) instead of
@@ -25,7 +26,8 @@ from torch import nn
 from repro_torch.engine.batch import resolve_device
 from repro_torch.kernels.segment_spmm.ops import segment_plan
 from repro_torch.models.gnn.common import (MLP, GraphBatch, aggregate,
-                                           edge_softmax, frozen, graph_ids,
+                                           edge_softmax, energy_loss, frozen,
+                                           graph_ids,
                                            mlp_apply, mlp_init, normal,
                                            segment_sum, to_tensor)
 from repro_torch.models.gnn.nequip import bessel_rbf   # same radial basis
@@ -214,6 +216,21 @@ class EquiformerV2(nn.Module):
         return cls(cfg, t(params["embed"]), layers,
                    MLP.from_jax(params["readout"], dev))
 
+    def param_tree(self) -> dict:
+        """The reference's `init_params` pytree of these very tensors (w2
+        None at m = 0, as there)."""
+        groups = _m_groups(self.cfg.l_max, self.cfg.m_max)
+        return {"embed": self.embed,
+                "layers": [{
+                    "so2": [{"w1": w1, "w2": w2 if m > 0 else None}
+                            for (m, *_), w1, w2 in zip(groups, la.so2_w1,
+                                                       la.so2_w2)],
+                    "radial": la.radial.param_tree(),
+                    "attn_vec": la.attn_vec, "w_val": la.w_val,
+                    "w_upd": la.w_upd, "ffn_gate": la.ffn_gate.param_tree(),
+                    "ffn": la.ffn} for la in self.layers],
+                "readout": self.readout.param_tree()}
+
     def forward(self, g: GraphBatch, *, use_kernel: bool = True
                 ) -> torch.Tensor:
         """Per-graph energies (n_graphs,)."""
@@ -275,3 +292,7 @@ class EquiformerV2(nn.Module):
 
         e_node = mlp_apply(self.readout, h[:, 0, :])[:, 0] * g.node_mask
         return segment_sum(e_node, graph_ids(g), g.n_graphs)
+
+
+def loss_fn(model: EquiformerV2, g: GraphBatch, *, use_kernel: bool = True):
+    return energy_loss(model(g, use_kernel=use_kernel), g)

@@ -1,9 +1,10 @@
 """GCN (Kipf & Welling 2017): 2-layer symmetric-normalized spectral conv.
 
 Assigned config gcn-cora: n_layers=2, d_hidden=16, mean aggregator, sym norm.
-Self-loops are added by the data pipeline. The serving forward (logits per
-node) of the reference's `models/gnn/gcn.py`: dense product first
-(F -> H), then the normalized messages scattered through `aggregate`.
+Self-loops are added by the data pipeline. The forward (logits per node)
+of the reference's `models/gnn/gcn.py`: dense product first (F -> H),
+then the normalized messages scattered through `aggregate`; `loss_fn` is
+its masked node-classification cross-entropy.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.engine.batch import resolve_device
@@ -55,6 +57,10 @@ class GCN(nn.Module):
         dev = resolve_device(device)
         return cls(cfg, [to_tensor(la["w"], dev) for la in params["layers"]])
 
+    def param_tree(self) -> dict:
+        """The reference's `init_params` pytree of these very tensors."""
+        return {"layers": [{"w": w} for w in self.weights]}
+
     def forward(self, g: GraphBatch, *, use_kernel: bool = True
                 ) -> torch.Tensor:
         """Logits (N, n_classes). ``use_kernel=False`` aggregates through
@@ -81,3 +87,18 @@ class GCN(nn.Module):
             if i < last:
                 x = torch.relu(x)
         return x
+
+
+def loss_fn(model: GCN, g: GraphBatch, *, use_kernel: bool = True):
+    """Masked cross-entropy over the labelled nodes (``label_mask``, else
+    ``node_mask``) and the share of them classified right ("acc")."""
+    logits = model(g, use_kernel=use_kernel).to(torch.float32)
+    mask = g.label_mask if g.label_mask is not None else g.node_mask
+    mask = mask.to(torch.float32)
+    logp = F.log_softmax(logits, dim=-1)
+    safe = torch.clamp(g.labels, min=0).to(torch.int64)
+    nll = -torch.take_along_dim(logp, safe[:, None], dim=-1)[:, 0]
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    acc = ((logits.argmax(-1) == g.labels) * mask).sum() / denom
+    return loss, {"loss": loss, "acc": acc}

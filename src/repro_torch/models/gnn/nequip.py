@@ -2,18 +2,21 @@
 Clebsch-Gordan tensor products of node irreps with edge spherical harmonics.
 
 Assigned config: 5 layers, 32 channels, l_max=2, 8 Bessel RBFs, cutoff 5 A.
-The serving forward (per-graph energies) of the reference's
+The forward (per-graph energies) of the reference's
 `models/gnn/nequip.py`, with its simplifications: uniform multiplicity per
 l, the full set of tensor-product paths {(l1,l2,l3): |l1-l2| <= l3 <=
 min(l1+l2, l_max)} with per-path radial weights, gate nonlinearity, and a
 scalar energy readout. One `aggregate` call per layer, on the (E, 9, 32)
-messages flattened to (E, 288). Forces (`energy_and_forces`) need
-`aggregate` under autograd and are not ported yet.
+messages flattened to (E, 288). `energy_and_forces` takes the forces as
+-dE/dpositions through autograd (on the card through the segment sum's
+backward); `loss_fn` is the energies' mean square against `graph_targets`.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -23,7 +26,8 @@ from torch import nn
 from repro_torch.engine.batch import resolve_device
 from repro_torch.kernels.segment_spmm.ops import segment_plan
 from repro_torch.models.gnn.common import (MLP, GraphBatch, aggregate,
-                                           frozen, graph_ids, mlp_apply,
+                                           energy_loss, frozen, graph_ids,
+                                           mlp_apply,
                                            mlp_init, normal, segment_sum,
                                            to_tensor)
 from repro_torch.models.gnn.so3 import (cg_tensor, irrep_dim,
@@ -130,6 +134,14 @@ class NequIP(nn.Module):
         return cls(cfg, to_tensor(params["embed"], dev), layers,
                    MLP.from_jax(params["readout"], dev))
 
+    def param_tree(self) -> dict:
+        """The reference's `init_params` pytree of these very tensors."""
+        return {"embed": self.embed,
+                "layers": [{"radial": la.radial.param_tree(),
+                            "w_self": la.w_self, "w_msg": la.w_msg,
+                            "w_gate": la.w_gate} for la in self.layers],
+                "readout": self.readout.param_tree()}
+
     def forward(self, g: GraphBatch, *, use_kernel: bool = True
                 ) -> torch.Tensor:
         """Per-graph energies (n_graphs,)."""
@@ -177,3 +189,18 @@ class NequIP(nn.Module):
 
         e_node = mlp_apply(self.readout, h[:, 0, :])[:, 0] * g.node_mask
         return segment_sum(e_node, graph_ids(g), g.n_graphs)
+
+
+def energy_and_forces(model: NequIP, g: GraphBatch, *,
+                      use_kernel: bool = True):
+    """(total energy of the batch, forces (N, 3) = -dE/dpositions)."""
+    pos = g.positions.detach().requires_grad_(True)
+    with torch.enable_grad():
+        e = model(dataclasses.replace(g, positions=pos),
+                  use_kernel=use_kernel).sum()
+        (grad,) = torch.autograd.grad(e, pos)
+    return e.detach(), -grad
+
+
+def loss_fn(model: NequIP, g: GraphBatch, *, use_kernel: bool = True):
+    return energy_loss(model(g, use_kernel=use_kernel), g)

@@ -13,8 +13,11 @@ product; on the CPU the same flag runs their plain versions. The linear
 term, the CIN output projection and the MLP are plain PyTorch, as they are
 plain jnp in the reference.
 
-The module is the serving direction only: its parameters do not require
-gradients (the kernels have no backward).
+Training (`loss_fn`, the reference's sigmoid cross-entropy) runs the plain
+path, as the reference trains through its jnp path: the kernels have no
+backward and raise under autograd. The parameters do not require
+gradients until a trainer turns them on (`param_tree` is the reference's
+pytree of these very tensors).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.engine.batch import resolve_device
@@ -131,6 +135,16 @@ class XDeepFM(nn.Module):
                    t(params["cin_out"]),
                    [(t(layer["w"]), t(layer["b"])) for layer in params["mlp"]])
 
+    def param_tree(self) -> dict:
+        """The reference's `init_params` pytree of the module's own
+        parameter tensors (no copies): what a trainer updates and a
+        checkpoint stores."""
+        return {"embed": self.embed, "lin_embed": self.lin_embed,
+                "dense_proj": self.dense_proj, "cin": list(self.cin),
+                "cin_out": self.cin_out,
+                "mlp": [{"w": w, "b": b}
+                        for w, b in zip(self.mlp_w, self.mlp_b)]}
+
     def _rows(self, sparse_ids: torch.Tensor) -> torch.Tensor:
         """(B, n_sparse) per-field local ids -> global table rows, int32."""
         return sparse_ids.to(torch.int32) + self.offsets[None, :]
@@ -140,12 +154,15 @@ class XDeepFM(nn.Module):
         """sparse_ids: (B, n_sparse) per-field local ids -> (B, n_sparse, D).
 
         The hot path: a gather over a 10^6+-row table (EmbeddingBag, bag
-        size 1 per field)."""
+        size 1 per field). The plain path is `F.embedding`, whose dense
+        backward sorts the ids before it sums their rows; `index_select`'s
+        adds them with atomics, in an order that changes between runs on
+        the card."""
         rows = self._rows(sparse_ids)
-        flat = rows.reshape(-1)
-        out = (gather_rows(self.embed, flat) if use_kernel
-               else self.embed.index_select(0, flat))
-        return out.reshape(*rows.shape, self.cfg.embed_dim)
+        if use_kernel:
+            out = gather_rows(self.embed, rows.reshape(-1))
+            return out.reshape(*rows.shape, self.cfg.embed_dim)
+        return F.embedding(rows, self.embed)
 
     def cin_forward(self, x0: torch.Tensor, *,
                     use_kernel: bool = False) -> torch.Tensor:
@@ -165,8 +182,7 @@ class XDeepFM(nn.Module):
         B = emb.shape[0]
         # linear term
         rows = self._rows(sparse_ids)
-        lin = self.lin_embed.index_select(0, rows.reshape(-1)) \
-            .reshape(rows.shape).sum(dim=-1)
+        lin = F.embedding(rows, self.lin_embed)[..., 0].sum(dim=-1)
         # CIN term
         cin = self.cin_forward(emb, use_kernel=use_kernel)
         cin_logit = (cin @ self.cin_out)[:, 0]
@@ -187,3 +203,17 @@ class XDeepFM(nn.Module):
         cand = self.embed.index_select(0, candidate_ids)       # (N, D)
         q = query_emb.reshape(-1, self.cfg.embed_dim).mean(dim=0)
         return cand @ q
+
+
+def loss_fn(model: XDeepFM, batch: dict, *, use_kernel: bool = False):
+    """Sigmoid cross-entropy in its stable form, max(l, 0) - l y +
+    log1p(exp(-|l|)), averaged over the batch, and the share of logits on
+    the label's side of 0 ("acc"). ``batch``: sparse (B, n_sparse), dense
+    (B, n_dense), label (B,) tensors."""
+    logits = model(batch["sparse"], batch["dense"],
+                   use_kernel=use_kernel).to(torch.float32)
+    y = batch["label"].to(torch.float32)
+    loss = torch.mean(torch.clamp(logits, min=0) - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    acc = torch.mean(((logits > 0) == (y > 0.5)).to(torch.float32))
+    return loss, {"loss": loss, "acc": acc}

@@ -1,4 +1,4 @@
-"""Dense decoder-only transformer LM: the serving direction.
+"""Dense decoder-only transformer LM: serving and training.
 
 The port of the reference's `models/transformer.py` for the dense
 configurations (granite-3-8b, granite-20b, nemotron-4-15b): GQA/MQA
@@ -12,8 +12,16 @@ the hand-written CUDA kernel for tensors on the card, its plain version on
 the CPU. ``use_kernel=False`` selects `_sdpa`, the port of the reference's
 XLA-level attention, which rounds the probabilities to the input dtype
 before the value product as the reference does; it is there for the
-comparisons. DeepSeek MLA, the MoE layers and the MTP head are not ported
-yet (ROADMAP, queue 1 item 7.3), nor is training.
+comparisons, and it is the attention training runs through.
+
+Training (`hidden_forward`, `ce_from_hidden`, `loss_fn`) follows the
+reference's plain path: `_sdpa` attention under autograd, the cross-entropy
+over the unpadded vocabulary, optionally in sequence chunks each
+recomputed in the backward (``ce_chunk``, `torch.utils.checkpoint` where
+the reference maps `jax.checkpoint` over the chunks), and with
+``remat=True`` each layer recomputed in the backward, as the reference's
+`_scan_layers` checkpoints its scan body. DeepSeek MLA, the MoE layers and
+the MTP head are not ported yet (ROADMAP, Queue 1 item 3).
 
 Unlike the reference's functional cache, the KV cache is updated in place:
 `prefill` and `decode_step` write the new slots into the cache tensors they
@@ -29,6 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.engine.batch import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -143,8 +152,9 @@ def _check_dense(cfg: LMConfig) -> None:
                        (cfg.mtp_depth > 0, "the MTP head")):
         if flag:
             raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet (ROADMAP queue 1 "
-                "item 7.3); the port serves the dense GQA/MQA configs")
+                f"{cfg.name}: {what} is not ported yet (ROADMAP, Queue 1 "
+                "item 3); the port serves and trains the dense GQA/MQA "
+                "configs")
 
 
 # ---------------------------------------------------------------------------
@@ -365,6 +375,10 @@ class Transformer:
     def n_params(self) -> int:
         return sum(t.numel() for t in _leaves(self.params))
 
+    def param_tree(self) -> dict:
+        """The reference's `init_params` pytree: ``params`` itself."""
+        return self.params
+
     def init_cache(self, batch: int, max_len: int):
         """A zero cache in the parameters' dtype on their device."""
         return init_cache(self.cfg, batch, max_len,
@@ -409,6 +423,79 @@ class Transformer:
                                dtype=torch.int32, device=tokens.device)
         return self._run(tokens, positions, cur_len, cache, cur_len,
                          use_kernel=use_kernel), cache
+
+
+# ---------------------------------------------------------------------------
+# training: the reference's loss on its plain path
+# ---------------------------------------------------------------------------
+
+def hidden_forward(params, cfg: LMConfig, tokens, *, remat: bool = False):
+    """tokens (B, S) -> final hidden states (B, S, D) (pre-head), through
+    `_sdpa` attention. ``remat`` recomputes each layer in the backward."""
+    _check_dense(cfg)
+    S = tokens.shape[1]
+    x = F.embedding(tokens, params["embed"])
+    positions = torch.arange(S, device=tokens.device)[None]
+    stacked = params["dense_layers"]
+
+    def layer(x, i):
+        lp = _map(stacked, lambda t: t[i])
+        return _layer_fwd(lp, cfg, x, positions, 0, use_kernel=False)
+
+    for i in range(cfg.n_layers):
+        x = (checkpoint(layer, x, i, use_reentrant=False) if remat
+             else layer(x, i))
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _ce(logits, labels, cfg: LMConfig):
+    """Mean negative log-likelihood of the labels >= 0 (-100 masks), the
+    padded vocabulary entries masked out of the normaliser."""
+    V = logits.shape[-1]
+    mask = labels >= 0
+    nll = _nll(logits, labels, mask, cfg.vocab_size, V)
+    return nll.sum() / torch.clamp(mask.sum(), min=1)
+
+
+def _nll(logits, labels, mask, vocab_size: int, V: int):
+    safe = torch.where(mask, labels, 0).to(torch.int64)
+    real = torch.arange(V, device=logits.device) < vocab_size
+    logz = torch.logsumexp(torch.where(real, logits, -1e30), dim=-1)
+    gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
+    return (logz - gold) * mask
+
+
+def ce_from_hidden(x, head, labels, cfg: LMConfig):
+    """Cross-entropy from final hidden states, optionally seq-chunked.
+
+    ce_chunk > 0 never holds the full (B, S, V) logits: each sequence chunk
+    computes its logits, reduces them to (nll_sum, count), and is
+    recomputed in the backward (`torch.utils.checkpoint`), so the peak
+    drops from O(B*S*V) to O(B*chunk*V) at the same FLOPs."""
+    if not cfg.ce_chunk or x.shape[1] % cfg.ce_chunk != 0:
+        return _ce((x @ head).to(torch.float32), labels, cfg)
+    c = cfg.ce_chunk
+
+    def chunk(xb, lb):
+        logits = (xb @ head).to(torch.float32)
+        mask = lb >= 0
+        return (_nll(logits, lb, mask, cfg.vocab_size, logits.shape[-1])
+                .sum(), mask.sum())
+
+    sums, counts = zip(*(checkpoint(chunk, x[:, i:i + c], labels[:, i:i + c],
+                                    use_reentrant=False)
+                         for i in range(0, x.shape[1], c)))
+    return torch.stack(sums).sum() / torch.clamp(torch.stack(counts).sum(),
+                                                 min=1)
+
+
+def loss_fn(params, cfg: LMConfig, tokens, labels, *, remat: bool = False):
+    """Causal LM loss; labels == -100 masked; pad-vocab ids masked out.
+    Returns (loss, {"ce", "loss"}). The MTP term is not ported."""
+    x = hidden_forward(params, cfg, tokens, remat=remat)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    main = ce_from_hidden(x, head, labels, cfg)
+    return main, {"ce": main, "loss": main}
 
 
 def _map(tree, fn):
