@@ -66,10 +66,11 @@ order; any failure exits non-zero:
    (the split route forced at small T, also against its plain version;
    the tensor-core route at d 100 and ragged T), with the count of
    tensor-core instructions in its library (cuobjdump), and at the LM
-   path's prefill (1 x 32 heads x 8,192 over 8 KV heads; route "wgmma") and
+   paths' prefill (1 x 32 heads x 8,192 over 8 KV heads; route "wgmma") and
    decode (8 x 32 heads over a 32,768-slot cache at q_start 32,760; route
-   "split") shapes, each timed in bfloat16 and listed as a kernel record
-   of its own; bag_sum
+   "split") shapes, and qwen2-moe-a2.7b's (16 heads over 16 KV heads; a
+   decode step of 4 sequences), each timed in bfloat16 and listed as a
+   kernel record of its own; bag_sum
    (an op no path calls) within atol 1e-5 on a ragged sweep and over the
    full xDeepFM table (26.4M x 10) at 262,144 bags of 39 (two launches
    bit-identical; device time, F.embedding_bag's, and the bound of the
@@ -192,6 +193,23 @@ order; any failure exits non-zero:
    from position 32,760, every logit finite, flash_attention launched 40
    times in the prefill (all on the wgmma route) and 40 per step (all on
    the split route), each profiled;
+9b. LM serving, MoE and MLA — float32 checks: qwen2-moe-a2.7b at full
+   width and 2 layers (prefill logits with flash_attention within 1e-4 x
+   max |logit| of the plain path, two calls bit-identical, and at a
+   capacity factor with no drops a decode step within 1e-3 of forward's
+   logits) and deepseek-v3-671b at full width and its 3 dense MLA layers
+   (the absorbed decode step within 1e-3 of forward's logits); then in
+   bfloat16 with random weights from seed 0, qwen2-moe-a2.7b at full width
+   and depth (14.3B parameters): a prefill of 1 x 8,192 and 8 greedy
+   decode steps of 4 sequences over 32,768 slots from position 32,760
+   (flash_attention 24 times a call, route "wgmma" at the prefill and
+   "split" at decode), and deepseek-v3-671b's widths at 4 layers (3 dense
+   MLA layers, 1 MoE layer of 256 experts; 15.8B parameters): a prefill of
+   1 x 4,096 and 8 steps of 8 sequences over its latent cache (no
+   flash_attention): every logit finite, the pairs each MoE layer drops,
+   seconds, ms a step, peak memory, profiles, and the first MoE layer's
+   routing, dispatch, experts' products, combine and shared expert timed
+   at both shapes;
 10. GNN serving — GCN (gcn_cora.full("ogb_products"): 2 layers, d_in 100,
    hidden 16, 47 classes) on the full ogbn-products batch (2,449,029
    nodes, 64,308,169 edges with self loops, built in numpy from seed 0),
@@ -226,6 +244,12 @@ order; any failure exits non-zero:
    if the clean runs are), and --compress (int8 EF) through the CLI;
    granite-3-8b's widths at 2 layers in float32, batch 2 x 4,096, 12
    steps (ms a step, peak, the loss falls, flash_attention not launched);
+   through launch/train.build_task, qwen2-moe-a2.7b's widths at 2 layers,
+   batch 2 x 4,096, 8 steps, and deepseek-v3-671b's widths with the MTP
+   head at 1 to 3 dense MLA layers (as many as a probe step at 1 predicts
+   under 70 GB), batch 1 x 2,048, 8 steps on DeepSeek-V3's warmup (ms a
+   step, peak, the loss and the MTP term fall, flash_attention not
+   launched);
 12. summary — every kernel's launches on its path.
 
 The last three lines are the card's name and power limit, a JSON line of
@@ -259,6 +283,8 @@ from repro_torch.configs import egnn as egnn_configs  # noqa: E402
 from repro_torch.configs import equiformer_v2 as eq_configs  # noqa: E402
 from repro_torch.configs import gcn_cora  # noqa: E402
 from repro_torch.configs import granite_3_8b, granite_20b  # noqa: E402
+from repro_torch.configs import deepseek_v3_671b  # noqa: E402
+from repro_torch.configs import qwen2_moe_a2_7b  # noqa: E402
 from repro_torch.configs import nequip as nequip_configs  # noqa: E402
 from repro_torch.configs import xdeepfm as xdeepfm_configs  # noqa: E402
 from repro_torch.configs import bsbm as bsbm_config  # noqa: E402
@@ -336,6 +362,7 @@ from repro_torch.models.gnn.gcn import GCN  # noqa: E402
 from repro_torch.models.gnn.nequip import NequIP  # noqa: E402
 from repro_torch.models.recsys.xdeepfm import (XDeepFM,  # noqa: E402
                                                field_offsets)
+from repro_torch.models import transformer as lm_mod  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.models.transformer import \
     loss_fn as lm_loss_fn  # noqa: E402
@@ -431,6 +458,18 @@ CHECK_LAYERS, CHECK_B, CHECK_S = 4, 2, 1024
 CHECK_LOGIT_SHARE = 1e-4     # kernel vs plain prefill logits: atol as a
 #                              share of the plain run's largest |logit|
 CHECK_DECODE_ERR = 1e-3      # decode vs forward, tests/test_models_lm.py's
+# LM serving, MoE and MLA (phase 9b): qwen2-moe-a2.7b at full width and
+# depth (24 layers), prefill 1 x PREFILL_S, then DECODE_STEPS steps of
+# MOE_DECODE_B sequences over DECODE_T slots from DECODE_CUR (cache 25.8
+# GB); deepseek-v3-671b's widths cut to DS_LAYERS layers, its 3 dense MLA
+# layers and 1 MoE layer of 256 experts (its 61 layers' 671.7B parameters
+# do not fit one card), prefill 1 x DS_PREFILL_S, then DECODE_STEPS steps of
+# DS_DECODE_B sequences over its latent cache of DECODE_T slots. float32
+# checks: qwen2-moe at MOE_CHECK_LAYERS layers, deepseek-v3 at its
+# DS_CHECK_LAYERS dense MLA layers, CHECK_B x CHECK_S prompt tokens
+MOE_DECODE_B = 4
+DS_LAYERS, DS_PREFILL_S, DS_DECODE_B = 4, 4096, 8
+MOE_CHECK_LAYERS, DS_CHECK_LAYERS = 2, 3
 # segment_spmm against its plain version (index_add_ in float32): on the
 # ragged sweep tests/test_kernels.py's 1e-4 (float32) and 0.15 (bfloat16);
 # at the GNN paths' shapes, and for the GNN forwards, rtol 1e-4 and atol
@@ -1528,28 +1567,33 @@ def wgmma_sass() -> str:
 
 
 def flash_record() -> dict:
-    """flash_attention at the LM path's two shapes: the prefill of 1 x 8,192
-    tokens (q_start 0 over the prompt's own keys) and a decode step of 8
-    sequences over the 32,768-slot cache at q_start 32,760. Each shape is
-    checked in float32 and in bfloat16 against the plain version and timed
-    in bfloat16, the model's dtype; returns one record per shape."""
+    """flash_attention at the LM paths' shapes: granite-3-8b's prefill of
+    1 x 8,192 tokens (32 heads over 8 KV heads; q_start 0 over the prompt's
+    own keys) and its decode step of 8 sequences over the 32,768-slot cache
+    at q_start 32,760; qwen2-moe-a2.7b's (16 heads over 16 KV heads) at the
+    same prefill and a decode step of 4 sequences. Each shape is checked in
+    float32 and in bfloat16 against the plain version and timed in
+    bfloat16, the models' dtype; returns one record per shape."""
     gen = torch.Generator(device=DEV).manual_seed(2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     live = DECODE_CUR + 1
+    # name: (batch, heads, KV heads), prefill or decode by the name
+    shapes = {"prefill": (1, 32, 8), "decode": (DECODE_B, 32, 8),
+              "moe_prefill": (1, 16, 16), "moe_decode": (MOE_DECODE_B, 16, 16)}
 
     def inputs(name, dt):
         def randn(*shape):
             return torch.randn(shape, generator=gen, device=DEV).to(dt)
-        if name == "prefill":
-            return (randn(1, 32, PREFILL_S, 128), randn(1, 8, PREFILL_S, 128),
-                    randn(1, 8, PREFILL_S, 128), 0)
-        ck, cv = randn(DECODE_B, DECODE_T, 8, 128), \
-            randn(DECODE_B, DECODE_T, 8, 128)
-        return (randn(DECODE_B, 32, 1, 128), ck.transpose(1, 2),
-                cv.transpose(1, 2), DECODE_CUR)
+        b, h, hkv = shapes[name]
+        if name.endswith("prefill"):
+            return (randn(b, h, PREFILL_S, 128), randn(b, hkv, PREFILL_S, 128),
+                    randn(b, hkv, PREFILL_S, 128), 0)
+        ck, cv = randn(b, DECODE_T, hkv, 128), randn(b, DECODE_T, hkv, 128)
+        return (randn(b, h, 1, 128), ck.transpose(1, 2), cv.transpose(1, 2),
+                DECODE_CUR)
 
     rec = {}
-    for name in ("prefill", "decode"):
+    for name in shapes:
         errs = {}
         for dt in (torch.float32, torch.bfloat16):
             q, k, v, q_start = inputs(name, dt)
@@ -1562,7 +1606,7 @@ def flash_record() -> dict:
         plan = fa_kernel.plan(q, k, v, causal=True, q_start=q_start)
         log(f"  flash_attention {name} shape, bf16: route {plan.route} "
             f"({plan})")
-        if name == "prefill":
+        if name.endswith("prefill"):
             def library():
                 return sdpa(q, k, v, is_causal=True, enable_gqa=True)
         else:
@@ -3388,6 +3432,22 @@ def phase_xdeepfm() -> dict:
 # phase 9: dense-transformer serving (prefill and decode)
 # ---------------------------------------------------------------------------
 
+def decode_vs_forward(model, toks) -> float:
+    """Max |decode step at CHECK_S - forward's logits there| of ``model``
+    on CHECK_B x (CHECK_S + 1) tokens; fails past CHECK_DECODE_ERR or if a
+    MoE layer drops a (token, k) pair in either."""
+    _, cache = model.prefill(toks[:, :CHECK_S], max_len=CHECK_S + 8)
+    step, _ = model.decode_step(cache, toks[:, CHECK_S:], CHECK_S)
+    drops = sum(int(d) for d in model.dropped)
+    fwd = model.forward(toks)[:, CHECK_S:]
+    drops += sum(int(d) for d in model.dropped)
+    err = (step - fwd).abs().max().item()
+    if drops or not err < CHECK_DECODE_ERR:
+        raise AssertionError(f"{model.cfg.name}: decode at {CHECK_S} differs "
+                             f"from forward by {err} ({drops} pairs dropped)")
+    return err
+
+
 def lm_check(cfg_full) -> str:
     """float32 at full width and CHECK_LAYERS layers: prefill logits with
     the kernel against the plain path (`_sdpa`) within CHECK_LOGIT_SHARE of
@@ -3404,12 +3464,8 @@ def lm_check(cfg_full) -> str:
                              use_kernel=False)
     top = plain.abs().max().item()
     err = float_err(logits, plain, atol=CHECK_LOGIT_SHARE * top)
-    step, _ = model.decode_step(cache, toks[:, CHECK_S:], CHECK_S)
-    fwd = model.forward(toks)[:, CHECK_S:]
-    dec_err = (step - fwd).abs().max().item()
-    if not dec_err < CHECK_DECODE_ERR:
-        raise AssertionError(f"{cfg.name}: decode at {CHECK_S} differs from "
-                             f"forward by {dec_err}")
+    del logits, cache, plain
+    dec_err = decode_vs_forward(model, toks)
     return (f"{cfg.name} float32, {CHECK_LAYERS} layers, "
             f"{model.n_params():,} parameters, {CHECK_B} x {CHECK_S} "
             f"tokens: prefill logits with the kernel within "
@@ -3516,6 +3572,241 @@ def phase_lm() -> dict:
     del model, cache, logits
     torch.cuda.empty_cache()
     return {"prefill": prefill_counts, "decode": decode_counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 9b: LM serving, MoE and MLA (qwen2-moe-a2.7b, deepseek-v3-671b)
+# ---------------------------------------------------------------------------
+
+def no_drop(cfg):
+    """``cfg`` at the capacity factor E / top_k: capacity = T, no drops."""
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def moe_lm_check() -> str:
+    """qwen2-moe-a2.7b float32 at full width and MOE_CHECK_LAYERS layers:
+    prefill logits with flash_attention against the plain path within
+    CHECK_LOGIT_SHARE of the largest |logit|, two calls with the kernel
+    bit-identical (dropped pairs scatter zeros into slot (0, 0)), and at a
+    capacity factor with no drops a decode step against forward's logits
+    within CHECK_DECODE_ERR."""
+    cfg = dataclasses.replace(qwen2_moe_a2_7b.full(),
+                              n_layers=MOE_CHECK_LAYERS, dtype="float32")
+    model = Transformer.random(cfg, seed=0, device=DEV)
+    toks = dev(next(token_batches(cfg.vocab_size, CHECK_B, CHECK_S + 1,
+                                  seed=0))["tokens"])
+    logits, _ = model.prefill(toks[:, :CHECK_S], max_len=CHECK_S + 8)
+    drops = [int(d) for d in model.dropped]
+    again, _ = model.prefill(toks[:, :CHECK_S], max_len=CHECK_S + 8)
+    float_err(again, logits, exact=True)
+    del again
+    plain, _ = model.prefill(toks[:, :CHECK_S], max_len=CHECK_S + 8,
+                             use_kernel=False)
+    top = plain.abs().max().item()
+    err = float_err(logits, plain, atol=CHECK_LOGIT_SHARE * top)
+    del logits, plain
+    dec_err = decode_vs_forward(Transformer(no_drop(cfg), model.params), toks)
+    return (f"{cfg.name} float32, {MOE_CHECK_LAYERS} layers, "
+            f"{model.n_params():,} parameters, {CHECK_B} x {CHECK_S} tokens "
+            f"(capacity {lm_mod.moe_capacity(cfg, CHECK_B * CHECK_S)}, pairs "
+            f"dropped a layer {drops}): prefill logits with flash_attention "
+            f"within {CHECK_LOGIT_SHARE} x {top:.4g} of the plain path (max "
+            f"|diff| {err:.3g}), two calls bit-identical; at capacity factor "
+            f"{no_drop(cfg).capacity_factor:g} (no drops) decode at {CHECK_S} "
+            f"vs forward max |diff| {dec_err:.3g} (< {CHECK_DECODE_ERR})")
+
+
+def mla_check() -> str:
+    """deepseek-v3-671b float32 at full width and its DS_CHECK_LAYERS dense
+    MLA layers (with its MTP head's weights): the absorbed decode step
+    against forward's (expanded) logits within CHECK_DECODE_ERR."""
+    cfg = dataclasses.replace(deepseek_v3_671b.full(),
+                              n_layers=DS_CHECK_LAYERS, dtype="float32")
+    model = Transformer.random(cfg, seed=0, device=DEV)
+    toks = dev(next(token_batches(cfg.vocab_size, CHECK_B, CHECK_S + 1,
+                                  seed=0))["tokens"])
+    err = decode_vs_forward(model, toks)
+    return (f"{cfg.name} float32, {DS_CHECK_LAYERS} dense MLA layers, "
+            f"{model.n_params():,} parameters, {CHECK_B} x {CHECK_S} tokens: "
+            f"absorbed decode at {CHECK_S} vs forward max |diff| {err:.3g} "
+            f"(< {CHECK_DECODE_ERR})")
+
+
+def moe_parts(model, n_tokens: int) -> str:
+    """The first MoE layer's pieces on ``n_tokens`` unit-normal hidden
+    states in the model's dtype, each timed with CUDA events (median): the
+    routing (router product, softmax, top-k, slot ranking), the dispatch
+    (the kept (token, k) pairs copied into (E, capacity, D)), the experts'
+    batched products (w_gate, w_in, w_out over every slot), the combine
+    (gather and gated sum), the shared expert, and the whole layer; the
+    experts' products beside their bound (bf16 tensor-core rate, or their
+    weights' bytes)."""
+    cfg = model.cfg
+    p = model.stacks[-1][2][0]
+    k, E, D = cfg.top_k, cfg.n_experts, cfg.d_model
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    xt = torch.randn(n_tokens, D, generator=gen, device=DEV).to(
+        p["router"].dtype)
+    gates, _, e, s, keep = lm_mod.moe_route(p, cfg, xt)
+    cap = lm_mod.moe_capacity(cfg, n_tokens)
+    w = p["experts"]
+
+    def dispatch():
+        return lm_mod.moe_dispatch(cfg, xt, e, s, keep)
+    buf = dispatch()
+
+    def experts():
+        return lm_mod.moe_experts(w, cfg, buf)
+    out_e = experts()
+
+    def combine():
+        return ((out_e[e, s] * keep[:, None]).reshape(n_tokens, k, D)
+                * gates[..., None]).sum(dim=1)
+    parts = {"route": lambda: lm_mod.moe_route(p, cfg, xt),
+             "dispatch": dispatch, "experts": experts, "combine": combine,
+             "shared": lambda: lm_mod._mlp(p["shared"], xt, cfg.mlp),
+             "layer": lambda: lm_mod._moe_mlp(p, cfg, xt[None])}
+    ms = {name: time_ms(fn, reps=10) for name, fn in parts.items()}
+    flops = 2 * 3 * E * cap * D * cfg.moe_d_ff
+    b_ms, b_by = bound(sum(t.nbytes for t in w.values()), flops,
+                       BF16_TC_OPS_PER_S)
+    return (f"{n_tokens:,} tokens, capacity {cap:,} ({E * cap:,} slots for "
+            f"{n_tokens * k:,} pairs, {int((~keep).sum()):,} dropped): "
+            + ", ".join(f"{name} {t:.4f} ms" for name, t in ms.items())
+            + f"; experts' products {flops / ms['experts'] / 1e9:.1f} "
+            f"TFLOP/s, bound {b_ms:.4f} ms ({b_by})")
+
+
+def lm_serve(model, prompt_len: int, decode_b: int, card: str) -> dict:
+    """``model`` through its entry points: a prefill of 1 x ``prompt_len``
+    prompt tokens, then DECODE_STEPS greedy steps of ``decode_b``
+    sequences over a DECODE_T-slot cache filled from a seeded generator up
+    to DECODE_CUR. Every logit finite; flash_attention launched once a GQA
+    layer a call (route "wgmma" at the prefill, "split" at decode; MLA
+    launches none); the pairs each MoE layer drops; seconds, ms a step,
+    peak memory, profiles and the first MoE layer's pieces at both
+    shapes. Returns the launch counts of the two driven runs."""
+    cfg = model.cfg
+    n_gqa = 0 if cfg.attn == "mla" else cfg.n_layers
+    prompt = dev(next(token_batches(cfg.vocab_size, 1, prompt_len,
+                                    seed=0))["tokens"])
+    model.prefill(prompt[:, :256])                       # warm-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats(DEV)
+    before = torch.cuda.memory_allocated(DEV)
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(prompt)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    prefill_counts = counts()
+    peak = torch.cuda.max_memory_allocated(DEV)
+    routes = dict(fa_ops.flash_attention.routes)
+    drops = [int(d) for d in model.dropped]
+    if prefill_counts["flash_attention"] != n_gqa or \
+            routes != ({"wgmma": n_gqa} if n_gqa else {}):
+        raise AssertionError(f"{cfg.name} prefill launched {prefill_counts}, "
+                             f"routes {routes}")
+    if logits.shape != (1, prompt_len, cfg.padded_vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: prefill logits malformed or not "
+                             "finite")
+    log(f"  {cfg.name} prefill 1 x {prompt_len:,} tokens: {dt:.4f} s "
+        f"({prompt_len / dt:,.1f} tokens/s); logits finite; flash launches "
+        f"{prefill_counts['flash_attention']}, routes {routes}; pairs "
+        f"dropped by each MoE layer {drops} of {prompt_len * cfg.top_k:,} "
+        f"(capacity {lm_mod.moe_capacity(cfg, prompt_len):,}); "
+        f"max_memory_allocated {peak:,} bytes ({before:,} before) [{card}]")
+    del logits, cache
+    log("  prefill, profiled: " + device_breakdown(
+        lambda: model.prefill(prompt), share_of=("flash_tile",)))
+    log("  first MoE layer at the prefill: " + moe_parts(model, prompt_len))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cache = model.init_cache(decode_b, DECODE_T)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    for stack in cache.values():
+        for layer in (t for ct in stack or () for t in ct):
+            layer.normal_(generator=gen)
+    cache_bytes = sum(t.nbytes for st in cache.values() for t in st or ())
+    tok = dev(next(token_batches(cfg.vocab_size, decode_b, 1,
+                                 seed=0))["tokens"])
+    model.decode_step(cache, tok, DECODE_CUR - 1)         # warm-up
+    torch.cuda.synchronize()
+    log(f"  decode cache: {decode_b} x {DECODE_T:,} slots x {cfg.n_layers} "
+        f"layers, {cache_bytes:,} bytes, random from seed 0 "
+        f"({time.perf_counter() - t0:.2f} s to fill)")
+
+    torch.cuda.reset_peak_memory_stats(DEV)
+    before = torch.cuda.memory_allocated(DEV)
+    reset_counts()
+    steps, drops = [], []
+    t_all = time.perf_counter()
+    for i in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        logits, _ = model.decode_step(cache, tok, DECODE_CUR + i)
+        tok = logits[:, :, :cfg.vocab_size].argmax(dim=-1).to(torch.int32)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{cfg.name} decode step {i}: logits not "
+                                 "finite")
+        steps.append((time.perf_counter() - t0) * 1e3)
+        drops.append(sum(int(d) for d in model.dropped))
+    dt = time.perf_counter() - t_all
+    decode_counts = counts()
+    peak = torch.cuda.max_memory_allocated(DEV)
+    routes = dict(fa_ops.flash_attention.routes)
+    n_launch = n_gqa * DECODE_STEPS
+    if decode_counts["flash_attention"] != n_launch or \
+            routes != ({"split": n_launch} if n_launch else {}):
+        raise AssertionError(f"{cfg.name} decode launched {decode_counts}, "
+                             f"routes {routes}")
+    log(f"  {cfg.name} decode {decode_b} x {DECODE_STEPS} steps from "
+        f"position {DECODE_CUR:,}: {np.median(steps):.3f} ms per step "
+        f"(median; {[round(t, 3) for t in steps]}), "
+        f"{decode_b * DECODE_STEPS / dt:,.1f} tokens/s; logits finite; "
+        f"flash launches {decode_counts['flash_attention']}, routes "
+        f"{routes}; pairs dropped a step over the MoE layers {drops}; "
+        f"max_memory_allocated {peak:,} bytes ({before:,} before) [{card}]")
+    log("  decode step, profiled: " + device_breakdown(
+        lambda: model.decode_step(cache, tok, DECODE_CUR),
+        share_of=("flash_tile",)))
+    log("  first MoE layer at a decode step: " + moe_parts(model, decode_b))
+    del cache, logits
+    torch.cuda.empty_cache()
+    return {"prefill": prefill_counts, "decode": decode_counts}
+
+
+def phase_lm_moe(card: str) -> dict:
+    """Phase 9b: the float32 checks, then qwen2-moe-a2.7b at full width and
+    depth and deepseek-v3-671b's widths at DS_LAYERS layers served in bf16
+    with random weights from seed 0. Returns qwen2-moe's launch counts."""
+    t0 = time.perf_counter()
+    for check in (moe_lm_check, mla_check):
+        log("  " + check())
+        torch.cuda.empty_cache()
+    out = []
+    for cfg, prompt_len, decode_b in (
+            (qwen2_moe_a2_7b.full(), PREFILL_S, MOE_DECODE_B),
+            (dataclasses.replace(deepseek_v3_671b.full(), n_layers=DS_LAYERS),
+             DS_PREFILL_S, DS_DECODE_B)):
+        t1 = time.perf_counter()
+        model = Transformer.random(cfg, seed=0, device=DEV)
+        torch.cuda.synchronize()
+        log(f"  {cfg.name}: {cfg.n_layers} layers "
+            f"({' + '.join(f'{len(ls)} {n}' for n, _, ls in model.stacks)}"
+            f"), d_model {cfg.d_model}, {cfg.attn} attention with "
+            f"{cfg.n_heads} heads, {cfg.n_experts} experts top-{cfg.top_k} "
+            f"(d_ff {cfg.moe_d_ff}) + {cfg.n_shared_experts} shared, vocab "
+            f"{cfg.padded_vocab:,}; {model.n_params():,} bf16 parameters "
+            f"({torch.cuda.memory_allocated(DEV):,} bytes; "
+            f"{time.perf_counter() - t1:.2f} s to draw on the card)")
+        out.append(lm_serve(model, prompt_len, decode_b, card))
+        del model
+        torch.cuda.empty_cache()
+    log(f"  phase 9b: {time.perf_counter() - t0:.1f} s")
+    return out[0]
 
 
 # ---------------------------------------------------------------------------
@@ -3655,6 +3946,21 @@ GRAD_SHARE = {"gcn": 1e-4, "egnn": 1e-4, "nequip": 1e-4,
 # gradients and two moments at 16 bytes each would be 128 GB), batch 2 x
 # 4,096 tokens (train_4k's sequence; its batch of 256 is a mesh's)
 LM_TRAIN_LAYERS, LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 2, 2, 4096, 12
+# qwen2-moe-a2.7b's widths at LM_TRAIN_LAYERS of 24 layers, batch LM_TRAIN_B
+# x LM_TRAIN_S, through launch/train.build_task; deepseek-v3-671b's widths
+# with the MTP head at 1 to DS_TRAIN_MAX_LAYERS dense MLA layers (its
+# first_dense_layers cut with them: one MoE layer of 256 experts holds 11.3B
+# parameters, 180 GB at 16 bytes each), as deep as a probe step at 1 layer
+# predicts under TRAIN_PEAK_LIMIT, batch DS_TRAIN_B x DS_TRAIN_S (MLA's
+# scores are (128 heads, S, S) float32 a layer, kept for the backward)
+# deepseek-v3 trains on its own schedule (arXiv:2412.19437 §4.2: a linear
+# warmup to 2.2e-4 over the first 2,000 steps): at build_task's 1e-3 over
+# 20 steps its widths diverge (one layer, batch 1 x 2,048, on an NVIDIA H100
+# 80GB HBM3 at 700 W: the loss 15.9 -> 33.6 after one step at 5e-5, with
+# the MTP term and without it)
+MOE_TRAIN_STEPS = 8
+DS_TRAIN_MAX_LAYERS, DS_TRAIN_B, DS_TRAIN_S, DS_TRAIN_STEPS = 3, 1, 2048, 8
+DS_TRAIN_LR, DS_TRAIN_WARMUP = 2.2e-4, 2000
 
 
 def train_run(task, steps: int, **kw) -> tuple[Trainer, dict, int]:
@@ -3922,9 +4228,29 @@ def phase_train_gnn(card: str) -> dict:
     return launched
 
 
+def lm_train_line(name: str, res, peak: int, card: str, *,
+                  k: int = 3) -> tuple[str, float]:
+    """The step time, peak and loss of a Trainer run, the loss (and with
+    an MTP head its "ce" and "mtp_ce") falling over its first and last k
+    steps."""
+    first, last = loss_falls(res["log"], name, k=k)
+    n_params = sum(t.numel() for t in tree_leaves(res["params"].params))
+    ms = step_ms(res["log"])
+    terms = ""
+    for key in ("ce", "mtp_ce") if "mtp_ce" in res["log"][0] else ():
+        f, l_ = loss_falls([{"loss": r[key]} for r in res["log"]],
+                           f"{name} {key}", k=k)
+        terms += f"; {key} {f:.4f} -> {l_:.4f}"
+    return (f"{n_params:,} parameters: {ms:.3f} ms a step (median of "
+            f"{len(res['log']) - 1}), max_memory_allocated {peak:,} bytes; "
+            f"loss mean of the first {k} steps {first:.4f} -> last {k} "
+            f"{last:.4f}{terms} [{card}]"), ms
+
+
 def phase_train_lm(card: str) -> dict:
     """granite-3-8b's widths at LM_TRAIN_LAYERS layers in float32 through
-    the Trainer: ms a step, peak, the loss falls."""
+    the Trainer: ms a step, peak, the loss falls, flash_attention not
+    launched."""
     cfg = dataclasses.replace(granite_3_8b.full(), n_layers=LM_TRAIN_LAYERS,
                               dtype="float32")
     task = TrainTask(
@@ -3940,15 +4266,71 @@ def phase_train_lm(card: str) -> dict:
     if counts()["flash_attention"]:
         raise AssertionError("LM training launched flash_attention: it "
                              "trains through _sdpa")
-    first, last = loss_falls(res["log"], cfg.name, k=3)
-    n_params = sum(t.numel() for t in tree_leaves(res["params"].params))
-    ms = step_ms(res["log"])
-    log(f"  {cfg.name} widths at {LM_TRAIN_LAYERS} layers, float32, "
-        f"{n_params:,} parameters, batch {LM_TRAIN_B} x {LM_TRAIN_S:,}: "
-        f"{ms:.3f} ms a step (median of {LM_TRAIN_STEPS - 1}), "
-        f"max_memory_allocated {peak:,} bytes; loss mean of the first 3 "
-        f"steps {first:.4f} -> last 3 {last:.4f} [{card}]")
+    line, ms = lm_train_line(cfg.name, res, peak, card)
+    log(f"  {cfg.name} widths at {LM_TRAIN_LAYERS} layers, float32, batch "
+        f"{LM_TRAIN_B} x {LM_TRAIN_S:,}, {line}")
     return dict(ms=ms, peak=peak)
+
+
+def phase_train_moe(card: str) -> dict:
+    """qwen2-moe-a2.7b's and deepseek-v3-671b's widths through
+    launch/train.build_task and the Trainer in float32: qwen2-moe at
+    LM_TRAIN_LAYERS layers; deepseek-v3 with its MTP head at the depth a
+    probe step predicts under TRAIN_PEAK_LIMIT. ms a step, peak, the loss
+    (and the MTP term) falls, flash_attention not launched."""
+    out = {}
+    task = build_task("qwen2-moe-a2.7b", MOE_TRAIN_STEPS, LM_TRAIN_B,
+                      LM_TRAIN_S, False, device=DEV, config="full",
+                      n_layers=LM_TRAIN_LAYERS)
+    reset_counts()
+    _, res, peak = train_run(task, MOE_TRAIN_STEPS)
+    line, out["qwen2-moe-a2.7b"] = lm_train_line("qwen2-moe-a2.7b", res,
+                                                 peak, card)
+    log(f"  qwen2-moe-a2.7b widths at {LM_TRAIN_LAYERS} layers, float32, "
+        f"batch {LM_TRAIN_B} x {LM_TRAIN_S:,}, {line}")
+    del task, res
+    cfg = deepseek_v3_671b.full()
+
+    def ds_task(n_layers: int, steps: int):
+        task = build_task("deepseek-v3-671b", steps, DS_TRAIN_B, DS_TRAIN_S,
+                          False, device=DEV, config="full", n_layers=n_layers)
+        task.lr, task.warmup = DS_TRAIN_LR, DS_TRAIN_WARMUP
+        return task
+    _, res, probe = train_run(ds_task(1, 1), 1)
+    held = 16 * sum(t.numel() for t in tree_leaves(res["params"].params))
+    del res
+    # each further dense layer: its weights, gradients and two moments,
+    # and at most what the 1-layer step holds beyond those (the head's
+    # logits and the MTP block's included, so an overestimate)
+    per_layer = 16 * (dataclasses.replace(cfg, n_layers=2,
+                                          first_dense_layers=2).n_params()
+                      - dataclasses.replace(cfg, n_layers=1,
+                                            first_dense_layers=1).n_params()) \
+        + (probe - held)
+
+    def predict(n: int) -> float:
+        return probe + (n - 1) * per_layer
+    depth = max([n for n in range(1, DS_TRAIN_MAX_LAYERS + 1)
+                 if predict(n) <= TRAIN_PEAK_LIMIT] or [1])
+    log(f"  deepseek-v3-671b probe step at 1 dense layer, batch {DS_TRAIN_B}"
+        f" x {DS_TRAIN_S:,}: max_memory_allocated {probe:,} bytes ({held:,} "
+        f"of weights, gradients and moments); predicted "
+        + ", ".join(f"{predict(n):,.0f} at {n}"
+                    for n in range(1, DS_TRAIN_MAX_LAYERS + 1))
+        + f"; trains at {depth} (<= {TRAIN_PEAK_LIMIT:,.0f}) [{card}]")
+    torch.cuda.empty_cache()
+    _, res, peak = train_run(ds_task(depth, DS_TRAIN_STEPS), DS_TRAIN_STEPS)
+    if counts()["flash_attention"]:
+        raise AssertionError("MoE and MLA training launched flash_attention: "
+                             "they train through _sdpa")
+    line, out["deepseek-v3-671b"] = lm_train_line("deepseek-v3-671b", res,
+                                                  peak, card)
+    log(f"  deepseek-v3-671b widths at {depth} dense MLA layer(s) with the "
+        f"MTP head, float32, batch {DS_TRAIN_B} x {DS_TRAIN_S:,}, lr "
+        f"{DS_TRAIN_LR:g} after a {DS_TRAIN_WARMUP:,}-step warmup, {line}")
+    del res
+    torch.cuda.empty_cache()
+    return out
 
 
 def guard_check() -> None:
@@ -4003,8 +4385,9 @@ def phase_train(card: str) -> dict:
     torch.cuda.empty_cache()
     xd_out = phase_train_xdeepfm(card)
     lm_out = phase_train_lm(card)
+    moe_out = phase_train_moe(card)
     log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
-    return {"gnn": gnn, "xdeepfm": xd_out, "lm": lm_out}
+    return {"gnn": gnn, "xdeepfm": xd_out, "lm": lm_out, "moe": moe_out}
 
 
 def main() -> None:
@@ -4121,6 +4504,11 @@ def main() -> None:
         "from seed 0; float32 checks at full width and 4 layers")
     lm_counts = phase_lm()
 
+    log(f"[9b/12] {at()} LM serving, MoE and MLA: qwen2-moe-a2.7b full "
+        "config and deepseek-v3-671b's widths at 4 layers, bf16, random "
+        "weights from seed 0; float32 checks")
+    moe_counts = phase_lm_moe(card)
+
     log(f"[10/12] {at()} GNN serving: GCN at the full ogbn-products size; EGNN, "
         "NequIP and Equiformer-v2 full configs on the molecule batch; "
         "random weights from seed 0")
@@ -4129,7 +4517,8 @@ def main() -> None:
     log(f"[11/12] {at()} training through the port's Trainer: GCN at ogbn-products "
         "and EGNN, NequIP, Equiformer-v2 on the molecule batch through "
         "segment_spmm; xDeepFM full() (memory probe, resume, card vs CPU, "
-        "int8 EF through the CLI); granite-3-8b widths at 2 layers")
+        "int8 EF through the CLI); granite-3-8b and qwen2-moe-a2.7b widths "
+        "at 2 layers; deepseek-v3-671b widths with the MTP head")
     train = phase_train(card)
     train_gnn = train["gnn"]
 
@@ -4146,6 +4535,8 @@ def main() -> None:
         xdeepfm_counts["serve_bulk"]["cin_layer"]
     for name, c in lm_counts.items():
         rec[f"flash_attention[{name}]"]["launches"] = c["flash_attention"]
+    for name, c in moe_counts.items():
+        rec[f"flash_attention[moe_{name}]"]["launches"] = c["flash_attention"]
     rec["segment_spmm[ogb_products]"]["launches"] = (
         gnn_counts["gcn"] + train_gnn["gcn"])
     rec["segment_spmm[molecule]"]["launches"] = sum(
@@ -4165,6 +4556,10 @@ def main() -> None:
              "cin_layer[serve_bulk]": "xDeepFM forward at serve_bulk (phase 8)",
              "flash_attention[prefill]": "granite-3-8b prefill (phase 9)",
              "flash_attention[decode]": "granite-3-8b decode (phase 9)",
+             "flash_attention[moe_prefill]": "qwen2-moe-a2.7b prefill "
+                                             "(phase 9b)",
+             "flash_attention[moe_decode]": "qwen2-moe-a2.7b decode "
+                                            "(phase 9b)",
              "segment_spmm[ogb_products]": "GCN forward (phase 10); GNN "
                                            "training (phase 11)",
              "segment_spmm[molecule]":
@@ -4197,7 +4592,9 @@ def main() -> None:
         f"clustering launches {cluster_counts}, xDeepFM "
         f"launches {xdeepfm_counts}, LM launches (prefill of "
         f"{PREFILL_S:,} tokens, {DECODE_STEPS} decode steps) "
-        f"{ {k: c['flash_attention'] for k, c in lm_counts.items()} }, GNN "
+        f"{ {k: c['flash_attention'] for k, c in lm_counts.items()} }, "
+        f"qwen2-moe-a2.7b flash launches (same shapes, 4 sequences) "
+        f"{ {k: c['flash_attention'] for k, c in moe_counts.items()} }, GNN "
         f"segment_spmm launches {gnn_counts}, GNN training segment_spmm "
         f"launches ({GNN_TRAIN_STEPS} steps each) {train_gnn}; total "
         f"{time.perf_counter() - t_start:.1f} s")

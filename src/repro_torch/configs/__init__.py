@@ -6,9 +6,6 @@ Each configs/<id>.py module of an architecture defines:
   smoke()  — a reduced same-family config for CPU tests,
   FAMILY   — "lm" | "gnn" | "recsys",
   SHAPES   — the arch's assigned input-shape ids.
-
-The MoE architectures (qwen2-moe-a2.7b, deepseek-v3-671b) have no port
-config yet: `get_arch` raises for them.
 """
 from __future__ import annotations
 
@@ -25,8 +22,6 @@ ARCH_IDS = [
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
             for a in ARCH_IDS}
-# MoE / MLA / MTP models: not ported (ROADMAP, Queue 1 item 3)
-UNPORTED = ("qwen2-moe-a2.7b", "deepseek-v3-671b")
 
 LM_SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
 GNN_SHAPES = ["full_graph_sm", "minibatch_lg", "ogb_products", "molecule"]
@@ -45,23 +40,15 @@ class ArchSpec:
 def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
-    if arch_id in UNPORTED:
-        raise NotImplementedError(
-            f"{arch_id}: the MoE, MLA and MTP layers are not ported yet "
-            "(ROADMAP, Queue 1 item 3); the port has the dense LMs, the "
-            "GNNs and xDeepFM")
     mod = importlib.import_module(_MODULES[arch_id])
     return ArchSpec(arch_id=arch_id, family=mod.FAMILY,
                     shapes=tuple(mod.SHAPES), full=mod.full, smoke=mod.smoke)
 
 
 def all_cells() -> list[tuple[str, str]]:
-    """Every assigned (arch x shape) cell of the ported archs: the
-    reference's 40 less the 8 of the two MoE archs."""
+    """Every assigned (arch x shape) cell — 40 total."""
     cells = []
     for a in ARCH_IDS:
-        if a in UNPORTED:
-            continue
         spec = get_arch(a)
         cells.extend((a, s) for s in spec.shapes)
     return cells

@@ -9,6 +9,8 @@ arch's reduced config, ``--config full`` its assigned one: xDeepFM at its
 full width (294 M parameters), a GNN's full() on the full-size
 full_graph_sm batch, an LM's full() in float32 (128 GB of parameters,
 gradients and moments at granite-3-8b: more than one card holds).
+``--layers N`` cuts an LM's depth to N layers (a MoE config's leading
+dense layers to at most N), so that an arch's full widths fit one card.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ GNN_CLASSES = {"gcn-cora": "GCN", "egnn": "EGNN", "nequip": "NequIP",
 
 def build_task(arch_id: str, steps: int, batch: int, seq: int,
                compress: bool, *, device="cuda",
-               config: str = "smoke") -> TrainTask:
+               config: str = "smoke", n_layers: int | None = None) -> TrainTask:
     spec = get_arch(arch_id)
     if config not in ("smoke", "full"):
         raise ValueError(f"config must be 'smoke' or 'full', got {config!r}")
@@ -40,6 +42,10 @@ def build_task(arch_id: str, steps: int, batch: int, seq: int,
         from repro_torch.data.tokens import token_batches
         from repro_torch.models.transformer import Transformer, loss_fn
         cfg = dataclasses.replace(cfg, dtype="float32")
+        if n_layers is not None:
+            cfg = dataclasses.replace(
+                cfg, n_layers=n_layers,
+                first_dense_layers=min(cfg.first_dense_layers, n_layers))
         return TrainTask(
             name=arch_id,
             init_params=lambda g: Transformer.random(
@@ -92,10 +98,13 @@ def main(argv=None) -> None:
     ap.add_argument("--compress", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--config", default="smoke", choices=("smoke", "full"))
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut an LM to this many layers")
     args = ap.parse_args(argv)
 
     task = build_task(args.arch, args.steps, args.batch, args.seq,
-                      args.compress, device=args.device, config=args.config)
+                      args.compress, device=args.device, config=args.config,
+                      n_layers=args.layers)
     trainer = Trainer(task, ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every)
     out = trainer.run(steps=args.steps)

@@ -1,29 +1,47 @@
-"""Dense decoder-only transformer LM: serving and training.
+"""Decoder-only transformer LM: serving and training.
 
-The port of the reference's `models/transformer.py` for the dense
-configurations (granite-3-8b, granite-20b, nemotron-4-15b): GQA/MQA
-attention with RoPE, RMSNorm, SwiGLU / GELU / squared-ReLU MLPs, and
-layer-stacked parameters in the reference's pytree layout. It serves
-`forward`, `prefill` and `decode_step` with a KV cache kept in the
-reference's (layers, B, T, Hkv, d_head) layout.
+The port of the reference's `models/transformer.py` for the five LM
+configurations: GQA/MQA attention (granite-3-8b, granite-20b,
+nemotron-4-15b, qwen2-moe-a2.7b) and DeepSeek MLA with its compressed KV
+cache (deepseek-v3-671b), RoPE, RMSNorm, SwiGLU / GELU / squared-ReLU MLPs,
+the shared + routed top-k MoE with capacity-bounded scatter dispatch, the
+MTP head's loss term, and layer-stacked parameters in the reference's
+pytree layout. It serves `forward`, `prefill` and `decode_step` with a
+cache kept in the reference's layouts: (layers, B, T, Hkv, d_head) keys and
+values, or MLA's (layers, B, T, kv_lora) latent and (layers, B, T, 1, rope)
+decoupled key. The layers run dense first, then MoE, as the reference
+stacks them.
 
-Attention goes through the flash-attention op (`kernels.flash_attention`):
-the hand-written CUDA kernel for tensors on the card, its plain version on
-the CPU. ``use_kernel=False`` selects `_sdpa`, the port of the reference's
-XLA-level attention, which rounds the probabilities to the input dtype
-before the value product as the reference does; it is there for the
-comparisons, and it is the attention training runs through.
+GQA attention goes through the flash-attention op
+(`kernels.flash_attention`): the hand-written CUDA kernel for tensors on
+the card, its plain version on the CPU. ``use_kernel=False`` selects
+`_sdpa`, the port of the reference's XLA-level attention, which rounds the
+probabilities to the input dtype before the value product as the reference
+does; it is there for the comparisons, and it is the attention training
+runs through. MLA reaches no kernel in the reference and none here: its
+prefill expands the latent into per-head keys and values for `_sdpa`
+(query/key head 192, value head 128 at deepseek-v3), and its decode step
+attends in the latent space with `wkv_b` absorbed into the query and the
+output.
+
+The MoE layer (`_moe_mlp`) follows the reference's one-device dispatch:
+float32 router softmax, top-k with ties to the lower expert index, slots
+ranked within their expert by a stable sort, (token, k) pairs past the
+capacity dropped, the kept ones copied into (E, capacity, D) for the
+batched expert products and gathered back. The reference's expert-parallel
+`shard_map` and split-KV decodes run on a mesh and are not ported (ROADMAP,
+Queue 1 item 5).
 
 Training (`hidden_forward`, `ce_from_hidden`, `loss_fn`) follows the
 reference's plain path: `_sdpa` attention under autograd, the cross-entropy
 over the unpadded vocabulary, optionally in sequence chunks each
 recomputed in the backward (``ce_chunk``, `torch.utils.checkpoint` where
-the reference maps `jax.checkpoint` over the chunks), and with
-``remat=True`` each layer recomputed in the backward, as the reference's
-`_scan_layers` checkpoints its scan body. DeepSeek MLA, the MoE layers and
-the MTP head are not ported yet (ROADMAP, Queue 1 item 3).
+the reference maps `jax.checkpoint` over the chunks), with ``remat=True``
+each layer recomputed in the backward, as the reference's `_scan_layers`
+checkpoints its scan body, and the MTP term (0.3 x the next-next-token
+cross-entropy of one extra dense block) where the config has one.
 
-Unlike the reference's functional cache, the KV cache is updated in place:
+Unlike the reference's functional cache, the cache is updated in place:
 `prefill` and `decode_step` write the new slots into the cache tensors they
 are given and return those same tensors. A functional copy of the cache
 (42.9 GB for granite-3-8b at batch 8 and 32,768 slots) does not fit beside
@@ -146,15 +164,16 @@ class LMConfig:
         return dense_all - inactive
 
 
-def _check_dense(cfg: LMConfig) -> None:
-    for flag, what in ((cfg.attn == "mla", "MLA attention"),
-                       (cfg.moe, "MoE layers"),
-                       (cfg.mtp_depth > 0, "the MTP head")):
-        if flag:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet (ROADMAP, Queue 1 "
-                "item 3); the port serves and trains the dense GQA/MQA "
-                "configs")
+def _depths(cfg: LMConfig) -> tuple[int, int]:
+    """(dense layers, MoE layers): a MoE config's first_dense_layers are
+    dense, as the reference's `init_params` stacks them."""
+    if not cfg.moe:
+        return cfg.n_layers, 0
+    if not 0 <= cfg.first_dense_layers <= cfg.n_layers:
+        raise ValueError(
+            f"{cfg.name}: first_dense_layers {cfg.first_dense_layers} does "
+            f"not fit in {cfg.n_layers} layers; cut it with the depth")
+    return cfg.first_dense_layers, cfg.n_layers - cfg.first_dense_layers
 
 
 # ---------------------------------------------------------------------------
@@ -260,26 +279,187 @@ def _gqa_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
     return out.reshape(B, S, c.n_heads * c.d_head) @ p["wo"]
 
 
-def _layer_fwd(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
-               use_kernel: bool = True):
-    h = _gqa_attention(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps),
-                       positions, q_start, cache, use_kernel=use_kernel)
+def _mla_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
+                   use_kernel: bool = True):
+    """DeepSeek MLA with the compressed cache: ``cache`` is (cc, cr, cur),
+    the layer's (B, T, kv_lora) latent and (B, T, 1, rope) decoupled key,
+    into whose slots cur .. cur + S the new entries are written in place.
+    The attention reads the slots up to cur + S only: the reference's
+    masks give the later ones probability zero. A decode step (S = 1 with a
+    cache) attends in the latent space with `wkv_b` absorbed; otherwise the
+    latent is expanded into per-head keys and values for `_sdpa`. MLA
+    reaches no kernel (``use_kernel`` is accepted for the GQA signature)."""
+    c = cfg
+    B, S, D = x.shape
+    qin = rmsnorm(x @ p["wq_a"], p["q_norm"], c.norm_eps) \
+        if c.q_lora_rank else x
+    q = (qin @ p["wq_b"]).reshape(B, S, c.n_heads,
+                                  c.qk_nope_dim + c.qk_rope_dim)
+    q_nope, q_rope = q.split([c.qk_nope_dim, c.qk_rope_dim], dim=-1)
+    c_kv, k_rope = (x @ p["wkv_a"]).split([c.kv_lora_rank, c.qk_rope_dim],
+                                          dim=-1)
+    c_kv = rmsnorm(c_kv, p["kv_norm"], c.norm_eps)
+    cos, sin = rope_freqs(positions, c.qk_rope_dim, c.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)   # (B, S, 1, rope)
+    if cache is not None:
+        cc, cr, cur = cache
+        if not 0 <= cur <= cc.shape[1] - S:
+            raise ValueError(f"cache of {cc.shape[1]} slots cannot take "
+                             f"{S} rows at position {cur}")
+        cc[:, cur:cur + S] = c_kv
+        cr[:, cur:cur + S] = k_rope
+        c_kv, k_rope = cc[:, :cur + S], cr[:, :cur + S]
+
+    scale = 1.0 / math.sqrt(c.qk_nope_dim + c.qk_rope_dim)
+    if cache is not None and S == 1:
+        # absorbed decode: the per-token (B, T, H, .) keys and values are
+        # never formed; memory per layer stays O(B T kv_lora)
+        w_uk, w_uv = p["wkv_b"].reshape(
+            c.kv_lora_rank, c.n_heads, c.qk_nope_dim + c.v_head_dim).split(
+            [c.qk_nope_dim, c.v_head_dim], dim=-1)
+        q_lat = torch.einsum("bshd,lhd->bshl", q_nope, w_uk)
+        scores = (torch.einsum("bshl,btl->bhst", q_lat, c_kv)
+                  + torch.einsum("bshr,btur->bhst", q_rope, k_rope)) * scale
+        cols = torch.arange(c_kv.shape[1], device=x.device)
+        scores = torch.where(cols <= q_start, scores.float(), -1e30)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhst,btl->bshl", probs, c_kv)
+        out = torch.einsum("bshl,lhd->bshd", ctx, w_uv)
+    else:
+        T = c_kv.shape[1]
+        k_nope, v = (c_kv @ p["wkv_b"]).reshape(
+            B, T, c.n_heads, c.qk_nope_dim + c.v_head_dim).split(
+            [c.qk_nope_dim, c.v_head_dim], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(B, T, c.n_heads,
+                                             c.qk_rope_dim)], dim=-1)
+        out = _sdpa(torch.cat([q_nope, q_rope], dim=-1), k, v, scale,
+                    q_start, chunk=c.attn_chunk)
+    return out.reshape(B, S, c.n_heads * c.v_head_dim) @ p["wo"]
+
+
+def moe_capacity(cfg: LMConfig, n_tokens: int) -> int:
+    """Slots per expert for a batch of ``n_tokens`` tokens: the reference's
+    rule, rounded up to a multiple of 512 from 4,096 tokens on."""
+    cap = int(np.ceil(n_tokens * cfg.top_k / cfg.n_experts
+                      * cfg.capacity_factor))
+    cap = max(8, min(cap, n_tokens))
+    if n_tokens >= 4096:
+        cap = int(np.ceil(cap / 512)) * 512
+    return cap
+
+
+def moe_route(p, cfg: LMConfig, xt):
+    """Routing of (T, D) tokens: (gates (T, k) in the input dtype, expert
+    ids (T, k), each (token, k) pair's expert and slot as flat (T k,)
+    indices — (0, 0) where dropped — and the kept mask). Top-k takes ties
+    in the lower expert index first, as `jax.lax.top_k` does; a stable sort
+    of the flat expert ids ranks each pair within its expert in token
+    order, and the pairs ranked past the capacity drop."""
+    c = cfg
+    T = xt.shape[0]
+    logits = (xt @ p["router"]).float()                        # (T, E)
+    probs, ranked = torch.sort(torch.softmax(logits, dim=-1), dim=-1,
+                               descending=True, stable=True)
+    gates, idx = probs[:, :c.top_k], ranked[:, :c.top_k]
+    gates = (gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)) \
+        .to(xt.dtype)
+    eid = idx.reshape(T * c.top_k)
+    order = torch.sort(eid, stable=True).indices
+    sorted_eid = eid[order]
+    starts = torch.searchsorted(
+        sorted_eid, torch.arange(c.n_experts, device=xt.device))
+    pos = torch.empty_like(eid)
+    pos[order] = torch.arange(T * c.top_k, device=xt.device) \
+        - starts[sorted_eid]
+    keep = pos < moe_capacity(c, T)
+    return (gates, idx, torch.where(keep, eid, 0), torch.where(keep, pos, 0),
+            keep)
+
+
+def moe_dispatch(cfg: LMConfig, xt, e_safe, p_safe, keep):
+    """(T, D) tokens into the (E, capacity, D) expert buffer: each kept
+    (token, k) pair copied into its own slot, zeros elsewhere. The dropped
+    pairs are written to one spare row past the buffer, which nothing
+    reads, so every slot is written at most once and the buffer equals the
+    reference's (whose dropped pairs add zeros into slot (0, 0)) without
+    an accumulating scatter."""
+    E, D = cfg.n_experts, xt.shape[1]
+    cap = moe_capacity(cfg, xt.shape[0])
+    slot = torch.where(keep, e_safe * cap + p_safe, E * cap)
+    tok = torch.arange(slot.shape[0], device=xt.device) // cfg.top_k
+    return xt.new_zeros((E * cap + 1, D)).index_put((slot,), xt[tok])[:-1] \
+        .view(E, cap, D)
+
+
+def moe_experts(w, cfg: LMConfig, buf):
+    """The experts' MLPs over every slot: (E, capacity, D) batched
+    products with the (E, D, F) and (E, F, D) weights."""
+    if cfg.mlp == "swiglu":
+        h = F.silu(torch.bmm(buf, w["w_gate"])) * torch.bmm(buf, w["w_in"])
+    else:
+        h = _act(torch.bmm(buf, w["w_in"]), cfg.mlp)
+    return torch.bmm(h, w["w_out"])
+
+
+def _moe_mlp(p, cfg: LMConfig, x, drops: list | None = None):
+    """Capacity-bounded top-k MoE with scatter dispatch (no (T, E, C)
+    one-hot): the kept (token, k) pairs scattered into (E, capacity, D),
+    the experts' MLPs as batched products, the pairs gathered back (a
+    dropped one reads slot (0, 0) and is zeroed, as in the reference) and
+    summed with their gates, the shared expert added. ``drops`` gets the
+    count of dropped pairs (a 0-d tensor; no host sync)."""
+    c = cfg
+    B, S, D = x.shape
+    T = B * S
+    xt = x.reshape(T, D)
+    gates, _, e_safe, p_safe, keep = moe_route(p, c, xt)
+    if drops is not None:
+        drops.append((~keep).sum())
+    out_e = moe_experts(p["experts"], c,
+                        moe_dispatch(c, xt, e_safe, p_safe, keep))
+    gath = out_e[e_safe, p_safe] * keep[:, None]               # (T k, D)
+    comb = (gath.reshape(T, c.top_k, D) * gates[..., None]).sum(dim=1)
+    if c.n_shared_experts:
+        comb = comb + _mlp(p["shared"], xt, c.mlp)
+    return comb.reshape(B, S, D)
+
+
+def _layer_fwd(p, cfg: LMConfig, x, positions, q_start, moe: bool = False,
+               cache=None, *, use_kernel: bool = True,
+               drops: list | None = None):
+    attn = _mla_attention if cfg.attn == "mla" else _gqa_attention
+    h = attn(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps), positions,
+             q_start, cache, use_kernel=use_kernel)
     x = x + h
     z = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(p["mlp"], z, cfg.mlp)
+    return x + (_moe_mlp(p, cfg, z, drops) if moe
+                else _mlp(p["mlp"], z, cfg.mlp))
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
-    """Stacked per-layer KV cache, zeros: {"dense": (ck, cv), "moe": None}
-    with ck, cv of shape (n_layers, batch, max_len, n_kv_heads, d_head)."""
-    _check_dense(cfg)
+    """Stacked per-layer cache, zeros, in the reference's layout:
+    {"dense": stack or None, "moe": stack or None}, each stack a pair over
+    its layers: (keys, values) of shape (layers, batch, max_len,
+    n_kv_heads, d_head), or for MLA the latent (layers, batch, max_len,
+    kv_lora_rank) and the decoupled key (layers, batch, max_len, 1,
+    qk_rope_dim)."""
     dt = dtype or getattr(torch, cfg.dtype)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return {"dense": (torch.zeros(shape, dtype=dt, device=dev),
-                      torch.zeros(shape, dtype=dt, device=dev)),
-            "moe": None}
+
+    def mk(n):
+        if n == 0:
+            return None
+        if cfg.attn == "mla":
+            shapes = ((n, batch, max_len, cfg.kv_lora_rank),
+                      (n, batch, max_len, 1, cfg.qk_rope_dim))
+        else:
+            shapes = ((n, batch, max_len, cfg.n_kv_heads, cfg.d_head),) * 2
+        return tuple(torch.zeros(s, dtype=dt, device=dev) for s in shapes)
+
+    n_dense, n_moe = _depths(cfg)
+    return {"dense": mk(n_dense), "moe": mk(n_moe)}
 
 
 # ---------------------------------------------------------------------------
@@ -297,22 +477,33 @@ def _tensor(a, dev) -> torch.Tensor:
 
 
 class Transformer:
-    """A dense LM's parameters on one device and its serving entry points.
+    """An LM's parameters on one device and its serving entry points.
 
     ``params`` holds the reference's pytree: "embed" (V, D), "final_norm"
-    (D,), "lm_head" (D, V) unless embeddings are tied, and "dense_layers"
-    with each leaf stacked over the layers ("attn": wq, wk, wv, wo; "ln1",
-    "ln2"; "mlp": w_in, w_out and, for SwiGLU, w_gate). Build it with
-    `Transformer.random` or `Transformer.from_jax`.
+    (D,), "lm_head" (D, V) unless embeddings are tied; "dense_layers" and,
+    for a MoE config, "moe_layers", with each leaf stacked over the stack's
+    layers ("attn": wq, wk, wv, wo, or MLA's wq_a, q_norm, wq_b, wkv_a,
+    kv_norm, wkv_b, wo; "ln1", "ln2"; a dense layer's "mlp": w_in, w_out
+    and, for SwiGLU, w_gate; a MoE layer's "router", "experts" with each
+    matrix stacked over (layers, E) and "shared"); and for an MTP config
+    "mtp": "proj" (2 D, D) and "block", one dense layer. Build it with
+    `Transformer.random` or `Transformer.from_jax`. ``dropped`` holds, after
+    each call, the (token, k) pairs each MoE layer dropped (0-d tensors on
+    the device).
     """
 
     def __init__(self, cfg: LMConfig, params: dict):
-        _check_dense(cfg)
         self.cfg = cfg
         self.params = params
-        stacked = params["dense_layers"]
-        self.layers = [_map(stacked, lambda t, i=i: t[i])
-                       for i in range(cfg.n_layers)]
+        n_dense, n_moe = _depths(cfg)
+        self.stacks = [
+            (name, moe, [_map(params[key], lambda t, i=i: t[i])
+                         for i in range(n)])
+            for name, key, moe, n in (("dense", "dense_layers", False,
+                                       n_dense),
+                                      ("moe", "moe_layers", True, n_moe))
+            if n]
+        self.dropped: list = []
 
     @property
     def device(self) -> torch.device:
@@ -324,43 +515,86 @@ class Transformer:
         """Weights drawn from a seeded torch.Generator on ``device``: each
         matrix normal x 1/sqrt(fan-in), the embedding normal x 0.02, the
         norms at one, as the reference's `_dense` draws them (the numbers
-        differ from JAX's for the same seed). The fan-in is each layer's
-        matrix's input width; the reference's `init_params` reads it off the
-        first axis of the layer-stacked array, i.e. the layer count, which
-        would make every layer's scale depend on how far the depth is cut.
-        Layers are drawn one at a time in float32 and cast, so the 8B config
-        needs no float32 copy of a whole stack."""
-        _check_dense(cfg)
+        differ from JAX's for the same seed). The fan-in is each matrix's
+        input width (D for an expert's w_in, its d_ff for w_out); the
+        reference's `init_params` reads it off the first axis of the
+        stacked array, i.e. the layer count, which would make every layer's
+        scale depend on how far the depth is cut. Matrices are drawn one at
+        a time (one layer's, or one expert's) in float32 and cast, so no
+        float32 copy of a whole stack is needed. A dense config's weights
+        are drawn in the order they always were: its layers, the embedding,
+        the head; the MoE layers and the MTP head follow."""
         dev = resolve_device(device)
         dt = dtype or getattr(torch, cfg.dtype)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        d, L = cfg.d_model, cfg.n_layers
+        c, d = cfg, cfg.d_model
+        n_dense, n_moe = _depths(cfg)
 
         def normal(*shape, scale, stack=()):
             out = torch.empty((*stack, *shape), dtype=dt, device=dev)
-            for view in (out if stack else [out]):
+            for view in out.view(-1, *shape):
                 view.copy_(torch.randn(shape, generator=gen, device=dev) * scale)
             return out
 
-        def dense(fan_in, fan_out, stack=(L,)):
+        def dense(fan_in, fan_out, stack):
             return normal(fan_in, fan_out, scale=1.0 / math.sqrt(fan_in),
                           stack=stack)
 
-        ones = torch.ones((L, d), dtype=dt, device=dev)
-        layers = {
-            "attn": {"wq": dense(d, cfg.n_heads * cfg.d_head),
-                     "wk": dense(d, cfg.n_kv_heads * cfg.d_head),
-                     "wv": dense(d, cfg.n_kv_heads * cfg.d_head),
-                     "wo": dense(cfg.n_heads * cfg.d_head, d)},
-            "ln1": ones, "ln2": ones.clone(),
-            "mlp": {"w_in": dense(d, cfg.d_ff), "w_out": dense(cfg.d_ff, d)}}
-        if cfg.mlp == "swiglu":
-            layers["mlp"]["w_gate"] = dense(d, cfg.d_ff)
-        params = {"embed": normal(cfg.padded_vocab, d, scale=0.02),
-                  "final_norm": torch.ones((d,), dtype=dt, device=dev),
-                  "dense_layers": layers}
-        if not cfg.tie_embeddings:
-            params["lm_head"] = dense(d, cfg.padded_vocab, stack=())
+        def ones(*shape):
+            return torch.ones(shape, dtype=dt, device=dev)
+
+        def attn(stack):
+            if c.attn != "mla":
+                return {"wq": dense(d, c.n_heads * c.d_head, stack),
+                        "wk": dense(d, c.n_kv_heads * c.d_head, stack),
+                        "wv": dense(d, c.n_kv_heads * c.d_head, stack),
+                        "wo": dense(c.n_heads * c.d_head, d, stack)}
+            a = {}
+            if c.q_lora_rank:
+                a["wq_a"] = dense(d, c.q_lora_rank, stack)
+                a["q_norm"] = ones(*stack, c.q_lora_rank)
+            a["wq_b"] = dense(c.q_lora_rank or d,
+                              c.n_heads * (c.qk_nope_dim + c.qk_rope_dim),
+                              stack)
+            a["wkv_a"] = dense(d, c.kv_lora_rank + c.qk_rope_dim, stack)
+            a["kv_norm"] = ones(*stack, c.kv_lora_rank)
+            a["wkv_b"] = dense(c.kv_lora_rank,
+                               c.n_heads * (c.qk_nope_dim + c.v_head_dim),
+                               stack)
+            a["wo"] = dense(c.n_heads * c.v_head_dim, d, stack)
+            return a
+
+        def mlp(ff, stack):
+            m = {"w_in": dense(d, ff, stack), "w_out": dense(ff, d, stack)}
+            if c.mlp == "swiglu":
+                m["w_gate"] = dense(d, ff, stack)
+            return m
+
+        def layer(stack, moe):
+            lp = {"attn": attn(stack), "ln1": ones(*stack, d),
+                  "ln2": ones(*stack, d)}
+            if not moe:
+                lp["mlp"] = mlp(c.d_ff, stack)
+                return lp
+            lp["router"] = dense(d, c.n_experts, stack)
+            lp["experts"] = mlp(c.moe_d_ff, (*stack, c.n_experts))
+            if c.n_shared_experts:
+                lp["shared"] = mlp(c.shared_d_ff
+                                   or c.moe_d_ff * c.n_shared_experts, stack)
+            return lp
+
+        params = {}
+        if n_dense:
+            params["dense_layers"] = layer((n_dense,), False)
+        params["embed"] = normal(c.padded_vocab, d, scale=0.02)
+        params["final_norm"] = ones(d)
+        if not c.tie_embeddings:
+            params["lm_head"] = dense(d, c.padded_vocab, ())
+        if n_moe:
+            params["moe_layers"] = layer((n_moe,), True)
+        if c.mtp_depth:
+            params["mtp"] = {"proj": dense(2 * d, d, ()),
+                             "block": layer((), False)}
         return cls(cfg, params)
 
     @classmethod
@@ -368,7 +602,6 @@ class Transformer:
                  device="cuda") -> Transformer:
         """Carry the reference's `init_params(cfg, key)` output (JAX or
         numpy arrays, same pytree) onto ``device``."""
-        _check_dense(cfg)
         dev = resolve_device(device)
         return cls(cfg, _map(params, lambda a: _tensor(a, dev)))
 
@@ -388,11 +621,14 @@ class Transformer:
              use_kernel):
         p = self.params
         x = p["embed"][tokens]
-        for i, lp in enumerate(self.layers):
-            layer_cache = None if cache is None else (
-                cache["dense"][0][i], cache["dense"][1][i], cur)
-            x = _layer_fwd(lp, self.cfg, x, positions, q_start, layer_cache,
-                           use_kernel=use_kernel)
+        self.dropped = []
+        for name, moe, layers in self.stacks:
+            for i, lp in enumerate(layers):
+                layer_cache = None if cache is None else (
+                    cache[name][0][i], cache[name][1][i], cur)
+                x = _layer_fwd(lp, self.cfg, x, positions, q_start, moe,
+                               layer_cache, use_kernel=use_kernel,
+                               drops=self.dropped)
         x = rmsnorm(x, p["final_norm"], self.cfg.norm_eps)
         head = p["embed"].T if self.cfg.tie_embeddings else p["lm_head"]
         return x @ head
@@ -431,20 +667,23 @@ class Transformer:
 
 def hidden_forward(params, cfg: LMConfig, tokens, *, remat: bool = False):
     """tokens (B, S) -> final hidden states (B, S, D) (pre-head), through
-    `_sdpa` attention. ``remat`` recomputes each layer in the backward."""
-    _check_dense(cfg)
+    `_sdpa` attention, the dense layers then the MoE layers. ``remat``
+    recomputes each layer in the backward."""
     S = tokens.shape[1]
     x = F.embedding(tokens, params["embed"])
     positions = torch.arange(S, device=tokens.device)[None]
-    stacked = params["dense_layers"]
+    n_dense, n_moe = _depths(cfg)
 
-    def layer(x, i):
+    def layer(x, stacked, i, moe):
         lp = _map(stacked, lambda t: t[i])
-        return _layer_fwd(lp, cfg, x, positions, 0, use_kernel=False)
+        return _layer_fwd(lp, cfg, x, positions, 0, moe, use_kernel=False)
 
-    for i in range(cfg.n_layers):
-        x = (checkpoint(layer, x, i, use_reentrant=False) if remat
-             else layer(x, i))
+    for key, moe, n in (("dense_layers", False, n_dense),
+                        ("moe_layers", True, n_moe)):
+        for i in range(n):
+            x = (checkpoint(layer, x, params[key], i, moe,
+                            use_reentrant=False) if remat
+                 else layer(x, params[key], i, moe))
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -491,11 +730,29 @@ def ce_from_hidden(x, head, labels, cfg: LMConfig):
 
 def loss_fn(params, cfg: LMConfig, tokens, labels, *, remat: bool = False):
     """Causal LM loss; labels == -100 masked; pad-vocab ids masked out.
-    Returns (loss, {"ce", "loss"}). The MTP term is not ported."""
+
+    Returns (loss, metrics). MTP adds the DeepSeek-V3 next-next-token term:
+    the tokens and the next ones re-embedded, projected to D, one dense
+    block, the shared head against the labels rolled by one; loss + 0.3 x
+    its cross-entropy ("mtp_ce")."""
     x = hidden_forward(params, cfg, tokens, remat=remat)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     main = ce_from_hidden(x, head, labels, cfg)
-    return main, {"ce": main, "loss": main}
+    metrics = {"ce": main}
+    loss = main
+    if cfg.mtp_depth and "mtp" in params:
+        embed = params["embed"]
+        h = torch.cat([F.embedding(tokens, embed),
+                       F.embedding(torch.roll(tokens, -1, dims=1), embed)],
+                      dim=-1) @ params["mtp"]["proj"]
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        h = _layer_fwd(params["mtp"]["block"], cfg, h, positions, 0,
+                       use_kernel=False)
+        mtp = ce_from_hidden(h, head, torch.roll(labels, -1, dims=1), cfg)
+        loss = loss + 0.3 * mtp
+        metrics["mtp_ce"] = mtp
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def _map(tree, fn):

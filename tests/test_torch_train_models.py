@@ -246,9 +246,23 @@ def test_lm_loss_and_grads_match_jax(ce_chunk, remat):
 
 
 def test_lm_loss_rejects_unported_layers():
-    cfg = lm.LMConfig(**{**LM_CFG, "name": "moe"}, moe=True, n_experts=4,
-                      top_k=2)
-    with pytest.raises(NotImplementedError):
+    """Until the MoE layers were ported `hidden_forward` refused a MoE
+    config (NotImplementedError); now it takes one: the hidden states of
+    the dense LM's widths with two MoE layers equal the reference's
+    `hidden_forward`, and parameters without the config's leaves raise
+    a KeyError."""
+    kw = dict(LM_CFG, name="moe", moe=True, n_experts=4, top_k=2,
+              moe_d_ff=16)
+    jcfg, cfg = j_lm.LMConfig(**kw), lm.LMConfig(**kw)
+    jp = j_lm.init_params(jcfg, jax.random.PRNGKey(0))
+    toks = np.random.default_rng(2).integers(0, 128, (2, 8)).astype(np.int32)
+    ref = np.asarray(jax.jit(lambda p, t: j_lm.hidden_forward(p, jcfg, t))(
+        jp, toks))
+    model = lm.Transformer.from_jax(cfg, jp, device="cpu")
+    out = lm.hidden_forward(model.params, cfg, torch.from_numpy(toks))
+    assert tuple(out.shape) == (2, 8, 32)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
+    with pytest.raises(KeyError):
         lm.hidden_forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32))
 
 

@@ -37,7 +37,9 @@ from repro_torch.kernels.flash_attention.ops import \
     flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
     attention_split_ref  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
+from repro_torch.runtime.trainer import Trainer  # noqa: E402
 
 RNG = np.random.default_rng(11)
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}      # tests/test_kernels.py's
@@ -273,15 +275,35 @@ def test_token_batches_copy():
 
 
 def test_unported_configs_raise():
+    """The MoE and MLA archs were refused here until they were ported; the
+    test now holds what is true: both build (`Transformer.random` with the
+    reference's leaf count, `init_cache` in the reference's layouts), an
+    MTP head comes across through `from_jax`, and what stays unported is
+    the mesh: the Trainer refuses one (ROADMAP, Queue 1 item 5)."""
     for arch in ("qwen2-moe-a2.7b", "deepseek-v3-671b"):
-        cfg = tr.LMConfig(**dataclasses.asdict(get_arch(arch).smoke()))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tr.Transformer.random(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tr.init_cache(cfg, 1, 4, device="cpu")
+        jcfg = get_arch(arch).smoke()
+        cfg = tr.LMConfig(**dataclasses.asdict(jcfg))
+        shapes = jax.eval_shape(lambda key: jtr.init_params(jcfg, key),
+                                jax.random.PRNGKey(0))
+        model = tr.Transformer.random(cfg, device="cpu")
+        assert model.n_params() == sum(a.size
+                                       for a in jax.tree.leaves(shapes))
+        cache = tr.init_cache(cfg, 1, 4, device="cpu")
+        ref = jax.eval_shape(lambda: jtr.init_cache(jcfg, 1, 4))
+        for stack in ("dense", "moe"):
+            if ref[stack] is None:
+                assert cache[stack] is None
+            else:
+                assert [tuple(t.shape) for t in cache[stack]] == \
+                    [a.shape for a in ref[stack]]
     cfg = dataclasses.replace(granite_3_8b.smoke(), mtp_depth=1)
-    with pytest.raises(NotImplementedError, match="MTP"):
-        tr.Transformer.from_jax(cfg, {}, device="cpu")
+    jp = jtr.init_params(jtr.LMConfig(**dataclasses.asdict(cfg)),
+                         jax.random.PRNGKey(0))
+    model = tr.Transformer.from_jax(cfg, jp, device="cpu")
+    assert sorted(model.params["mtp"]) == ["block", "proj"]
+    task = train.build_task("qwen2-moe-a2.7b", 1, 1, 8, False, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        Trainer(task, mesh=object())
 
 
 def test_random_weights_follow_the_reference_distribution():
