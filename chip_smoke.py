@@ -70,7 +70,12 @@ order; any failure exits non-zero:
    decode (8 x 32 heads over a 32,768-slot cache at q_start 32,760; route
    "split") shapes, and qwen2-moe-a2.7b's (16 heads over 16 KV heads; a
    decode step of 4 sequences), each timed in bfloat16 and listed as a
-   kernel record of its own; bag_sum
+   kernel record of its own; the split route with its log-sum-exp
+   (return_lse) on a sweep (G 1, 4, 48 in groups of 16 rows, S up to 4,
+   one chunk or many, head dims 7 and 100; output within FLASH_TOL, lse
+   within 1e-4 of attention_lse_ref) and at the split decode's rank
+   shape (4 x 32 heads over a rank's 8,192 slots; its own record, whose
+   launches are phase 11b's); bag_sum
    (an op no path calls) within atol 1e-5 on a ragged sweep and over the
    full xDeepFM table (26.4M x 10) at 262,144 bags of 39 (two launches
    bit-identical; device time, F.embedding_bag's, and the bound of the
@@ -250,6 +255,27 @@ order; any failure exits non-zero:
    under 70 GB), batch 1 x 2,048, 8 steps on DeepSeek-V3's warmup (ms a
    step, peak, the loss and the MTP term fall, flash_attention not
    launched);
+11b. mesh models — the model-parallel mesh with gloo ranks (processes)
+   sharing the one card, each piece against the one-device path on the
+   card: deepseek-v3-671b's MoE layer (256 experts of (7,168, 2,048),
+   bf16, 5.6 GB of them a rank) expert-parallel on 1 x 4 over a 1 x
+   4,096 prefill, and qwen2-moe-a2.7b's over 2 x 4,096 tokens on 2 x 4
+   (EP, the data dim re-gathered) and on 1 x 8 (expert-TP: 60 % 8 != 0),
+   at a capacity factor with no drops, each within 3e-2 of max |out| of
+   the one-device layer run on the same data blocks, the model columns
+   bit-identical, one all_reduce a layer (its bytes printed); the GQA
+   split-KV decode at granite-3-8b's widths (2 layers, 8 sequences over
+   32,768 slots from 32,760) on 2 x 4 in float32 (logits within
+   CHECK_LOGIT_SHARE of max |logit| of the one-device flash decode) and
+   bf16 (within 3e-2), batch 8 and 1, every rank launching flash's
+   split route with its lse once a layer a step, ms a step and the bytes
+   reduced; the MLA split decode at deepseek-v3's widths (2 dense
+   layers, bf16, wkv_b held a block over "model" and gathered) on 2 x 2;
+   the Trainer at granite-3-8b's widths (2 layers, float32, batch 4 x
+   1,024, lm_rules(fsdp=True)) for 3 steps on 2 x 2 against the
+   one-device Trainer (losses within 1e-3 relative), checkpointed (rank 0
+   writes the one-device layout), restored onto 4 x 1 for a fourth step;
+   peak memory a rank;
 12. summary — every kernel's launches on its path.
 
 The last three lines are the card's name and power limit, a JSON line of
@@ -266,6 +292,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -314,7 +341,7 @@ from repro_torch.kernels.flash_attention import \
     kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    attention_ref, attention_split_ref)
+    attention_lse_ref, attention_ref, attention_split_ref)
 from repro_torch.kernels.jaccard import kernel as jac_kernel  # noqa: E402
 from repro_torch.kernels.jaccard import ops as jac_ops  # noqa: E402
 from repro_torch.kernels.jaccard.ref import jaccard_distance_ref  # noqa: E402
@@ -354,7 +381,9 @@ from repro_torch.launch.serve import (PipelineConfig,  # noqa: E402
                                       replay_paced, request_stream,
                                       serve_worker, stop_workers,
                                       two_phase_weights)
-from repro_torch.sharding.rules import kg_local  # noqa: E402
+from repro_torch.sharding.rules import (P, kg_local,  # noqa: E402
+                                        lm_rules, local_slice,
+                                        make_param_specs)
 from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.models.gnn.egnn import EGNN  # noqa: E402
 from repro_torch.models.gnn.equiformer_v2 import EquiformerV2  # noqa: E402
@@ -2051,6 +2080,7 @@ def phase_kernels() -> dict:
     log("  " + flash_sass())
     for name, r in flash_record().items():
         rec[f"flash_attention[{name}]"] = r
+    rec["flash_attention[decode_lse]"] = flash_lse_record()
 
     rec["bag_sum"] = bag_record()
     spmm_sweep()
@@ -4390,6 +4420,568 @@ def phase_train(card: str) -> dict:
     return {"gnn": gnn, "xdeepfm": xd_out, "lm": lm_out, "moe": moe_out}
 
 
+# ---------------------------------------------------------------------------
+# phase 11b: the model-parallel mesh, gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+MM_SEED = 7
+MM_TIMEOUT, MM_JOIN = 600.0, 900.0   # a collective's wait; a spawn's in all
+# bfloat16 results against the one-device path on the card: max |diff| as
+# a share of the one-device result's largest |value|. Both round to
+# bfloat16 (2**-8 relative) at different points: the mesh sums partial
+# expert outputs, or combines normalised attention partials, in float32
+# after each rank rounded its own part, and those steps' differences pass
+# through the later layers' bfloat16 products. float32 at full width is
+# held at CHECK_LOGIT_SHARE.
+MM_BF16_SHARE = 3e-2
+MM_TRAIN_RTOL = 1e-3         # mesh Trainer's losses against one device's
+MM_DS_TOKENS = 4096          # deepseek-v3's MoE layer: a 1 x 4,096 prefill
+MM_QWEN_B, MM_QWEN_S = 2, 4096   # qwen2-moe's: 2 x 4,096 tokens
+MM_DECODE_LAYERS, MM_DECODE_REPS = 2, 5
+MM_TRAIN_B, MM_TRAIN_S, MM_TRAIN_STEPS = 4, 1024, 3
+MM_CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_mesh_ckpt"
+# flash's lse route at the split decode's rank shape: granite-3-8b's 8
+# sequences over a 32,768-slot cache on 2 x 4, a rank's 4 sequences over
+# its 8,192 slots, the last slice (cur - its offset = 8,184)
+LSE_B, LSE_T, LSE_LIM = 4, 8192, DECODE_CUR - 3 * 8192
+# flash's lse output against attention_lse_ref's: float32 lse of the same
+# float32 scores in another summation order
+LSE_ATOL = 1e-4
+
+
+def flash_lse_case(b, hkv, g, s, t, d, dt, q_start: int) -> tuple:
+    """(max |out diff|, max |lse diff|) of flash_attention(...,
+    return_lse=True) on cache-layout views against attention_lse_ref;
+    fails beyond FLASH_TOL and LSE_ATOL, or if the launches are not one a
+    group of at most 16 rows a KV head on route "split_lse"."""
+    q = torch.randn(b, s, hkv * g, d, device=DEV).to(dt).transpose(1, 2)
+    k = torch.randn(b, t, hkv, d, device=DEV).to(dt).transpose(1, 2)
+    v = torch.randn(b, t, hkv, d, device=DEV).to(dt).transpose(1, 2)
+    n0, r0 = (fa_ops.flash_attention.launches,
+              fa_ops.flash_attention.routes["split_lse"])
+    out, lse = fa_ops.flash_attention(q, k, v, q_start=q_start,
+                                      return_lse=True)
+    torch.cuda.synchronize()
+    groups = -(-g // (16 // s))
+    if (fa_ops.flash_attention.launches - n0 != groups
+            or fa_ops.flash_attention.routes["split_lse"] - r0 != groups):
+        raise AssertionError(f"flash lse {(b, hkv, g, s, t, d)}: "
+                             f"{fa_ops.flash_attention.launches - n0} "
+                             f"launches, expected {groups} on split_lse")
+    ref_out, ref_lse = attention_lse_ref(q, k, v, q_start=q_start)
+    e_out = float_err(out.float(), ref_out.float(), **FLASH_TOL[dt])
+    e_lse = float_err(lse, ref_lse, atol=LSE_ATOL)
+    return e_out, e_lse
+
+
+def flash_lse_record() -> dict:
+    """The split route with its log-sum-exp (what a split-KV decode rank
+    launches): a sweep (G 1, 4 and 48, the last in groups of 16 rows; S up
+    to 4; one chunk where the grid fills the card; head dims 7 and 100;
+    q_start 0 and mid-cache; float32 and bfloat16) against its plain
+    version, then the record at the split decode's rank shape in
+    bfloat16: q (4, 32, 1, 128) over a (4, 8,192, 8, 128) slice, q_start
+    8,184, with its CUDA-event time and its device time (torch.profiler:
+    the two launches without the host's time to issue them)."""
+    worst = {}
+    for case in ((4, 8, 4, 1, 8192, 128, 8184), (1, 1, 48, 1, 300, 128, 299),
+                 (64, 8, 4, 1, 2000, 128, 1999), (2, 2, 4, 4, 500, 64, 100),
+                 (3, 2, 4, 1, 77, 7, 40), (1, 2, 16, 1, 64, 128, 0),
+                 (2, 4, 4, 1, 256, 100, 255)):
+        for dt in (torch.float32, torch.bfloat16):
+            e = flash_lse_case(*case[:6], dt, case[6])
+            worst[dt] = tuple(max(a, b_) for a, b_ in
+                              zip(worst.get(dt, (0.0, 0.0)), e))
+    log(f"  flash lse sweep: 14 cases within FLASH_TOL and lse atol "
+        f"{LSE_ATOL} (max |diff| out, lse: float32 {worst[torch.float32]}, "
+        f"bfloat16 {worst[torch.bfloat16]})")
+    gen = torch.Generator(device=DEV).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV).bfloat16()
+    q = randn(LSE_B, 1, 32, 128).transpose(1, 2)
+    k = randn(LSE_B, LSE_T, 8, 128).transpose(1, 2)
+    v = randn(LSE_B, LSE_T, 8, 128).transpose(1, 2)
+    out, lse = fa_ops.flash_attention(q, k, v, q_start=LSE_LIM,
+                                      return_lse=True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = attention_lse_ref(q, k, v, q_start=LSE_LIM)
+    err = float_err(out.float(), ref_out.float(),
+                    **FLASH_TOL[torch.bfloat16])
+    e_lse = float_err(lse, ref_lse, atol=LSE_ATOL)
+    plan = fa_kernel.plan(q, k, v, causal=True, q_start=LSE_LIM, lse=True)
+    b_ms, b_by = flash_bound(q, k, LSE_LIM)
+
+    def call():
+        return fa_ops.flash_attention(q, k, v, q_start=LSE_LIM,
+                                      return_lse=True)
+    rec = dict(
+        name="flash_attention.flash_attention[decode_lse]", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:75",
+        max_abs_err=err, max_abs_err_lse=e_lse,
+        ms=time_ms(call), kernel_ms=kernel_ms(call),
+        plain_ms=time_ms(lambda: attention_lse_ref(q, k, v,
+                                                   q_start=LSE_LIM), reps=5),
+        bound_ms=b_ms, bound_by=b_by,
+        # no single PyTorch call returns the output with its lse for
+        # grouped KV heads: aten's flash and efficient attention return
+        # the lse but take as many KV heads as query heads
+        library_ms=None, q=list(q.shape), kv=list(k.shape),
+        q_start=LSE_LIM, flash_route="split_lse", n_split=plan.n_split)
+    log(f"  flash_attention.flash_attention decode_lse (plan {plan}): {rec}")
+    return rec
+
+
+def mm_gen(*key) -> torch.Generator:
+    """A generator on the card seeded from MM_SEED and ``key`` (ints), so
+    every process draws the same numbers for the same piece."""
+    seed = MM_SEED
+    for k_ in key:
+        seed = seed * 1_000_003 + k_
+    return torch.Generator(device=DEV).manual_seed(seed % (2 ** 63))
+
+
+def mm_randn(shape, *key, scale: float = 1.0, dtype=torch.bfloat16):
+    return (torch.randn(shape, generator=mm_gen(*key), device=DEV)
+            * scale).to(dtype)
+
+
+def mm_moe_pieces(cfg, n_tok: int) -> dict:
+    """The MoE layer's router, shared expert and (n_tok, D) tokens, from
+    their seeds."""
+    d, fs = cfg.d_model, cfg.shared_d_ff
+    return {"router": mm_randn((d, cfg.n_experts), 1, scale=d ** -0.5),
+            "shared": {"w_in": mm_randn((d, fs), 2, scale=d ** -0.5),
+                       "w_gate": mm_randn((d, fs), 3, scale=d ** -0.5),
+                       "w_out": mm_randn((fs, d), 4, scale=fs ** -0.5)},
+            "x": mm_randn((n_tok, d), 5)}
+
+
+def mm_experts(cfg, experts) -> dict:
+    """The (len(experts), D, F) / (., F, D) weights of ``experts``, each
+    expert's three matrices from its own seed."""
+    d, f = cfg.d_model, cfg.moe_d_ff
+    out = {k: torch.empty(shape, dtype=torch.bfloat16, device=DEV)
+           for k, shape in (("w_in", (len(experts), d, f)),
+                            ("w_gate", (len(experts), d, f)),
+                            ("w_out", (len(experts), f, d)))}
+    for i, e in enumerate(experts):
+        out["w_in"][i] = mm_randn((d, f), 100 + e, 0, scale=d ** -0.5)
+        out["w_gate"][i] = mm_randn((d, f), 100 + e, 1, scale=d ** -0.5)
+        out["w_out"][i] = mm_randn((f, d), 100 + e, 2, scale=f ** -0.5)
+    return out
+
+
+def mm_no_drop(cfg, idx, block_counts):
+    """cfg at the smallest capacity factor with which no pair drops when
+    the tokens are cut into each of ``block_counts`` numbers of equal
+    blocks, one device or a mesh rank routing a block."""
+    e, k = cfg.n_experts, cfg.top_k
+    n = idx.shape[0]
+    cf = max(int(torch.bincount(b.reshape(-1), minlength=e).max())
+             / (n // nb * k / e)
+             for nb in block_counts for b in idx.chunk(nb))
+    out = dataclasses.replace(cfg, capacity_factor=cf * (1 + 1e-6))
+    for nb in block_counts:
+        for b in idx.chunk(nb):
+            top = int(torch.bincount(b.reshape(-1), minlength=e).max())
+            if (lm_mod.moe_mesh_capacity(out, n // nb) < top
+                    or lm_mod.moe_capacity(out, n // nb) < top):
+                raise AssertionError("no-drop capacity factor drops pairs")
+    return out
+
+
+def mm_moe_reference(cfg, n_tok: int, block_counts):
+    """(cfg at a capacity with no drops, {blocks: the one-device layer's
+    output on the card, on the host}) for each number of blocks a mesh
+    cuts the tokens into along "data": the one-device layer runs on each
+    block, as a rank does. With no drops a token's output does not depend
+    on the others, but the card's bfloat16 router product rounds
+    differently at another row count, and a near tie between a token's
+    k-th and (k+1)-th expert then routes it elsewhere (on an NVIDIA H100,
+    110 of 8,192 tokens of qwen2-moe's layer when 2 blocks of 4,096 were
+    held to one of 8,192)."""
+    pieces = mm_moe_pieces(cfg, n_tok)
+    _, idx = lm_mod.moe_gates(pieces, cfg, pieces["x"])
+    cfg = mm_no_drop(cfg, idx, block_counts)
+    p = {"router": pieces["router"], "shared": pieces["shared"],
+         "experts": mm_experts(cfg, range(cfg.n_experts))}
+    refs = {}
+    for nb in block_counts:
+        drops: list = []
+        refs[nb] = torch.cat([lm_mod._moe_mlp(p, cfg, xb[None], drops)[0]
+                              for xb in pieces["x"].chunk(nb)]).cpu()
+        if int(sum(drops)):
+            raise AssertionError(f"{cfg.name}: one-device layer dropped "
+                                 f"pairs")
+    del p, pieces
+    torch.cuda.empty_cache()
+    return cfg, refs
+
+
+def mm_rank_moe(mesh, cfg, n_tok: int) -> dict:
+    """One MoE layer on this rank: its experts' blocks under
+    lm_rules(fsdp=True), its block of the tokens along "data"; the output,
+    drops, the collectives' calls and bytes a layer, ms a layer (median of
+    3 after a warm call), peak memory."""
+    shapes = {"experts": {
+        k: types.SimpleNamespace(shape=s) for k, s in (
+            ("w_in", (cfg.n_experts, cfg.d_model, cfg.moe_d_ff)),
+            ("w_gate", (cfg.n_experts, cfg.d_model, cfg.moe_d_ff)),
+            ("w_out", (cfg.n_experts, cfg.moe_d_ff, cfg.d_model)))}}
+    specs = make_param_specs(shapes, mesh,
+                             lm_rules(mesh, fsdp=True))["experts"]
+    ax = specs["w_in"][0]
+    n_e = cfg.n_experts // (mesh.axes_size(ax) if ax else 1)
+    first = mesh.axis_index(ax) * n_e if ax else 0
+    whole = mm_experts(cfg, range(first, first + n_e))
+    experts = {k: local_slice(v, P(None, *specs[k][1:]), mesh).clone()
+               for k, v in whole.items()}
+    del whole
+    pieces = mm_moe_pieces(cfg, n_tok)
+    n = n_tok // mesh.axes_size("data")
+    x = pieces["x"][mesh.axis_index("data") * n:][:n][None]
+    p = {"router": pieces["router"], "shared": pieces["shared"],
+         "experts": experts}
+    torch.cuda.reset_peak_memory_stats()
+    lm_mod._moe_mlp(p, cfg, x, mesh=mesh)
+    times = []
+    for _ in range(3):
+        mesh.reset_counts()
+        drops: list = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lm_mod._moe_mlp(p, cfg, x, drops, mesh=mesh)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = out[0].cpu()
+    return dict(coords=(mesh.axis_index("data"), mesh.axis_index("model")),
+                out=out if mesh.axis_index("model") == 0 else None,
+                digest=hashlib.sha1(out.view(torch.int16).numpy().tobytes())
+                .hexdigest(), drops=int(sum(drops)),
+                calls=dict(mesh.calls), bytes=dict(mesh.bytes),
+                ms=float(np.median(times)),
+                expert_bytes=sum(t.numel() * t.element_size()
+                                 for t in experts.values()),
+                mode=lm_mod.moe_mesh_mode(cfg, mesh),
+                peak=torch.cuda.max_memory_allocated())
+
+
+def mm_check_moe(label: str, ranks, ref, card: str) -> None:
+    """Every rank of a data row equal (SHA-1), the rows' blocks together
+    within MM_BF16_SHARE of the one-device layer, no drops, one all_reduce
+    a layer."""
+    rows = {}
+    for r in ranks:
+        rows.setdefault(r["coords"][0], set()).add(r["digest"])
+    if any(len(d) != 1 for d in rows.values()):
+        raise AssertionError(f"{label}: the model columns of a data row "
+                             f"disagree")
+    out = torch.cat([r["out"] for r in sorted(
+        (r for r in ranks if r["out"] is not None),
+        key=lambda r: r["coords"][0])])
+    err = float((out.float() - ref.float()).abs().max())
+    top = float(ref.float().abs().max())
+    if err > MM_BF16_SHARE * top or any(r["drops"] for r in ranks):
+        raise AssertionError(f"{label}: max |mesh - one device| {err} of "
+                             f"max {top}, drops {[r['drops'] for r in ranks]}")
+    if any(r["calls"].get("all_reduce") != 1 for r in ranks):
+        raise AssertionError(f"{label}: all_reduces a layer "
+                             f"{[r['calls'] for r in ranks]}")
+    r0 = ranks[0]
+    log(f"  {label} ({r0['mode']}): max |mesh - one device| {err:.4g} "
+        f"(share {err / top:.3g} of max {top:.4g}; bf16, within "
+        f"{MM_BF16_SHARE}); all_reduce {r0['bytes']['all_reduce']:,} bytes "
+        f"a layer a rank, all_gather "
+        f"{r0['bytes'].get('all_gather', 0):,} (the ZeRO re-gather); "
+        f"expert weights {r0['expert_bytes']:,} bytes a rank; ms a layer "
+        f"(host wall, gloo on one card) "
+        f"{[round(r['ms'], 3) for r in ranks]}; peak a rank "
+        f"{max(r['peak'] for r in ranks):,} bytes [{card}]")
+
+
+def mm_decode_cfg(name: str, dtype: str):
+    if name == "gqa":
+        return dataclasses.replace(granite_3_8b.full(),
+                                   n_layers=MM_DECODE_LAYERS, dtype=dtype)
+    return dataclasses.replace(
+        deepseek_v3_671b.full(), n_layers=MM_DECODE_LAYERS,
+        first_dense_layers=MM_DECODE_LAYERS, mtp_depth=0, dtype=dtype)
+
+
+def mm_cache(model, batch: int, mesh=None, rows=None):
+    """The decode's cache of DECODE_T slots: each layer's tensors drawn
+    unit-normal for DECODE_B sequences from their seeds (rows ``rows`` of
+    them kept); whole, or this rank's block for a step of ``batch``."""
+    n_b = batch if rows is None else rows.stop - rows.start
+    full = model.init_cache(n_b, DECODE_T, mesh=mesh)
+    specs = model.cache_specs(n_b, mesh) if mesh is not None else None
+    for si, name in enumerate(("dense", "moe")):
+        if full[name] is None:
+            continue
+        for ti, stack in enumerate(full[name]):
+            for layer in range(stack.shape[0]):
+                shape = (DECODE_B, DECODE_T, *stack.shape[3:])
+                t = mm_randn(shape, 200 + si, ti, layer,
+                             dtype=stack.dtype)
+                if rows is not None:
+                    t = t[rows]
+                if specs is not None:
+                    t = local_slice(t, P(*specs[name][ti][1:]), mesh)
+                stack[layer].copy_(t)
+                del t
+    return full
+
+
+def mm_decode_model(name: str, dtype: str, mesh=None):
+    model = Transformer.random(mm_decode_cfg(name, dtype), seed=MM_SEED,
+                               device=DEV)
+    if name == "mla" and mesh is not None:
+        attn = model.params["dense_layers"]["attn"]
+        attn["wkv_b"] = local_slice(attn["wkv_b"], P(None, None, "model"),
+                                    mesh).clone()
+        model = Transformer(model.cfg, model.params)
+    return model
+
+
+def mm_tokens(model, batch: int):
+    return torch.randint(0, model.cfg.vocab_size, (DECODE_B, 1),
+                         generator=mm_gen(300), device=DEV)[:batch]
+
+
+def mm_decode_reference(name: str, dtypes) -> dict:
+    """One-device decode logits at DECODE_CUR, for a batch of DECODE_B and
+    of 1, in each dtype (flash for GQA, the absorbed decode for MLA)."""
+    out = {}
+    for dt in dtypes:
+        model = mm_decode_model(name, dt)
+        for b in (DECODE_B, 1):
+            if name == "mla" and b == 1:
+                continue
+            cache = mm_cache(model, b, rows=None if b > 1 else slice(0, 1))
+            logits, _ = model.decode_step(cache, mm_tokens(model, b),
+                                          DECODE_CUR)
+            out[(dt, b)] = logits.cpu()
+            del cache
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def mm_rank_decode(mesh, name: str, dtypes) -> dict:
+    """The split-KV decode on this rank at each dtype and batch: logits
+    (rank 0), their SHA-1, and for the timed run (the last dtype, batch
+    DECODE_B): ms a step (median of MM_DECODE_REPS after a warm step), the
+    flash launches and routes of those steps, the collectives' calls and
+    bytes a step, peak memory."""
+    out = {"coords": (mesh.axis_index("data"), mesh.axis_index("model"))}
+    for dt in dtypes:
+        model = mm_decode_model(name, dt, mesh)
+        for b in (DECODE_B, 1):
+            if name == "mla" and b == 1:
+                continue
+            cache = mm_cache(model, b, mesh,
+                             rows=None if b > 1 else slice(0, 1))
+            toks = mm_tokens(model, b)
+            torch.cuda.reset_peak_memory_stats()
+            logits, _ = model.decode_step(cache, toks, DECODE_CUR,
+                                          mesh=mesh)
+            torch.cuda.synchronize()
+            host = logits.cpu()
+            out[(dt, b)] = dict(
+                logits=host if mesh.rank == 0 else None,
+                digest=hashlib.sha1(host.float().numpy().tobytes())
+                .hexdigest())
+            if dt == dtypes[-1] and b == DECODE_B:
+                reset_counts()
+                times = []
+                for _ in range(MM_DECODE_REPS):
+                    mesh.reset_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    model.decode_step(cache, toks, DECODE_CUR, mesh=mesh)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                out["timed"] = dict(
+                    ms=float(np.median(times)), calls=dict(mesh.calls),
+                    bytes=dict(mesh.bytes),
+                    flash=fa_ops.flash_attention.launches,
+                    routes=dict(fa_ops.flash_attention.routes),
+                    peak=torch.cuda.max_memory_allocated(),
+                    cache_bytes=sum(t.numel() * t.element_size()
+                                    for v in cache.values() if v
+                                    for t in v))
+            del cache
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def mm_check_decode(label: str, ranks, refs, dtypes, card: str) -> dict:
+    """Every rank's logits equal (SHA-1); rank 0's within
+    CHECK_LOGIT_SHARE (float32) or MM_BF16_SHARE (bfloat16) of max |logit|
+    of the one-device decode; the timed steps' flash launches (GQA: one a
+    layer a step on route split_lse on every rank; MLA: none)."""
+    for key in refs:
+        if len({r[key]["digest"] for r in ranks}) != 1:
+            raise AssertionError(f"{label} {key}: ranks' logits differ")
+        got, ref = ranks[0][key]["logits"].float(), refs[key].float()
+        err, top = float((got - ref).abs().max()), float(ref.abs().max())
+        share = CHECK_LOGIT_SHARE if key[0] == "float32" else MM_BF16_SHARE
+        if not err <= share * top:
+            raise AssertionError(f"{label} {key}: max |mesh - one device| "
+                                 f"{err} of max |logit| {top}")
+        log(f"  {label} {key[0]} batch {key[1]}: max |mesh - one device| "
+            f"{err:.4g} of max |logit| {top:.4g} (share {err / top:.3g}, "
+            f"within {share})")
+    want = MM_DECODE_LAYERS * MM_DECODE_REPS if label.startswith("GQA") \
+        else 0
+    for r in ranks:
+        t = r["timed"]
+        if t["flash"] != want or t["routes"].get("split_lse", 0) != want:
+            raise AssertionError(f"{label}: a rank launched flash "
+                                 f"{t['flash']} times ({t['routes']}) in "
+                                 f"{MM_DECODE_REPS} steps, expected {want} "
+                                 f"on split_lse")
+    t = ranks[0]["timed"]
+    log(f"  {label} bf16, batch {DECODE_B} over {DECODE_T:,} slots from "
+        f"{DECODE_CUR:,}: ms a step (host wall, median of "
+        f"{MM_DECODE_REPS}) {[round(r['timed']['ms'], 3) for r in ranks]}; "
+        f"a rank a step: calls {t['calls']}, bytes {t['bytes']}; flash "
+        f"launches a rank {[r['timed']['flash'] for r in ranks]}; cache "
+        f"block {t['cache_bytes']:,} bytes, peak a rank "
+        f"{max(r['timed']['peak'] for r in ranks):,} [{card}]")
+    return {"launches": sum(r["timed"]["flash"] for r in ranks),
+            "ms": [r["timed"]["ms"] for r in ranks]}
+
+
+def mm_train_cfg():
+    return dataclasses.replace(granite_3_8b.full(), n_layers=MM_DECODE_LAYERS,
+                               dtype="float32")
+
+
+def mm_train_task(mesh=None) -> TrainTask:
+    """granite-3-8b's widths at 2 layers, float32; on a mesh the state by
+    lm_rules(fsdp=True) and the batch split over "data"."""
+    cfg = mm_train_cfg()
+    task = TrainTask(
+        name=cfg.name, init_params=lambda g: Transformer.random(
+            cfg, seed=g.initial_seed(), device=g.device),
+        loss_fn=lambda m, b: lm_loss_fn(m.params, cfg, b["tokens"],
+                                        b["labels"]),
+        batches=Prefetcher(token_batches(cfg.vocab_size, MM_TRAIN_B,
+                                         MM_TRAIN_S, seed=1), device=DEV),
+        lr=1e-3, warmup=20, total_steps=20, device=DEV)
+    if mesh is not None:
+        task.param_specs = lambda tree: make_param_specs(
+            tree, mesh, lm_rules(mesh, fsdp=True))
+        task.batch_specs = {"tokens": P("data", None),
+                            "labels": P("data", None)}
+    return task
+
+
+def mm_rank_train(mesh, steps: int) -> dict:
+    """The mesh Trainer from MM_CKPT_DIR's latest checkpoint (none on the
+    first run) to ``steps``, checkpointing at the end."""
+    torch.cuda.reset_peak_memory_stats()
+    res = Trainer(mm_train_task(mesh), mesh=mesh, ckpt_dir=str(MM_CKPT_DIR),
+                  ckpt_every=1000).run(steps=steps)
+    return dict(log=[{k: r[k] for k in ("step", "loss", "grad_norm", "dt")}
+                     for r in res["log"]],
+                calls=dict(mesh.calls), peak=torch.cuda.max_memory_allocated())
+
+
+def mm_rank_2x4(mesh, qwen_cfg) -> dict:
+    return {"qwen": mm_rank_moe(mesh, qwen_cfg, MM_QWEN_B * MM_QWEN_S),
+            "gqa": mm_rank_decode(mesh, "gqa", ("float32", "bfloat16"))}
+
+
+def mm_rank_2x2(mesh) -> dict:
+    return {"mla": mm_rank_decode(mesh, "mla", ("bfloat16",)),
+            "train": mm_rank_train(mesh, MM_TRAIN_STEPS)}
+
+
+def phase_mesh_models(card: str) -> dict:
+    """Phase 11b: the model-parallel mesh on gloo ranks sharing the card,
+    each piece against the one-device path on the card. Returns the GQA
+    split decode's flash launches (every rank's) for the kernel record."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(MM_CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    def run(shape, fn, *args):
+        t0 = time.perf_counter()
+        out = spawn(shape, fn, *args, device=DEV.type, timeout=MM_TIMEOUT,
+                    join_timeout=MM_JOIN)
+        log(f"  {shape[0]} x {shape[1]} mesh ({fn.__name__}): "
+            f"{time.perf_counter() - t0:.1f} s from spawn to the last "
+            f"rank's exit")
+        return out
+
+    # deepseek-v3's MoE layer, EP on 1 x 4
+    ds = dataclasses.replace(deepseek_v3_671b.full(), dtype="bfloat16")
+    ds, ds_ref = mm_moe_reference(ds, MM_DS_TOKENS, (1,))
+    mm_check_moe(f"deepseek-v3 MoE layer, {ds.n_experts} experts x "
+                 f"({ds.d_model}, {ds.moe_d_ff}), {MM_DS_TOKENS:,} tokens, "
+                 f"1 x 4", run((1, 4), mm_rank_moe, ds, MM_DS_TOKENS),
+                 ds_ref[1], card)
+    # qwen2-moe's layer: EP with the ZeRO re-gather on 2 x 4 (beside the
+    # GQA split decode), expert-TP on 1 x 8
+    qw = dataclasses.replace(qwen2_moe_a2_7b.full(), dtype="bfloat16")
+    n_qw = MM_QWEN_B * MM_QWEN_S
+    qw, qw_ref = mm_moe_reference(qw, n_qw, (2, 1))
+    gqa_ref = mm_decode_reference("gqa", ("float32", "bfloat16"))
+    ranks = run((2, 4), mm_rank_2x4, qw)
+    mm_check_moe(f"qwen2-moe MoE layer, {n_qw:,} tokens, 2 x 4",
+                 [r["qwen"] for r in ranks], qw_ref[2], card)
+    gqa = mm_check_decode(f"GQA split decode, granite-3-8b widths, "
+                          f"{MM_DECODE_LAYERS} layers, 2 x 4",
+                          [r["gqa"] for r in ranks], gqa_ref,
+                          ("float32", "bfloat16"), card)
+    del ranks
+    mm_check_moe(f"qwen2-moe MoE layer, {n_qw:,} tokens, 1 x 8",
+                 run((1, 8), mm_rank_moe, qw, n_qw), qw_ref[1], card)
+    # MLA split decode and the Trainer on 2 x 2, the Trainer resumed on
+    # 4 x 1
+    mla_ref = mm_decode_reference("mla", ("bfloat16",))
+    one = Trainer(mm_train_task()).run(steps=MM_TRAIN_STEPS + 1)["log"]
+    torch.cuda.empty_cache()
+    ranks = run((2, 2), mm_rank_2x2)
+    mm_check_decode(f"MLA split decode, deepseek-v3 widths, "
+                    f"{MM_DECODE_LAYERS} dense layers, 2 x 2",
+                    [r["mla"] for r in ranks], mla_ref, ("bfloat16",), card)
+    g = ranks[0]["mla"]["timed"]["bytes"].get("all_gather", 0)
+    log(f"  MLA wkv_b gathered a step a rank: {g:,} bytes "
+        f"({MM_DECODE_LAYERS} layers, with the logits' gather)")
+    resumed = run((4, 1), mm_rank_train, MM_TRAIN_STEPS + 1)
+    train = [r["train"] for r in ranks]
+    for label, logs, want in (("2 x 2", [t["log"] for t in train],
+                               one[:MM_TRAIN_STEPS]),
+                              ("4 x 1, resumed", [r["log"] for r in resumed],
+                               one[MM_TRAIN_STEPS:])):
+        for lg in logs:
+            if [x["step"] for x in lg] != [x["step"] for x in want]:
+                raise AssertionError(f"mesh Trainer {label}: steps "
+                                     f"{[x['step'] for x in lg]}")
+            gap = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                      for a, b in zip(lg, want))
+            if gap > MM_TRAIN_RTOL:
+                raise AssertionError(f"mesh Trainer {label}: loss gap {gap}")
+        log(f"  mesh Trainer {label}: losses "
+            f"{[round(x['loss'], 6) for x in logs[0]]} against one "
+            f"device's {[round(x['loss'], 6) for x in want]} (max relative "
+            f"gap {max(abs(a['loss'] - b['loss']) / abs(b['loss']) for lg in logs for a, b in zip(lg, want)):.3g}, within {MM_TRAIN_RTOL}); ms a "
+            f"step {[round(x['dt'] * 1e3, 1) for x in logs[0]]}; peak a "
+            f"rank {max(t['peak'] for t in (train if label == '2 x 2' else resumed)):,} "
+            f"bytes [{card}]")
+    log(f"  one-device Trainer: ms a step "
+        f"{[round(x['dt'] * 1e3, 1) for x in one]}")
+    shutil.rmtree(MM_CKPT_DIR, ignore_errors=True)
+    log(f"  phase 11b: {time.perf_counter() - t_phase:.1f} s")
+    return gqa
+
+
 def main() -> None:
     t_start = time.perf_counter()
 
@@ -4522,6 +5114,15 @@ def main() -> None:
     train = phase_train(card)
     train_gnn = train["gnn"]
 
+    log(f"[11b/12] {at()} mesh models: gloo ranks on the one card; "
+        "deepseek-v3's MoE layer expert-parallel on 1 x 4, qwen2-moe's on "
+        "2 x 4 (EP, ZeRO re-gather) and 1 x 8 (expert-TP), the GQA split "
+        "decode (granite-3-8b widths) on 2 x 4 through flash's lse route, "
+        "the MLA split decode (deepseek-v3 widths) and the Trainer "
+        "(granite-3-8b widths, lm_rules(fsdp=True)) on 2 x 2, resumed on "
+        "4 x 1")
+    mesh_models = phase_mesh_models(card)
+
     rec["scan_hits"]["launches"] = expand_counts["scan_hits"]
     rec["scan_select"]["launches"] = main_counts["scan_select"]
     rec["join_ranges"]["launches"] = main_counts["join_ranges"]
@@ -4537,6 +5138,7 @@ def main() -> None:
         rec[f"flash_attention[{name}]"]["launches"] = c["flash_attention"]
     for name, c in moe_counts.items():
         rec[f"flash_attention[moe_{name}]"]["launches"] = c["flash_attention"]
+    rec["flash_attention[decode_lse]"]["launches"] = mesh_models["launches"]
     rec["segment_spmm[ogb_products]"]["launches"] = (
         gnn_counts["gcn"] + train_gnn["gcn"])
     rec["segment_spmm[molecule]"]["launches"] = sum(
@@ -4560,6 +5162,9 @@ def main() -> None:
                                              "(phase 9b)",
              "flash_attention[moe_decode]": "qwen2-moe-a2.7b decode "
                                             "(phase 9b)",
+             "flash_attention[decode_lse]": "granite-3-8b widths' split-KV "
+                                            "decode, every rank of a 2 x 4 "
+                                            "mesh (phase 11b)",
              "segment_spmm[ogb_products]": "GCN forward (phase 10); GNN "
                                            "training (phase 11)",
              "segment_spmm[molecule]":
@@ -4596,7 +5201,9 @@ def main() -> None:
         f"qwen2-moe-a2.7b flash launches (same shapes, 4 sequences) "
         f"{ {k: c['flash_attention'] for k, c in moe_counts.items()} }, GNN "
         f"segment_spmm launches {gnn_counts}, GNN training segment_spmm "
-        f"launches ({GNN_TRAIN_STEPS} steps each) {train_gnn}; total "
+        f"launches ({GNN_TRAIN_STEPS} steps each) {train_gnn}, split-KV "
+        f"decode flash lse launches over the 8 ranks ({MM_DECODE_REPS} "
+        f"steps) {mesh_models['launches']}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
@@ -4608,6 +5215,7 @@ def main() -> None:
     # (likewise its checks'; phase 5 asserts none on the path)
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + ("q", "kv", "q_start", "flash_route",
+                                  "max_abs_err_lse",
                                   "shape", "ms_with_plan", "plan_ms",
                                   "kernel_only_ms", "kernel_uniform_ms",
                                   "piece", "n_pieces", "n_split",

@@ -12,8 +12,13 @@ leaves are stored as their raw 16 bits (npz dtype ``|V2``), as numpy
 writes JAX's bfloat16 arrays.
 
 The host copies are taken on the caller's thread (the trainer updates its
-tensors in place after). `restore` places every leaf on one device;
-restoring onto a mesh of devices is not ported (ROADMAP, Queue 1 item 5).
+tensors in place after). Restore is mesh-agnostic, as the reference's:
+the arrays are keyed by logical path, so a checkpoint written on one
+topology restores onto another (the elastic-rescale path). On a mesh
+(``shardings=(mesh, spec tree)``, a `DeviceMesh` rank and a tree of
+`sharding.rules.P` of the tree's structure) `save` gathers each leaf from
+the ranks' blocks and rank 0 writes the one-device layout, and `restore`
+gives each rank its block of each leaf.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_path, tree_map, tree_unflatten
+from repro_torch.tree import (leaves_with_path, tree_leaves, tree_map,
+                              tree_unflatten)
 
 
 def to_host(leaf) -> np.ndarray:
@@ -78,7 +84,27 @@ class CheckpointManager:
 
     # ---- save -----------------------------------------------------------
     def save(self, step: int, tree, *, blocking: bool = False,
-             extra: dict | None = None):
+             extra: dict | None = None, shardings=None):
+        """Write ``tree`` as step ``step``. With ``shardings`` every rank
+        of the mesh calls it with its blocks: each leaf's blocks are
+        gathered to rank 0 (host memory), which puts them together and
+        alone writes; a blocking save ends with every rank past the
+        write."""
+        if shardings is not None:
+            from repro_torch.sharding.rules import assemble
+            mesh, specs = shardings
+            whole = []
+            for leaf, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+                blocks = mesh.gather_to_root(leaf.detach())
+                whole.append(None if blocks is None
+                             else assemble(blocks, spec, mesh))
+                del blocks
+            if mesh.rank == 0:
+                self.save(step, tree_unflatten(tree, whole),
+                          blocking=blocking, extra=extra)
+            if blocking:
+                mesh.barrier()
+            return
         flat = _flatten(tree)   # host copies happen on the caller thread
         if self.async_write and not blocking:
             self.wait()
@@ -131,16 +157,33 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, tree_like, *, device="cpu"):
+    def restore(self, step: int, tree_like, *, device="cpu",
+                shardings=None):
         """A tree of the structure of ``tree_like`` holding the step's
-        arrays, as tensors on ``device``, in the dtypes they were saved in."""
+        arrays, as tensors on ``device``, in the dtypes they were saved in.
+        With ``shardings`` each leaf is this rank's block under its spec,
+        on the mesh's device (the mesh may differ from the one that wrote
+        the checkpoint: elastic)."""
         path = os.path.join(self.dir, f"step-{step:012d}", "arrays.npz")
-        with np.load(path) as z:
-            flat = {k: z[k] for k in z.files}
-        return _unflatten(tree_like, flat, torch.device(device))
+        if shardings is None:
+            with np.load(path) as z:
+                flat = {k: z[k] for k in z.files}
+            return _unflatten(tree_like, flat, torch.device(device))
+        from repro_torch.sharding.rules import local_slice
+        mesh, specs = shardings
+        spec_of = dict(leaves_with_path(specs))
+        blocks = []
+        with np.load(path) as z:    # one leaf in host memory at a time
+            for key, _ in leaves_with_path(tree_like):
+                whole = from_host(z[key], "cpu")
+                blocks.append(local_slice(whole, spec_of[key], mesh).to(
+                    mesh.device, copy=True))
+                del whole
+        return tree_unflatten(tree_like, blocks)
 
-    def restore_latest(self, tree_like, *, device="cpu"):
+    def restore_latest(self, tree_like, *, device="cpu", shardings=None):
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, self.restore(step, tree_like, device=device)
+        return step, self.restore(step, tree_like, device=device,
+                                  shardings=shardings)

@@ -65,7 +65,9 @@
 //   block merge in shared memory in warp order. Pass 2 merges a row's
 //   chunks in chunk order 0..n-1, so the result does not depend on
 //   scheduling; a chunk past a causal row's limit has l = 0 and m = -1e30
-//   and adds nothing.
+//   and adds nothing. Pass 2 also stores each row's log-sum-exp when
+//   asked: a decode whose keys are split across ranks merges their
+//   normalised outputs by it.
 // * flash_tile<T, RM> (route "tile": float32, and bf16 that no copy
 //   takes, such as odd head dims): a block owns 16 * RM rows, 16 lanes per
 //   row group, products on the CUDA cores in float32 (TF32 would not meet
@@ -1439,11 +1441,14 @@ flash_tile_split_mma(const __grid_constant__ CUtensorMap tk,
 }
 
 // Block (row, b x Hkv): merge the row's n_split partials in chunk order.
+// Where lse is given, thread 0 also stores the row's float32 log-sum-exp
+// of its scaled scores, m + log(l), at lse[(b h + head) s_n + s] (-inf
+// where the row saw no key): what a split-KV decode across ranks combines.
 template <typename T>
 __global__ void __launch_bounds__(kCbThreads)
 flash_tile_combine(const float* __restrict__ part, T* __restrict__ out,
-                   Strides st, int hkv, int g_n, int s_n, int d_n,
-                   int d_pad, int n_split) {
+                   float* __restrict__ lse, Strides st, int hkv, int g_n,
+                   int s_n, int d_n, int d_pad, int n_split) {
   const int i = blockIdx.x, rows_n = gridDim.x;
   const int64_t bh = blockIdx.y;
   const int64_t b = bh / hkv;
@@ -1457,6 +1462,10 @@ flash_tile_combine(const float* __restrict__ part, T* __restrict__ out,
     li += rec[c * rl + 1] * expf(rec[c * rl] - mx);
   const float inv = 1.f / fmaxf(li, 1e-30f);
   const int g = i / s_n, s = i - g * s_n;
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[(b * hkv * g_n + kvh * g_n + g) * static_cast<int64_t>(s_n) + s] =
+        li > 0.f ? mx + logf(li)
+                 : __int_as_float(static_cast<int>(0xff800000u));  // -inf
   T* o = out + b * st.ob + static_cast<int64_t>(kvh * g_n + g) * st.oh
       + static_cast<int64_t>(s) * st.os;
   for (int col = threadIdx.x; col < d_n; col += kCbThreads) {
@@ -1653,9 +1662,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 
 template <typename T>
 int launch_split(const void* q, const void* k, const void* v, void* out,
-                 float* part, long long part_n, const Strides& st,
-                 const Shape& sh, int vec, long long n_split,
-                 long long chunk, cudaStream_t stream) {
+                 float* part, long long part_n, float* lse,
+                 const Strides& st, const Shape& sh, int vec,
+                 long long n_split, long long chunk, cudaStream_t stream) {
   const long long rows_n = sh.g_n * sh.s_n;
   const long long t_end = sh.causal
       ? (sh.t_n < sh.q_start + sh.s_n ? sh.t_n : sh.q_start + sh.s_n)
@@ -1713,7 +1722,7 @@ int launch_split(const void* q, const void* k, const void* v, void* out,
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_tile_combine<T><<<dim3(static_cast<unsigned>(rows_n), bh),
                           kCbThreads, 0, stream>>>(
-      part, static_cast<T*>(out), st, static_cast<int>(sh.hkv),
+      part, static_cast<T*>(out), lse, st, static_cast<int>(sh.hkv),
       static_cast<int>(sh.g_n), static_cast<int>(sh.s_n),
       static_cast<int>(sh.d_n), d_pad, static_cast<int>(n_split));
   return static_cast<int>(cudaGetLastError());
@@ -1721,12 +1730,14 @@ int launch_split(const void* q, const void* k, const void* v, void* out,
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out,
-             float* part, long long part_n, const Strides& st,
+             float* part, long long part_n, float* lse, const Strides& st,
              const Shape& sh, int route, int vec, long long n_split,
              long long chunk, cudaStream_t stream) {
   if (route == 2)
-    return launch_split<T>(q, k, v, out, part, part_n, st, sh, vec, n_split,
-                           chunk, stream);
+    return launch_split<T>(q, k, v, out, part, part_n, lse, st, sh, vec,
+                           n_split, chunk, stream);
+  // only the split route's combine writes a log-sum-exp
+  if (lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1 || route == 3) {
     if constexpr (sizeof(T) == 2)
       return route == 1 ? launch_mma(q, k, v, out, st, sh, vec, stream)
@@ -1753,15 +1764,16 @@ extern "C" {
 // the split-KV pair (h / hkv * s <= 16 rows; n_split chunks of `chunk`
 // keys covering [0, t_end), vec 16, 8, 4 or 0 for element loads; part:
 // float32 scratch of part_n >= b hkv rows n_split (round_up(d, 8) + 2)
-// elements). A route the shape does not fit is refused. Returns
-// cudaGetLastError().
+// elements; lse, if not null, a contiguous float32 (b, h, s) that takes
+// each row's log-sum-exp). A route the shape does not fit, and an lse
+// with any other route, is refused. Returns cudaGetLastError().
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     void* part, long long part_n, int dtype, long long b_n,
                     long long h_n, long long hkv, long long s_n,
                     long long t_n, long long d_n, const long long* strides,
                     long long q_start, int causal, float scale, int route,
                     int vec, long long n_split, long long chunk,
-                    void* stream) {
+                    void* stream, void* lse) {
   if (b_n <= 0 || s_n <= 0) return 0;
   if (hkv <= 0 || h_n % hkv != 0 || t_n <= 0 || d_n <= 0 || d_n > kMaxD
       || (causal && q_start < 0) || h_n * s_n > 0x7fffffffLL
@@ -1773,11 +1785,12 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
   const Shape sh{b_n, hkv, h_n / hkv, s_n, t_n, d_n, q_start, causal, scale};
   const auto s = static_cast<cudaStream_t>(stream);
   auto* pf = static_cast<float*>(part);
+  auto* lf = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, pf, part_n, st, sh, route, vec,
+    return dispatch<float>(q, k, v, out, pf, part_n, lf, st, sh, route, vec,
                            n_split, chunk, s);
   if (dtype == 1)
-    return dispatch<bf16>(q, k, v, out, pf, part_n, st, sh, route, vec,
+    return dispatch<bf16>(q, k, v, out, pf, part_n, lf, st, sh, route, vec,
                           n_split, chunk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

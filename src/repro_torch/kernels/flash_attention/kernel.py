@@ -21,7 +21,7 @@ _P = ctypes.c_void_p
 _L = ctypes.c_longlong
 _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _L, _I, _L, _L, _L, _L, _L, _L, _P, _L, _I,
-             ctypes.c_float, _I, _I, _L, _L, _P]
+             ctypes.c_float, _I, _I, _L, _L, _P, _P]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {"tile": 0, "mma": 1, "split": 2, "wgmma": 3}
 MAX_D = 128                 # head dims every route covers
@@ -80,7 +80,7 @@ def _vec_bytes(tensors, d: int) -> int:
 
 
 def plan(q, k, v, *, causal: bool, q_start: int, n_sm: int | None = None,
-         chunk: int | None = None) -> Plan:
+         chunk: int | None = None, lse: bool = False) -> Plan:
     """The route for (B, H, S, d) attention of q over k, v (B, Hkv, T, d),
     chosen by shape and layout before any launch: "split" where the rows
     of a KV head fit one split block and the unsplit grid would not fill
@@ -89,7 +89,9 @@ def plan(q, k, v, *, causal: bool, q_start: int, n_sm: int | None = None,
     tile, "mma" where the copies take 8 bytes; else "tile". ``n_sm``
     defaults to the card's SM count (132 off the card).
     A ``chunk`` forces the split route with chunks of that many keys (the
-    checks' small shapes)."""
+    checks' small shapes); ``lse`` forces it with `split_plan`'s chunks
+    (one chunk where the unsplit grid fills the card): only that route
+    returns each row's log-sum-exp."""
     b, h, s, d = q.shape
     hkv, t_n = k.shape[1], k.shape[2]
     if n_sm is None:
@@ -101,7 +103,7 @@ def plan(q, k, v, *, causal: bool, q_start: int, n_sm: int | None = None,
         return Plan("split", _vec_bytes((k, v), d), _cdiv(t_end, chunk),
                     chunk, t_end)
     n_split, chunk = split_plan(b, hkv, h // hkv * s, t_end, n_sm)
-    if n_split > 1:
+    if n_split > 1 or lse:
         return Plan("split", _vec_bytes((k, v), d), n_split, chunk, t_end)
     vec = _vec_bytes((q, k, v), d)
     if q.dtype == torch.bfloat16 and vec == 16 and t_n >= KEY_TILE:
@@ -127,13 +129,15 @@ def _entry():
 
 
 def flash_attention_kernel(q, k, v, *, causal: bool, scale: float,
-                           q_start: int, route: Plan | None = None):
+                           q_start: int, route: Plan | None = None,
+                           lse: torch.Tensor | None = None):
     """(B, H, S, d) attention of CUDA tensors q (B, H, S, d) and k, v
     (B, Hkv, T, d), float32 or bfloat16, each a strided view whose last dim
     is contiguous. The output is a (B, H, S, d) view of fresh (B, S, H, d)
     storage, so the model's (B, S, H * d) projection input needs no copy.
     ``route`` is `plan`'s (taken when None); a plan the shape does not fit
-    raises."""
+    raises. An ``lse``, a contiguous float32 (B, H, S) on q's device, takes
+    each row's log-sum-exp of its scaled scores (route "split" only)."""
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -161,7 +165,17 @@ def flash_attention_kernel(q, k, v, *, causal: bool, scale: float,
         raise ValueError(f"flash attention takes B * Hkv <= 65535, got "
                          f"{b * hkv}")
     if route is None:
-        route = plan(q, k, v, causal=causal, q_start=q_start)
+        route = plan(q, k, v, causal=causal, q_start=q_start,
+                     lse=lse is not None)
+    if lse is not None and (route.route != "split"
+                            or lse.shape != (b, h, s)
+                            or lse.dtype != torch.float32
+                            or not lse.is_contiguous()
+                            or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous float32 {(b, h, s)} on "
+                         f"{q.device} and the route 'split', got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}, "
+                         f"route {route.route!r}")
     out = torch.empty((b, s, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     part = None
@@ -175,6 +189,6 @@ def flash_attention_kernel(q, k, v, *, causal: bool, scale: float,
                       DTYPES[q.dtype], b, h, hkv, s, t_n, d,
                       ctypes.cast(strides, _P), q_start, int(causal), scale,
                       ROUTES[route.route], route.vec, route.n_split,
-                      route.chunk, current_stream(q.device))
+                      route.chunk, current_stream(q.device), ptr(lse))
     check(status, f"flash_attention ({route.route})")
     return out

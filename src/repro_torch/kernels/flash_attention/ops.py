@@ -7,7 +7,8 @@ anything it does not take raises, as does an input that requires grad
 under grad mode (the kernels have no backward). There is no fallback from the card to the plain
 version, no repeated copy of the KV heads and no padding of S or T.
 ``flash_attention.launches`` counts the calls on the card and
-``flash_attention.routes`` the route each one took.
+``flash_attention.routes`` the route each one took ("split_lse" for the
+split route asked for its log-sum-exp).
 """
 from __future__ import annotations
 
@@ -18,13 +19,14 @@ import torch
 
 from repro_torch.kernels import forbid_backward
 from repro_torch.kernels.flash_attention.kernel import (
-    flash_attention_kernel, plan)
-from repro_torch.kernels.flash_attention.ref import attention_ref
+    SPLIT_ROWS, flash_attention_kernel, plan)
+from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                     attention_ref)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
-                    q_start: int | None = None) -> torch.Tensor:
+                    q_start: int | None = None, return_lse: bool = False):
     """q: (B, H, S, d); k/v: (B, Hkv, T, d) with H % Hkv == 0 (GQA; query
     head h reads KV head h // (H / Hkv)) -> (B, H, S, d) in q's dtype.
 
@@ -33,7 +35,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (`t_minus_s`); a cache of T slots holding S new rows at position p
     takes ``q_start=p``. On the card the inputs may be any strided views
     whose last dim is contiguous (e.g. a (B, T, Hkv, d) cache transposed),
-    and the output is a (B, H, S, d) view of (B, S, H, d) storage."""
+    and the output is a (B, H, S, d) view of (B, S, H, d) storage.
+
+    ``return_lse`` also returns each row's float32 log-sum-exp of its
+    scaled scores, (B, H, S): on the card the split route always takes the
+    call (its combine writes them), in launches of at most 16 rows a KV
+    head (the query heads of a KV head in groups where G * S is more)."""
     s_n, t_n = q.shape[2], k.shape[2]
     scale = 1.0 / math.sqrt(q.shape[3]) if scale is None else float(scale)
     q_start = t_n - s_n if q_start is None else int(q_start)
@@ -41,10 +48,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"causal attention needs q_start >= 0 (row 0 sees "
                          f"key 0), got {q_start}")
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, scale=scale,
-                             q_start=q_start)
+        fn = attention_lse_ref if return_lse else attention_ref
+        return fn(q, k, v, causal=causal, scale=scale, q_start=q_start)
     forbid_backward("flash_attention", "transformer._sdpa, use_kernel=False",
                     q, k, v)
+    if return_lse:
+        return _with_lse(q, k, v, causal=causal, scale=scale,
+                         q_start=q_start)
     route = plan(q, k, v, causal=causal, q_start=q_start)
     out = flash_attention_kernel(q, k, v, causal=causal, scale=scale,
                                  q_start=q_start, route=route)
@@ -55,3 +65,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.routes = Counter()
+
+
+def _with_lse(q, k, v, **kw):
+    """The split route with its log-sum-exp, in groups of query heads of
+    at most SPLIT_ROWS rows a KV head: (out, lse)."""
+    b, h, s_n, d = q.shape
+    hkv = k.shape[1]
+    g_n = h // hkv
+    per = SPLIT_ROWS // s_n
+    if per < 1:
+        raise ValueError(f"flash_attention(return_lse=True) takes at most "
+                         f"{SPLIT_ROWS} query rows a head, got S = {s_n}")
+    if g_n <= per:
+        return _launch_lse(q, k, v, **kw)
+    out = torch.empty((b, s_n, h, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, s_n), dtype=torch.float32, device=q.device)
+    for g0 in range(0, g_n, per):
+        g1 = min(g0 + per, g_n)
+        o, ls = _launch_lse(q.unflatten(1, (hkv, g_n))[:, :, g0:g1]
+                            .flatten(1, 2).contiguous(), k, v, **kw)
+        out.unflatten(1, (hkv, g_n))[:, :, g0:g1] = o.unflatten(
+            1, (hkv, g1 - g0))
+        lse.unflatten(1, (hkv, g_n))[:, :, g0:g1] = ls.unflatten(
+            1, (hkv, g1 - g0))
+    return out, lse
+
+
+def _launch_lse(q, k, v, *, causal, scale, q_start):
+    """One launch of the split route writing each row's log-sum-exp."""
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    route = plan(q, k, v, causal=causal, q_start=q_start, lse=True)
+    out = flash_attention_kernel(q, k, v, causal=causal, scale=scale,
+                                 q_start=q_start, route=route, lse=lse)
+    flash_attention.launches += 1
+    flash_attention.routes["split_lse"] += 1
+    return out, lse

@@ -78,3 +78,27 @@ def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l_all = l_all + l_c * w
         acc = acc + a * w
     return (acc / l_all.clamp_min(1e-30)).to(q.dtype)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, scale: float | None = None,
+                      q_start: int | None = None):
+    """`attention_ref` and each row's float32 log-sum-exp of its scaled,
+    masked scores: (out (B, H, S, d) in q's dtype, lse (B, H, S)). A row
+    that sees no key has lse -inf and output 0 (no NaN)."""
+    h, hkv = q.shape[1], k.shape[1]
+    s_n, t_n, d = q.shape[2], k.shape[2], q.shape[3]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    q_start = t_n - s_n if q_start is None else q_start
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
+    if causal:
+        rows = torch.arange(s_n, device=q.device)[:, None] + q_start
+        mask = torch.arange(t_n, device=q.device)[None, :] <= rows
+        s = s.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None].clamp_min(-3.0e38))
+    out = torch.einsum("bhst,bhtd->bhsd", p, v.float())
+    return out.to(q.dtype), lse

@@ -19,16 +19,29 @@ function on each with its mesh. Gloo runs several ranks on one card (each
 rank's tensors on ``cuda:0`` when there are fewer cards than ranks; gloo
 moves the gathered bytes through host memory); NCCL needs a card per
 rank. A mesh of size 1 needs no process group.
+
+The models' mesh is N-dimensional: `MeshShape` holds axis names and sizes
+(the reference's `make_production_mesh`, 16 x 16 ``("data", "model")`` or
+2 x 16 x 16 ``("pod", "data", "model")``, as a description the sharding
+rules read without starting a rank), and `DeviceMesh` is one rank of such
+a mesh on ``torch.distributed``: its coordinate (rank-major, the last axis
+fastest, as JAX lays devices on `jax.make_mesh`), a process group per line
+of every combination of axes, and the collectives along an axis or a tuple
+of axes (`all_gather`, `all_reduce` sum and max, `reduce_scatter`), each
+counted in calls and bytes. `spawn` with a tuple shape starts one.
 """
 from __future__ import annotations
 
 import datetime
+import itertools
+import math
 import os
 import pickle
 import shutil
 import tempfile
 import time
 import traceback
+from collections import Counter
 from pathlib import Path
 from typing import Callable
 
@@ -37,6 +50,7 @@ import torch
 AXIS = "shards"
 BACKENDS = ("gloo", "nccl")
 ENGINE_SOURCES = ("kg_scan.cu", "kg_join.cu", "kg_compat.cu")
+MODEL_SOURCES = ("flash_attention.cu",)
 
 
 def _dist():
@@ -58,7 +72,32 @@ def check_dist_backend(backend: str, n_shards: int) -> None:
             "several ranks on one card")
 
 
-class EngineMesh:
+class _Wire:
+    """What every collective hands the backend: the tensor itself, or a
+    pinned host copy of it under gloo on CUDA (``_host``)."""
+
+    device: torch.device
+    _host: bool
+
+    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        """The tensor handed to the backend: ``t`` itself, or a pinned
+        host copy of it under gloo on CUDA."""
+        if not self._host:
+            return t.contiguous()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        return host
+
+    def _unwire(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.device, non_blocking=True) if self._host else t
+
+    def _empty(self, like: torch.Tensor) -> torch.Tensor:
+        if self._host:
+            return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+        return torch.empty_like(like)
+
+
+class EngineMesh(_Wire):
     """One rank's view of the shard mesh.
 
     ``axis_names`` and ``shape`` read as a JAX mesh's do (one axis);
@@ -118,23 +157,6 @@ class EngineMesh:
         self.gathered_bytes = 0
 
     # ---- collectives ---------------------------------------------------
-
-    def _wire(self, t: torch.Tensor) -> torch.Tensor:
-        """The tensor handed to the backend: ``t`` itself, or a pinned
-        host copy of it under gloo on CUDA."""
-        if not self._host:
-            return t.contiguous()
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t)
-        return host
-
-    def _unwire(self, t: torch.Tensor) -> torch.Tensor:
-        return t.to(self.device, non_blocking=True) if self._host else t
-
-    def _empty(self, like: torch.Tensor) -> torch.Tensor:
-        if self._host:
-            return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
-        return torch.empty_like(like)
 
     def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
         """Every rank's ``t`` (equal shapes on every rank), in rank order,
@@ -213,6 +235,255 @@ def make_engine_mesh(n_shards: int, *, device="cuda", backend: str = "gloo",
     return EngineMesh(size, rank, dev, backend=backend, axis_name=axis_name)
 
 
+class MeshShape:
+    """A mesh's axis names and sizes, and the coordinates of its ranks.
+
+    ``shape`` maps each axis to its size and ``axis_names`` lists the
+    axes, as a JAX mesh's do, so the sharding rules read either. Rank r
+    sits at ``coords(r)``: r unravelled over the sizes, the last axis
+    fastest."""
+
+    def __init__(self, sizes, axis_names):
+        sizes, axis_names = tuple(int(n) for n in sizes), tuple(axis_names)
+        if len(sizes) != len(axis_names) or len(set(axis_names)) \
+                != len(axis_names) or min(sizes, default=0) < 1:
+            raise ValueError(f"a mesh needs one size >= 1 per distinct axis, "
+                             f"got sizes {sizes} for axes {axis_names}")
+        self.sizes = sizes
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, sizes))
+        self.size = math.prod(sizes)
+
+    def __repr__(self) -> str:
+        return f"MeshShape({self.shape})"
+
+    def axes(self, axes) -> tuple[str, ...]:
+        """``axes`` (a name or a tuple of names) as a tuple, each checked."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        for a in axes:
+            if a not in self.shape:
+                raise ValueError(f"axis {a!r} is not one of the mesh's "
+                                 f"{self.axis_names}")
+        return axes
+
+    def axes_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in self.axes(axes))
+
+    def coords(self, rank: int) -> dict[str, int]:
+        out = {}
+        for a, n in zip(reversed(self.axis_names), reversed(self.sizes)):
+            rank, out[a] = divmod(rank, n)
+        return out
+
+    def index_of(self, rank: int, axes) -> int:
+        """Rank ``rank``'s index along ``axes`` taken together, the first
+        axis slowest (the reference's ``off * size + axis_index``)."""
+        c, idx = self.coords(rank), 0
+        for a in self.axes(axes):
+            idx = idx * self.shape[a] + c[a]
+        return idx
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """The reference's production mesh: 16 x 16 ("data", "model"), or
+    2 x 16 x 16 ("pod", "data", "model") across two pods, as a
+    description (no rank is started)."""
+    if multi_pod:
+        return MeshShape((2, 16, 16), ("pod", "data", "model"))
+    return MeshShape((16, 16), ("data", "model"))
+
+
+class DeviceMesh(MeshShape, _Wire):
+    """One rank of an N-dimensional mesh on ``torch.distributed``.
+
+    Every rank builds, in the same order, one process group per line of
+    every combination of axes whose size is above one (the ranks that
+    differ only along those axes); the whole mesh is the default group.
+    The collectives run along an axis or a tuple of axes; along axes of
+    size one they are the identity and count nothing. Pieces gathered
+    along a tuple of axes come in the tuple's order (first axis slowest).
+    Under gloo on CUDA every collective goes through pinned host memory
+    (`_Wire`), bfloat16 gathers as its raw bytes and bfloat16 sums and
+    maxima in float32, cast back. ``calls`` and ``bytes`` count each
+    collective by name (the bytes it delivers to this rank: the gathered
+    tensor whole, the reduced tensor, the scattered input; a gather to
+    rank 0 counts what rank 0 receives and what each other rank sends)."""
+
+    def __init__(self, sizes, axis_names, rank: int, device, *,
+                 backend: str = "gloo"):
+        super().__init__(sizes, axis_names)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        self.rank = rank
+        self.device = torch.device(device)
+        self.backend = backend
+        self.calls: Counter = Counter()
+        self.bytes: Counter = Counter()
+        self._host = backend == "gloo" and self.device.type == "cuda"
+        self._groups: dict[tuple[str, ...], tuple] = {}
+        if self.size == 1:
+            return
+        dist = _dist()
+        for k in range(1, len(self.axis_names) + 1):
+            for combo in itertools.combinations(self.axis_names, k):
+                if self.axes_size(combo) == 1:
+                    continue
+                if k == len(self.axis_names):
+                    self._groups[combo] = (dist.group.WORLD,
+                                           tuple(range(self.size)))
+                    continue
+                for line in self._lines(combo):
+                    group = dist.new_group(list(line))
+                    if rank in line:
+                        self._groups[combo] = (group, line)
+
+    def _lines(self, combo) -> list[tuple[int, ...]]:
+        """The rank sets that differ only along ``combo``, in a fixed
+        order."""
+        lines: dict = {}
+        for r in range(self.size):
+            c = self.coords(r)
+            key = tuple(c[a] for a in self.axis_names if a not in combo)
+            lines.setdefault(key, []).append(r)
+        return [tuple(v) for _, v in sorted(lines.items())]
+
+    def __repr__(self) -> str:
+        return (f"DeviceMesh({self.shape}, rank={self.rank}, "
+                f"device={self.device}, backend={self.backend!r})")
+
+    def axis_index(self, axes) -> int:
+        """This rank's index along ``axes`` (a name or a tuple)."""
+        return self.index_of(self.rank, axes)
+
+    def reset_counts(self) -> None:
+        self.calls.clear()
+        self.bytes.clear()
+
+    def _line(self, axes):
+        """(group, members in order of ``axes``' combined index), or None
+        where ``axes`` span one rank."""
+        axes = tuple(a for a in self.axes(axes) if self.shape[a] > 1)
+        if not axes:
+            return None
+        group, members = self._groups[tuple(a for a in self.axis_names
+                                            if a in axes)]
+        return group, sorted(members, key=lambda r: self.index_of(r, axes))
+
+    def _count(self, name: str, t: torch.Tensor, factor: int = 1) -> None:
+        self.calls[name] += 1
+        self.bytes[name] += t.numel() * t.element_size() * factor
+
+    def all_gather(self, t: torch.Tensor, axes, dim: int = 0, *,
+                   tiled: bool = True) -> torch.Tensor:
+        """Every rank's ``t`` along ``axes``, concatenated along ``dim``
+        (``tiled``) or stacked in a new leading dim, on every rank of the
+        line."""
+        line = self._line(axes)
+        if line is None:
+            return t if tiled else t[None]
+        group, members = line
+        self._count("all_gather", t, len(members))
+        raw = t.contiguous().view(torch.uint8) \
+            if t.dtype == torch.bfloat16 else t
+        w = self._wire(raw)
+        parts = [self._empty(w) for _ in members]
+        _dist().all_gather(parts, w, group=group)
+        # the backend orders the parts by rank
+        by_rank = dict(zip(sorted(members), parts))
+        pieces = [self._unwire(by_rank[r]) for r in members]
+        if t.dtype == torch.bfloat16:
+            pieces = [p.view(torch.bfloat16) for p in pieces]
+        return torch.cat(pieces, dim) if tiled else torch.stack(pieces)
+
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"
+                   ) -> torch.Tensor:
+        """The sum (or maximum) of every rank's ``t`` along ``axes``, on
+        every rank of the line; a new tensor."""
+        if op not in ("sum", "max"):
+            raise ValueError(f"all_reduce op must be 'sum' or 'max', got "
+                             f"{op!r}")
+        line = self._line(axes)
+        if line is None:
+            return t.clone()
+        self._count("all_reduce", t)
+        group, _ = line
+        work = t.float() if t.dtype == torch.bfloat16 else t
+        w = self._wire(work)
+        if w.data_ptr() == t.data_ptr():
+            w = w.clone()
+        dist = _dist()
+        dist.all_reduce(w, op=dist.ReduceOp.SUM if op == "sum"
+                        else dist.ReduceOp.MAX, group=group)
+        return self._unwire(w).to(t.dtype)
+
+    def reduce_scatter(self, t: torch.Tensor, axes, dim: int = 0
+                       ) -> torch.Tensor:
+        """This rank's block along ``dim`` of the sum of every rank's
+        ``t`` along ``axes`` (``dim`` divides by the line's size): each
+        rank receives only its own block's sum."""
+        line = self._line(axes)
+        if line is None:
+            return t
+        group, members = line
+        n = len(members)
+        if t.shape[dim] % n:
+            raise ValueError(f"reduce_scatter of dim {dim} ({t.shape[dim]}) "
+                             f"over {n} ranks")
+        self._count("reduce_scatter", t)
+        work = t.float() if t.dtype == torch.bfloat16 else t
+        blocks = work.chunk(n, dim)
+        # the backend sends input i to the line's i-th rank in rank order
+        by_rank = dict(zip(members, blocks))
+        inputs = [self._wire(by_rank[r]) for r in sorted(members)]
+        out = self._empty(inputs[0])
+        _dist().reduce_scatter(out, inputs, group=group)
+        return self._unwire(out).to(t.dtype)
+
+    def gather_to_root(self, t: torch.Tensor) -> list | None:
+        """Every rank's ``t`` (equal shapes), in rank order, as host
+        tensors on rank 0 (None on the others): one gather over the whole
+        mesh."""
+        if self.size == 1:
+            return [t.cpu()]
+        self._count("gather", t, self.size if self.rank == 0 else 1)
+        raw = t.contiguous().view(torch.uint8) \
+            if t.dtype == torch.bfloat16 else t
+        w = self._wire(raw)
+        parts = [self._empty(w) for _ in range(self.size)] \
+            if self.rank == 0 else None
+        _dist().gather(w, parts, dst=0)
+        if parts is None:
+            return None
+        return [(p.view(torch.bfloat16) if t.dtype == torch.bfloat16
+                 else p).cpu() for p in parts]
+
+    def barrier(self) -> None:
+        """Every rank of the mesh meets here (uncounted)."""
+        if self.size > 1:
+            _dist().barrier()
+
+
+def make_device_mesh(sizes, axis_names, *, device="cuda",
+                     backend: str = "gloo") -> DeviceMesh:
+    """This process's rank of a mesh of ``sizes`` over ``axis_names`` on
+    the initialised default process group (whose size must be the mesh's;
+    a mesh of one needs no group). Devices as `make_engine_mesh` picks
+    them."""
+    shape = MeshShape(sizes, axis_names)
+    base = make_engine_mesh(shape.size, device=device, backend=backend)
+    return DeviceMesh(shape.sizes, shape.axis_names, base.rank, base.device,
+                      backend=backend)
+
+
+def make_local_mesh(*, device="cuda", backend: str = "gloo") -> DeviceMesh:
+    """The reference's local mesh: one "data" axis over the local ranks
+    (the initialised process group's, or this process alone)."""
+    dist = _dist()
+    n = dist.get_world_size() if dist.is_available() \
+        and dist.is_initialized() else 1
+    return make_device_mesh((n,), ("data",), device=device, backend=backend)
+
+
 class SpawnError(RuntimeError):
     """One or more ranks of a `spawn` failed. ``results`` holds each
     rank's return value (None where it failed) and ``errors`` each
@@ -227,10 +498,12 @@ class SpawnError(RuntimeError):
                          f"{failed[0]}:\n{first}")
 
 
-def _rank_main(rank: int, n_shards: int, fn, args, backend: str, device,
+def _rank_main(rank: int, shape, fn, args, backend: str, device,
                timeout: float, run_dir: str) -> None:
-    """One rank: join the group, build the mesh, run ``fn`` and write
-    its result (or its traceback) to ``run_dir``."""
+    """One rank: join the group, build the mesh (an `EngineMesh` for an
+    int ``shape``, a `DeviceMesh` for a (sizes, axis names) pair), run
+    ``fn`` and write its result (or its traceback) to ``run_dir``."""
+    n_shards = shape if isinstance(shape, int) else math.prod(shape[0])
     out = Path(run_dir) / f"rank{rank}.pkl"
     try:
         if backend == "gloo":
@@ -241,7 +514,9 @@ def _rank_main(rank: int, n_shards: int, fn, args, backend: str, device,
         dist.init_process_group(
             backend, init_method=f"file://{run_dir}/rendezvous", rank=rank,
             world_size=n_shards, timeout=datetime.timedelta(seconds=timeout))
-        mesh = make_engine_mesh(n_shards, device=device, backend=backend)
+        mesh = (make_engine_mesh(n_shards, device=device, backend=backend)
+                if isinstance(shape, int) else
+                make_device_mesh(*shape, device=device, backend=backend))
         payload = ("ok", fn(mesh, *args))
     except BaseException:
         payload = ("error", traceback.format_exc())
@@ -253,17 +528,21 @@ def _rank_main(rank: int, n_shards: int, fn, args, backend: str, device,
     _dist().destroy_process_group()
 
 
-def spawn(n_shards: int, fn: Callable, *args, backend: str = "gloo",
+def spawn(n_shards, fn: Callable, *args, backend: str = "gloo",
           device="cuda", timeout: float = 60.0,
           join_timeout: float = 600.0) -> list:
-    """Run ``fn(mesh, *args)`` on ``n_shards`` new processes, one a rank,
-    and return their results in rank order.
+    """Run ``fn(mesh, *args)`` on new processes, one a rank, and return
+    their results in rank order.
 
-    ``fn`` and ``args`` are pickled (``fn`` by its import path). Each
-    process joins a gloo or NCCL group through a file rendezvous in a
-    fresh temporary directory, with ``timeout`` seconds on every
-    collective; on the CPU it runs one intra-op thread. The engine's
-    kernels are built once here, before the ranks start.
+    An int ``n_shards`` starts that many ranks of the engines' 1-D
+    `EngineMesh`; a pair of sizes starts a ("data", "model") `DeviceMesh`
+    of those sizes, one rank per coordinate. ``fn`` and ``args`` are
+    pickled (``fn`` by its import path). Each process joins a gloo or NCCL
+    group through a file rendezvous in a fresh temporary directory, with
+    ``timeout`` seconds on every collective; on the CPU it runs one
+    intra-op thread. The kernels the ranks run (the engine's for a 1-D
+    mesh, flash attention for a `DeviceMesh`) are built once here, before
+    the ranks start.
 
     A rank that fails does not hang the others: a collective with a dead
     peer fails on the live ranks, at the latest after ``timeout``. The
@@ -274,16 +553,22 @@ def spawn(n_shards: int, fn: Callable, *args, backend: str = "gloo",
     RuntimeError for a CUDA device without a card.
     """
     from repro_torch.engine.federated import resolve_device
-    check_dist_backend(backend, n_shards)
+    if isinstance(n_shards, int):
+        shape, n_ranks = n_shards, n_shards
+    else:
+        shape = (tuple(n_shards), ("data", "model"))
+        n_ranks = MeshShape(*shape).size
+    check_dist_backend(backend, n_ranks)
     if resolve_device(device).type == "cuda":
         from repro_torch import kernels
-        kernels.build(ENGINE_SOURCES)
+        kernels.build(ENGINE_SOURCES if isinstance(shape, int)
+                      else MODEL_SOURCES)
     ctx = torch.multiprocessing.get_context("spawn")
     run_dir = tempfile.mkdtemp(prefix="repro_torch_mesh_")
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, n_shards, fn, args, backend, str(device),
+                         args=(r, shape, fn, args, backend, str(device),
                                timeout, run_dir))
-             for r in range(n_shards)]
+             for r in range(n_ranks)]
     try:
         for p in procs:
             p.start()

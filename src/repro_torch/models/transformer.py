@@ -28,9 +28,18 @@ The MoE layer (`_moe_mlp`) follows the reference's one-device dispatch:
 float32 router softmax, top-k with ties to the lower expert index, slots
 ranked within their expert by a stable sort, (token, k) pairs past the
 capacity dropped, the kept ones copied into (E, capacity, D) for the
-batched expert products and gathered back. The reference's expert-parallel
-`shard_map` and split-KV decodes run on a mesh and are not ported (ROADMAP,
-Queue 1 item 5).
+batched expert products and gathered back.
+
+On a mesh (`launch.mesh.DeviceMesh`, passed as ``mesh=``; the reference
+switches its paths on with the module globals ``MOE_SHARD_MAP`` and
+``DECODE_SHARD_MAP``) the reference's hand-written collectives are
+`torch.distributed` calls: the expert-parallel MoE layer (`_moe_mlp_ep`:
+EP, or expert-TP where the experts do not divide over "model"; one
+(T_loc, D) all_reduce a layer, written-out backward), and the split-KV
+decodes (`Transformer.decode_step(..., mesh=)`): GQA through the flash
+kernel's split route with its log-sum-exp on each rank's slice of the
+cache, then one max and one sum all_reduce; MLA's absorbed decode with
+`wkv_b` gathered over "model", one max and two sum all_reduces.
 
 Training (`hidden_forward`, `ce_from_hidden`, `loss_fn`) follows the
 reference's plain path: `_sdpa` attention under autograd, the cross-entropy
@@ -59,6 +68,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.engine.batch import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+from repro_torch.sharding.rules import (AllReduce, Gather, P, Replicated,
+                                        Shard, batch_axis)
 
 
 @dataclass(frozen=True)
@@ -249,10 +261,13 @@ def _sdpa(q, k, v, scale, q_start, *, chunk: int = 0):
 
 
 def _gqa_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
-                   use_kernel: bool = True):
+                   use_kernel: bool = True, mesh=None, seq_axes=None):
     """Attention of one layer. ``cache`` is (ck, cv, cur): the layer's
     (B, T, Hkv, dh) cache tensors, into whose slots cur .. cur + S the new
-    keys and values are written in place, and the first slot's index."""
+    keys and values are written in place, and the first slot's index.
+    A decode step on a ``mesh`` holds this rank's slice of the cache's
+    sequence along ``seq_axes`` and attends split-KV
+    (`_decode_attn_split_kv`)."""
     B, S, D = x.shape
     c = cfg
     q = (x @ p["wq"]).reshape(B, S, c.n_heads, c.d_head)
@@ -261,6 +276,13 @@ def _gqa_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
     cos, sin = rope_freqs(positions, c.d_head, c.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    if mesh is not None:
+        ck, cv, cur = cache
+        off = _write_local_slot((ck, cv), (k, v), cur, mesh, seq_axes)
+        out = _decode_attn_split_kv(q, ck, cv, cur - off,
+                                    1.0 / math.sqrt(c.d_head), mesh,
+                                    seq_axes, use_kernel=use_kernel)
+        return out.reshape(B, S, c.n_heads * c.d_head) @ p["wo"]
     if cache is not None:
         ck, cv, cur = cache
         if not 0 <= cur <= ck.shape[1] - S:
@@ -280,7 +302,7 @@ def _gqa_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
 
 
 def _mla_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
-                   use_kernel: bool = True):
+                   use_kernel: bool = True, mesh=None, seq_axes=None):
     """DeepSeek MLA with the compressed cache: ``cache`` is (cc, cr, cur),
     the layer's (B, T, kv_lora) latent and (B, T, 1, rope) decoupled key,
     into whose slots cur .. cur + S the new entries are written in place.
@@ -288,7 +310,9 @@ def _mla_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
     masks give the later ones probability zero. A decode step (S = 1 with a
     cache) attends in the latent space with `wkv_b` absorbed; otherwise the
     latent is expanded into per-head keys and values for `_sdpa`. MLA
-    reaches no kernel (``use_kernel`` is accepted for the GQA signature)."""
+    reaches no kernel (``use_kernel`` is accepted for the GQA signature).
+    A decode step on a ``mesh`` holds this rank's slice of the latent
+    cache's sequence along ``seq_axes`` (`_mla_decode_split_kv`)."""
     c = cfg
     B, S, D = x.shape
     qin = rmsnorm(x @ p["wq_a"], p["q_norm"], c.norm_eps) \
@@ -302,6 +326,13 @@ def _mla_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
     cos, sin = rope_freqs(positions, c.qk_rope_dim, c.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)   # (B, S, 1, rope)
+    if mesh is not None:
+        cc, cr, cur = cache
+        off = _write_local_slot((cc, cr), (c_kv, k_rope), cur, mesh,
+                                seq_axes)
+        out = _mla_decode_split_kv(c, q_nope, q_rope, cc, cr, p["wkv_b"],
+                                   cur - off, mesh, seq_axes)
+        return out.reshape(B, S, c.n_heads * c.v_head_dim) @ p["wo"]
     if cache is not None:
         cc, cr, cur = cache
         if not 0 <= cur <= cc.shape[1] - S:
@@ -338,6 +369,96 @@ def _mla_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
     return out.reshape(B, S, c.n_heads * c.v_head_dim) @ p["wo"]
 
 
+def decode_axes(mesh, batch: int):
+    """(batch axes or None, sequence axes) of a decode step's cache on a
+    mesh, as the reference shards it: batch over the data axes and
+    sequence over "model" when ``batch`` > 1, else the sequence over
+    (data axes..., "model")."""
+    dp = batch_axis(mesh)
+    dp_t = dp if isinstance(dp, tuple) else (dp,)
+    if batch > 1:
+        if batch % mesh.axes_size(dp_t):
+            raise ValueError(f"a batch of {batch} does not divide over the "
+                             f"data axes {dp_t} ({mesh.axes_size(dp_t)})")
+        return dp_t, ("model",)
+    return None, (*dp_t, "model")
+
+
+def _write_local_slot(cache, new, cur: int, mesh, seq_axes) -> int:
+    """Write the step's entries (each (B, 1, ...)) into slot ``cur`` of
+    this rank's slices of the cache (each (B, T_loc, ...)) when this rank
+    owns that slot: the in-place counterpart of the reference's masked
+    update over a sequence-sharded cache. Returns the slice's first
+    global position."""
+    t_loc = cache[0].shape[1]
+    off = mesh.axis_index(seq_axes) * t_loc
+    if not 0 <= cur < mesh.axes_size(seq_axes) * t_loc:
+        raise ValueError(f"cache of {mesh.axes_size(seq_axes) * t_loc} "
+                         f"slots cannot take a row at position {cur}")
+    if off <= cur < off + t_loc:
+        for dst, src in zip(cache, new):
+            dst[:, cur - off] = src[:, 0]
+    return off
+
+
+def _decode_attn_split_kv(q, ck, cv, lim: int, scale, mesh, seq_axes, *,
+                          use_kernel: bool = True):
+    """Flash-decoding across ``seq_axes``: q (B, 1, H, dh) over this
+    rank's (B, T_loc, Hkv, dh) slice of the cache, whose keys up to local
+    index ``lim`` (cur - the slice's offset) are visible. The rank's flash
+    kernel (its plain version without ``use_kernel``) gives its normalised
+    output and each row's log-sum-exp; a rank whose slice lies wholly past
+    cur launches nothing and contributes lse -inf. The ranks combine with
+    one max all_reduce of the lse and one sum all_reduce of the outputs
+    weighted by exp(lse - max) packed beside their weights."""
+    B, _, H, dh = q.shape
+    if lim < 0:
+        out = q.new_zeros((B, H, 1, dh))
+        lse = torch.full((B, H, 1), float("-inf"), device=q.device)
+    else:
+        args = (q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2))
+        if use_kernel:
+            out, lse = flash_attention(*args, causal=True, scale=scale,
+                                       q_start=lim, return_lse=True)
+        else:
+            out, lse = attention_lse_ref(*args, causal=True, scale=scale,
+                                         q_start=lim)
+    m = mesh.all_reduce(lse, seq_axes, "max")
+    w = torch.exp(lse - m)[..., None]
+    tot = mesh.all_reduce(torch.cat([out.float() * w, w], dim=-1), seq_axes)
+    return (tot[..., :dh] / tot[..., dh:]).to(q.dtype).transpose(1, 2)
+
+
+def _mla_decode_split_kv(cfg: LMConfig, q_nope, q_rope, cc, cr, wkv_b,
+                         lim: int, mesh, seq_axes):
+    """Flash-decoding for the absorbed MLA decode (the reference's
+    `_mla_decode_split_kv`): this rank's (B, T_loc, kv_lora) latent and
+    (B, T_loc, 1, rope) key slices, visible up to local index ``lim``.
+    A ``wkv_b`` held as this rank's block over "model" (its `lm_rules`
+    storage) is gathered first, once per layer; then one max and two sum
+    all_reduces of (B, H, .) partials over ``seq_axes``."""
+    c = cfg
+    H = c.n_heads
+    if wkv_b.shape[1] != H * (c.qk_nope_dim + c.v_head_dim):
+        wkv_b = mesh.all_gather(wkv_b, "model", dim=1)
+    w_uk, w_uv = wkv_b.reshape(
+        c.kv_lora_rank, H, c.qk_nope_dim + c.v_head_dim).split(
+        [c.qk_nope_dim, c.v_head_dim], dim=-1)
+    scale = 1.0 / math.sqrt(c.qk_nope_dim + c.qk_rope_dim)
+    q_lat = torch.einsum("bshd,lhd->bshl", q_nope, w_uk)     # (B,1,H,latent)
+    s = (torch.einsum("bshl,btl->bhst", q_lat, cc)
+         + torch.einsum("bshr,btur->bhst", q_rope, cr)).float() * scale
+    cols = torch.arange(cc.shape[1], device=cc.device)
+    s = torch.where(cols <= lim, s, -1e30)                   # (B,H,1,T_loc)
+    m = mesh.all_reduce(s.amax(dim=-1), seq_axes, "max")     # (B,H,1)
+    pr = torch.exp(s - m[..., None])
+    l_g = mesh.all_reduce(pr.sum(dim=-1), seq_axes)          # (B,H,1)
+    ctx = mesh.all_reduce(torch.einsum("bhst,btl->bshl", pr.to(cc.dtype), cc),
+                          seq_axes)                          # (B,1,H,latent)
+    out = torch.einsum("bshl,lhd->bshd", ctx, w_uv)
+    return out / l_g.transpose(1, 2)[..., None].clamp(min=1e-30).to(out.dtype)
+
+
 def moe_capacity(cfg: LMConfig, n_tokens: int) -> int:
     """Slots per expert for a batch of ``n_tokens`` tokens: the reference's
     rule, rounded up to a multiple of 512 from 4,096 tokens on."""
@@ -349,43 +470,60 @@ def moe_capacity(cfg: LMConfig, n_tokens: int) -> int:
     return cap
 
 
-def moe_route(p, cfg: LMConfig, xt):
-    """Routing of (T, D) tokens: (gates (T, k) in the input dtype, expert
-    ids (T, k), each (token, k) pair's expert and slot as flat (T k,)
-    indices — (0, 0) where dropped — and the kept mask). Top-k takes ties
-    in the lower expert index first, as `jax.lax.top_k` does; a stable sort
-    of the flat expert ids ranks each pair within its expert in token
-    order, and the pairs ranked past the capacity drop."""
-    c = cfg
-    T = xt.shape[0]
+def moe_gates(p, cfg: LMConfig, xt):
+    """(gates (T, k) in the input dtype, expert ids (T, k)) of (T, D)
+    tokens: the float32 router softmax, its top k with ties in the lower
+    expert index first, as `jax.lax.top_k` takes them, renormalised."""
     logits = (xt @ p["router"]).float()                        # (T, E)
     probs, ranked = torch.sort(torch.softmax(logits, dim=-1), dim=-1,
                                descending=True, stable=True)
-    gates, idx = probs[:, :c.top_k], ranked[:, :c.top_k]
+    gates, idx = probs[:, :cfg.top_k], ranked[:, :cfg.top_k]
     gates = (gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)) \
         .to(xt.dtype)
-    eid = idx.reshape(T * c.top_k)
-    order = torch.sort(eid, stable=True).indices
-    sorted_eid = eid[order]
+    return gates, idx
+
+
+def moe_slots(key, n_experts: int):
+    """Each pair's rank within its expert: a stable sort of the flat
+    expert ids ``key`` (pairs keyed ``n_experts`` or past rank last), in
+    token order within an expert, as the reference's argsort and
+    searchsorted rank them."""
+    order = torch.sort(key, stable=True).indices
+    sorted_key = key[order]
     starts = torch.searchsorted(
-        sorted_eid, torch.arange(c.n_experts, device=xt.device))
-    pos = torch.empty_like(eid)
-    pos[order] = torch.arange(T * c.top_k, device=xt.device) \
-        - starts[sorted_eid]
-    keep = pos < moe_capacity(c, T)
+        sorted_key, torch.arange(n_experts, device=key.device))
+    pos = torch.empty_like(key)
+    pos[order] = torch.arange(key.shape[0], device=key.device) \
+        - starts[sorted_key.clamp(max=n_experts - 1)]
+    return pos
+
+
+def moe_route(p, cfg: LMConfig, xt):
+    """Routing of (T, D) tokens: (gates (T, k) in the input dtype, expert
+    ids (T, k), each (token, k) pair's expert and slot as flat (T k,)
+    indices — (0, 0) where dropped — and the kept mask). A stable sort of
+    the flat expert ids ranks each pair within its expert in token order,
+    and the pairs ranked past the capacity drop."""
+    gates, idx = moe_gates(p, cfg, xt)
+    eid = idx.reshape(-1)
+    pos = moe_slots(eid, cfg.n_experts)
+    keep = pos < moe_capacity(cfg, xt.shape[0])
     return (gates, idx, torch.where(keep, eid, 0), torch.where(keep, pos, 0),
             keep)
 
 
-def moe_dispatch(cfg: LMConfig, xt, e_safe, p_safe, keep):
+def moe_dispatch(cfg: LMConfig, xt, e_safe, p_safe, keep, *,
+                 n_experts: int | None = None, cap: int | None = None):
     """(T, D) tokens into the (E, capacity, D) expert buffer: each kept
     (token, k) pair copied into its own slot, zeros elsewhere. The dropped
     pairs are written to one spare row past the buffer, which nothing
     reads, so every slot is written at most once and the buffer equals the
     reference's (whose dropped pairs add zeros into slot (0, 0)) without
-    an accumulating scatter."""
-    E, D = cfg.n_experts, xt.shape[1]
-    cap = moe_capacity(cfg, xt.shape[0])
+    an accumulating scatter. ``n_experts`` and ``cap`` default to the
+    one-device layer's (a mesh rank's are its own)."""
+    E = cfg.n_experts if n_experts is None else n_experts
+    D = xt.shape[1]
+    cap = moe_capacity(cfg, xt.shape[0]) if cap is None else cap
     slot = torch.where(keep, e_safe * cap + p_safe, E * cap)
     tok = torch.arange(slot.shape[0], device=xt.device) // cfg.top_k
     return xt.new_zeros((E * cap + 1, D)).index_put((slot,), xt[tok])[:-1] \
@@ -402,38 +540,158 @@ def moe_experts(w, cfg: LMConfig, buf):
     return torch.bmm(h, w["w_out"])
 
 
-def _moe_mlp(p, cfg: LMConfig, x, drops: list | None = None):
+def _moe_mlp(p, cfg: LMConfig, x, drops: list | None = None, *,
+             mesh=None, split: bool = True):
     """Capacity-bounded top-k MoE with scatter dispatch (no (T, E, C)
     one-hot): the kept (token, k) pairs scattered into (E, capacity, D),
     the experts' MLPs as batched products, the pairs gathered back (a
     dropped one reads slot (0, 0) and is zeroed, as in the reference) and
     summed with their gates, the shared expert added. ``drops`` gets the
-    count of dropped pairs (a 0-d tensor; no host sync)."""
+    count of dropped pairs (a 0-d tensor; no host sync).
+
+    On a ``mesh`` (a `DeviceMesh` rank) ``x`` is this rank's block of the
+    tokens along the data axes, the same on every rank of its model
+    column, and the routed experts run expert-parallel (`_moe_mlp_ep`).
+    ``split=False`` says ``x`` holds every token on every rank: the
+    reference's route where the tokens do not divide over the data axes
+    (a decode step of one sequence), the one-device layer over the whole
+    expert weights. ``p["experts"]`` holds each rank's block under
+    `lm_rules` or the whole weights; the router and the shared expert are
+    whole."""
     c = cfg
     B, S, D = x.shape
     T = B * S
     xt = x.reshape(T, D)
-    gates, _, e_safe, p_safe, keep = moe_route(p, c, xt)
-    if drops is not None:
-        drops.append((~keep).sum())
-    out_e = moe_experts(p["experts"], c,
-                        moe_dispatch(c, xt, e_safe, p_safe, keep))
-    gath = out_e[e_safe, p_safe] * keep[:, None]               # (T k, D)
-    comb = (gath.reshape(T, c.top_k, D) * gates[..., None]).sum(dim=1)
+    if mesh is not None and split:
+        gates, idx = moe_gates(p, c, xt)
+        comb = _moe_mlp_ep(p["experts"], c, xt, gates, idx, mesh, drops)
+    else:
+        w = p["experts"] if mesh is None else _expert_weights(
+            p["experts"], c, mesh, "whole")
+        gates, _, e_safe, p_safe, keep = moe_route(p, c, xt)
+        if drops is not None:
+            drops.append((~keep).sum())
+        out_e = moe_experts(w, c, moe_dispatch(c, xt, e_safe, p_safe, keep))
+        gath = out_e[e_safe, p_safe] * keep[:, None]           # (T k, D)
+        comb = (gath.reshape(T, c.top_k, D) * gates[..., None]).sum(dim=1)
     if c.n_shared_experts:
         comb = comb + _mlp(p["shared"], xt, c.mlp)
     return comb.reshape(B, S, D)
 
 
+def _model_axis(mesh) -> tuple[str, ...]:
+    """The mesh's "model" axis, or none (a column of one)."""
+    return ("model",) if "model" in mesh.axis_names else ()
+
+
+def moe_mesh_mode(cfg: LMConfig, mesh) -> str:
+    """"ep" where the experts divide over the model axis (each column
+    keeps E / model of them), else "tp" (expert-TP: every column holds
+    every expert's d_ff / model slice)."""
+    return "ep" if cfg.n_experts % mesh.axes_size(_model_axis(mesh)) == 0 \
+        else "tp"
+
+
+def _expert_weights(w, cfg: LMConfig, mesh, route: str) -> dict:
+    """The expert weights as ``route`` computes with them on this rank:
+    "ep" (E / model experts whole), "tp" (every expert's d_ff / model
+    slice) or "whole". Each dim held as a block (its `lm_rules` storage:
+    E or d_ff over "model", the other matrix dim over the data axes) or
+    whole is re-gathered (`Gather`, the gradient reduce-scattered) or cut
+    (`Shard`, the gradient gathered) to what the route needs."""
+    E, D, Fd = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    mdl, dp = _model_axis(mesh), batch_axis(mesh)
+    ep = moe_mesh_mode(cfg, mesh) == "ep"
+    # (whole size, storage axes) of each dim
+    dims = {"w_in": ((E, mdl if ep else ()), (D, dp), (Fd, () if ep else mdl)),
+            "w_out": ((E, mdl if ep else ()), (Fd, dp if ep else mdl),
+                      (D, () if ep else dp))}
+    dims["w_gate"] = dims["w_in"]
+    out = {}
+    for name, t in w.items():
+        for dim, (full, axes) in enumerate(dims[name]):
+            n = mesh.axes_size(axes) if axes else 1
+            want_block = route != "whole" and axes == mdl and bool(mdl)
+            if t.shape[dim] == full and n > 1 and want_block:
+                if full % n:
+                    raise ValueError(f"{cfg.name}: experts' {name} dim {dim}"
+                                     f" ({full}) does not divide over {axes}")
+                t = Shard.apply(t, mesh, axes, dim)
+            elif t.shape[dim] != full:
+                if t.shape[dim] * n != full:
+                    raise ValueError(
+                        f"{cfg.name}: experts' {name} of shape "
+                        f"{tuple(t.shape)} is neither whole nor a block over "
+                        f"{axes} in dim {dim}")
+                if not want_block:
+                    t = Gather.apply(t, mesh, axes, dim)
+        out[name] = t
+    return out
+
+
+def moe_mesh_capacity(cfg: LMConfig, n_local: int) -> int:
+    """Slots per expert on a mesh rank with ``n_local`` tokens: the
+    reference's local rule, max(8, ceil(T_loc k / E cf)) rounded up to a
+    multiple of 8."""
+    cap = max(8, int(np.ceil(n_local * cfg.top_k / cfg.n_experts
+                             * cfg.capacity_factor)))
+    return int(np.ceil(cap / 8)) * 8
+
+
+def _moe_mlp_ep(w, cfg: LMConfig, xt, gates, idx, mesh, drops=None):
+    """The routed experts on a mesh rank (the reference's
+    `_moe_mlp_ep_shard_map`). EP (E % model == 0): this model column
+    keeps E / model experts and routes its local tokens' pairs that go to
+    them; expert-TP: it holds every expert's d_ff / model slice and
+    computes partial outputs for every pair. The pairs are combined to
+    tokens on each column, then summed in one (T_loc, D) all_reduce over
+    "model" (`AllReduce`); the tokens and gates, the same on every column,
+    sum their gradients over "model" (`Replicated`)."""
+    c = cfg
+    mdl = _model_axis(mesh)
+    ep = moe_mesh_mode(c, mesh) == "ep"
+    n_cols = mesh.axes_size(mdl)
+    e_loc = c.n_experts // n_cols if ep else c.n_experts
+    t_loc, D = xt.shape
+    cap = moe_mesh_capacity(c, t_loc)
+    wl = _expert_weights(w, c, mesh, "ep" if ep else "tp")
+    x_in = Replicated.apply(xt, mesh, mdl)
+    g_in = Replicated.apply(gates, mesh, mdl)
+    eid = idx.reshape(-1)
+    if ep:
+        local_e = eid - mesh.axis_index(mdl) * e_loc
+        mine = (local_e >= 0) & (local_e < e_loc)
+    else:
+        local_e = eid
+        mine = torch.ones_like(eid, dtype=torch.bool)
+    pos = moe_slots(torch.where(mine, local_e, e_loc), e_loc)
+    keep = mine & (pos < cap)
+    if drops is not None:
+        drops.append((mine & ~keep).sum())
+    e_safe, p_safe = torch.where(keep, local_e, 0), torch.where(keep, pos, 0)
+    buf = moe_dispatch(c, x_in, e_safe, p_safe, keep, n_experts=e_loc,
+                       cap=cap)
+    out_e = moe_experts(wl, c, buf)                 # partial iff expert-TP
+    gath = out_e[e_safe, p_safe] * keep[:, None]
+    comb = (gath.reshape(t_loc, c.top_k, D) * g_in[..., None]).sum(dim=1)
+    return AllReduce.apply(comb, mesh, mdl)
+
+
 def _layer_fwd(p, cfg: LMConfig, x, positions, q_start, moe: bool = False,
                cache=None, *, use_kernel: bool = True,
-               drops: list | None = None):
+               drops: list | None = None, mesh=None, seq_axes=None,
+               split: bool = True):
+    """One layer. On a ``mesh``: a cache holds this rank's slices along
+    ``seq_axes`` (a decode step), and the MoE layer runs expert-parallel
+    over this rank's tokens (``split``) or the one-device route over
+    every token."""
     attn = _mla_attention if cfg.attn == "mla" else _gqa_attention
     h = attn(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps), positions,
-             q_start, cache, use_kernel=use_kernel)
+             q_start, cache, use_kernel=use_kernel,
+             mesh=mesh if seq_axes is not None else None, seq_axes=seq_axes)
     x = x + h
     z = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + (_moe_mlp(p, cfg, z, drops) if moe
+    return x + (_moe_mlp(p, cfg, z, drops, mesh=mesh, split=split) if moe
                 else _mlp(p["mlp"], z, cfg.mlp))
 
 
@@ -612,13 +870,38 @@ class Transformer:
         """The reference's `init_params` pytree: ``params`` itself."""
         return self.params
 
-    def init_cache(self, batch: int, max_len: int):
-        """A zero cache in the parameters' dtype on their device."""
-        return init_cache(self.cfg, batch, max_len,
+    def init_cache(self, batch: int, max_len: int, *, mesh=None):
+        """A zero cache in the parameters' dtype on their device; on a
+        ``mesh``, this rank's block of it for a decode step of ``batch``
+        sequences (`cache_specs`)."""
+        if mesh is None:
+            return init_cache(self.cfg, batch, max_len,
+                              self.params["embed"].dtype, self.device)
+        b_ax, t_ax = decode_axes(mesh, batch)
+        n_b = mesh.axes_size(b_ax) if b_ax else 1
+        n_t = mesh.axes_size(t_ax)
+        if max_len % n_t:
+            raise ValueError(f"{max_len} cache slots do not divide over "
+                             f"{t_ax} ({n_t} ranks)")
+        return init_cache(self.cfg, batch // n_b, max_len // n_t,
                           self.params["embed"].dtype, self.device)
 
+    def cache_specs(self, batch: int, mesh) -> dict:
+        """The `P` of each cache tensor of a decode step of ``batch``
+        sequences on ``mesh``: (layers, batch, slots, ...) with the batch
+        over the data axes and the slots over "model" (``batch`` > 1), or
+        the slots over (data axes..., "model")."""
+        b_ax, t_ax = decode_axes(mesh, batch)
+        b_ax = None if b_ax is None else (b_ax[0] if len(b_ax) == 1
+                                          else b_ax)
+        t_ax = t_ax[0] if len(t_ax) == 1 else t_ax
+        shapes = init_cache(self.cfg, 1, 1, device="meta")
+        return {k: None if v is None else tuple(
+            P(None, b_ax, t_ax, *([None] * (t.dim() - 3))) for t in v)
+            for k, v in shapes.items()}
+
     def _run(self, tokens, positions, q_start, cache=None, cur=0, *,
-             use_kernel):
+             use_kernel, mesh=None, seq_axes=None, split=True):
         p = self.params
         x = p["embed"][tokens]
         self.dropped = []
@@ -628,7 +911,8 @@ class Transformer:
                     cache[name][0][i], cache[name][1][i], cur)
                 x = _layer_fwd(lp, self.cfg, x, positions, q_start, moe,
                                layer_cache, use_kernel=use_kernel,
-                               drops=self.dropped)
+                               drops=self.dropped, mesh=mesh,
+                               seq_axes=seq_axes, split=split)
         x = rmsnorm(x, p["final_norm"], self.cfg.norm_eps)
         head = p["embed"].T if self.cfg.tie_embeddings else p["lm_head"]
         return x @ head
@@ -650,25 +934,53 @@ class Transformer:
                          use_kernel=use_kernel), cache
 
     def decode_step(self, cache, tokens, cur_len: int, *,
-                    use_kernel: bool = True):
+                    use_kernel: bool = True, mesh=None):
         """One decode step. tokens (B, 1) at position ``cur_len``; cache from
         `init_cache` or `prefill`, written in place at slot ``cur_len``.
-        Returns (logits (B, 1, V), cache) — the same cache object."""
+        Returns (logits (B, 1, V), cache) — the same cache object.
+
+        On a ``mesh`` (a `DeviceMesh` rank with a "model" axis) every rank
+        gets every token and holds whole parameters (``wkv_b`` may be its
+        block over "model") and its block of the cache (`init_cache(...,
+        mesh=)`, `cache_specs`): with B > 1 it runs its sequences of the
+        batch split over the data axes, attends split-KV over "model" and
+        gathers the logits over the data axes; with B = 1 every rank runs
+        the sequence and the cache's slots split over (data, model). The
+        slot is written on the rank that owns ``cur_len``."""
         cur_len = int(cur_len)
+        if mesh is not None:
+            return self._decode_mesh(cache, tokens, cur_len, mesh,
+                                     use_kernel=use_kernel), cache
         positions = torch.full((tokens.shape[0], 1), cur_len,
                                dtype=torch.int32, device=tokens.device)
         return self._run(tokens, positions, cur_len, cache, cur_len,
                          use_kernel=use_kernel), cache
+
+    def _decode_mesh(self, cache, tokens, cur_len: int, mesh, *,
+                     use_kernel: bool):
+        b_ax, t_ax = decode_axes(mesh, tokens.shape[0])
+        if b_ax is not None:
+            n = tokens.shape[0] // mesh.axes_size(b_ax)
+            tokens = tokens[mesh.axis_index(b_ax) * n:][:n]
+        positions = torch.full((tokens.shape[0], 1), cur_len,
+                               dtype=torch.int32, device=tokens.device)
+        logits = self._run(tokens, positions, cur_len, cache, cur_len,
+                           use_kernel=use_kernel, mesh=mesh, seq_axes=t_ax,
+                           split=b_ax is not None)
+        return logits if b_ax is None else mesh.all_gather(logits, b_ax)
 
 
 # ---------------------------------------------------------------------------
 # training: the reference's loss on its plain path
 # ---------------------------------------------------------------------------
 
-def hidden_forward(params, cfg: LMConfig, tokens, *, remat: bool = False):
+def hidden_forward(params, cfg: LMConfig, tokens, *, remat: bool = False,
+                   mesh=None):
     """tokens (B, S) -> final hidden states (B, S, D) (pre-head), through
     `_sdpa` attention, the dense layers then the MoE layers. ``remat``
-    recomputes each layer in the backward."""
+    recomputes each layer in the backward. On a ``mesh`` the tokens are
+    this rank's block along the data axes and the MoE layers run
+    expert-parallel (`_moe_mlp`)."""
     S = tokens.shape[1]
     x = F.embedding(tokens, params["embed"])
     positions = torch.arange(S, device=tokens.device)[None]
@@ -676,7 +988,8 @@ def hidden_forward(params, cfg: LMConfig, tokens, *, remat: bool = False):
 
     def layer(x, stacked, i, moe):
         lp = _map(stacked, lambda t: t[i])
-        return _layer_fwd(lp, cfg, x, positions, 0, moe, use_kernel=False)
+        return _layer_fwd(lp, cfg, x, positions, 0, moe, use_kernel=False,
+                          mesh=mesh)
 
     for key, moe, n in (("dense_layers", False, n_dense),
                         ("moe_layers", True, n_moe)):
@@ -728,14 +1041,16 @@ def ce_from_hidden(x, head, labels, cfg: LMConfig):
                                                  min=1)
 
 
-def loss_fn(params, cfg: LMConfig, tokens, labels, *, remat: bool = False):
+def loss_fn(params, cfg: LMConfig, tokens, labels, *, remat: bool = False,
+            mesh=None):
     """Causal LM loss; labels == -100 masked; pad-vocab ids masked out.
 
     Returns (loss, metrics). MTP adds the DeepSeek-V3 next-next-token term:
     the tokens and the next ones re-embedded, projected to D, one dense
     block, the shared head against the labels rolled by one; loss + 0.3 x
-    its cross-entropy ("mtp_ce")."""
-    x = hidden_forward(params, cfg, tokens, remat=remat)
+    its cross-entropy ("mtp_ce"). On a ``mesh`` (`hidden_forward`) the loss
+    is this rank's block's."""
+    x = hidden_forward(params, cfg, tokens, remat=remat, mesh=mesh)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     main = ce_from_hidden(x, head, labels, cfg)
     metrics = {"ce": main}

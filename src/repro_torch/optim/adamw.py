@@ -34,14 +34,15 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads, state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
-                 weight_decay=0.1, clip_norm=1.0):
+                 weight_decay=0.1, clip_norm=1.0, grad_norm=None):
     """One AdamW step. Returns (params, state, {"grad_norm"}), the params
     and the state's tensors updated in place. ``lr`` is a float or a 0-d
     tensor; the gradients (one per parameter, any float dtype) are
-    consumed: a float32 gradient is scaled in place."""
+    consumed: a float32 gradient is scaled in place. ``grad_norm``, where
+    given, is the norm clipped on (a mesh's blocks do not hold it)."""
     step = state["step"]
     step += 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = (torch.clamp(clip_norm / torch.clamp(gn, min=1e-12), max=1.0)
              if clip_norm else None)
     s = step.to(torch.float32)

@@ -1,6 +1,6 @@
 """Fault-tolerant training runtime.
 
-The port of the reference's `runtime/trainer.py`, on one device:
+The port of the reference's `runtime/trainer.py`:
   * checkpoint/restart — auto-resume from the latest checkpoint; a preempted
     run (tests kill it mid-step) continues losslessly;
   * straggler watchdog — per-step wall time EMA; steps slower than
@@ -17,12 +17,31 @@ live in a model whose `param_tree()` is the reference's pytree of its own
 tensors; the trainer turns their gradients on and updates them in place,
 so the model it returns is the trained one.
 
-The reference's jitted step also runs sharded on a mesh (`mesh`,
-`param_specs`, ZeRO moments); that is not ported (ROADMAP, Queue 1 item 5)
-and `Trainer` raises if a mesh is given. Where the reference sets
-``grad_accum > 1`` its `lax.scan` refuses the carry it is given (a None
-beside the metrics dict); the port runs the loop the scan stands for and
-keeps the last micro-batch's metrics (ROADMAP, Queue 3).
+On a mesh (``Trainer(mesh=...)``, a `launch.mesh.DeviceMesh` rank; every
+rank runs the same Trainer) the state is placed by ``task.param_specs``, a
+tree of `sharding.rules.P` (or a function of the parameter tree that
+returns one), as the reference's `_shard_state` places it: each rank keeps
+its spec's block of every parameter and of AdamW's ``m`` and ``v`` (ZeRO:
+the moments mirror the parameters), the step counter on every rank. A
+step gathers the whole parameters into the model's tensors, runs the loss
+on this rank's block of the batch where ``task.batch_specs`` splits it
+over the data axes (else on the whole batch; the metrics logged are the
+ranks' mean, one all_reduce), sums the gradients over
+`batch_axis(mesh)` and divides by its size (a reduce-scatter where the
+spec keeps a dim over exactly those axes, else an all_reduce, then the
+block), clips on the global norm (one all_reduce of the blocks' squared
+sums) and updates the blocks. Under ``grad_compression="int8_ef"`` the
+data-parallel sum carries each rank's int8 gradient and scale (an
+all_gather), each rank keeping its own residual; a checkpoint stores their
+mean. ``param_specs=None`` on a mesh keeps the state whole on every rank.
+A loss that runs its own collectives (the LM's expert-parallel MoE
+layers, `models.transformer.loss_fn(..., mesh=)`) closes over the mesh.
+Checkpoints are the one-device layout: a run may resume on another mesh.
+
+Where the reference sets ``grad_accum > 1`` its `lax.scan` refuses the
+carry it is given (a None beside the metrics dict); the port runs the loop
+the scan stands for and keeps the last micro-batch's metrics (ROADMAP,
+Queue 3).
 """
 from __future__ import annotations
 
@@ -36,7 +55,10 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.engine.federated import resolve_device
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
 from repro_torch.optim.compress import ef_compress, ef_decompress, ef_init
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.sharding.rules import (P, batch_axis, check_specs,
+                                        gather_full, local_slice, replicated,
+                                        spec_axes)
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclass
@@ -58,6 +80,8 @@ class TrainTask:
     grad_accum: int = 1
     grad_compression: str | None = None                # None | "int8_ef"
     device: Any = "cuda"
+    param_specs: Any = None                            # P tree, or fn(tree)
+    batch_specs: Any = None                            # P tree of the batch
 
 
 def micro_batch(batch, i: int):
@@ -81,10 +105,6 @@ class Trainer:
     metrics_log: list = field(default_factory=list)
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): sharded training (param_specs, ZeRO "
-                "moments) is not ported yet (ROADMAP, Queue 1 item 5)")
         self.ckpt = (CheckpointManager(self.ckpt_dir, keep_n=self.keep_n)
                      if self.ckpt_dir else None)
 
@@ -128,34 +148,178 @@ class Trainer:
             clip_norm=t.clip_norm)
         return ef_state, {**metrics, **om, "lr": lr}
 
+    # ---- the mesh ------------------------------------------------------
+    def _specs(self, tree):
+        """The parameters' spec tree on the mesh (every leaf whole where
+        the task gives none), checked against ``tree``."""
+        specs = self.task.param_specs
+        if callable(specs):
+            specs = specs(tree)
+        specs = replicated(tree) if specs is None else specs
+        check_specs(tree, specs, self.mesh)
+        return specs
+
+    def _state_specs(self, specs, ef_state):
+        return {"params": specs, "opt": {"step": P(), "m": specs,
+                                         "v": specs},
+                "ef": replicated(ef_state)}
+
+    def _dp(self) -> tuple[tuple[str, ...], int]:
+        """The mesh's data axes as a tuple, and their size."""
+        dp = batch_axis(self.mesh)
+        dp = dp if isinstance(dp, tuple) else (dp,)
+        return dp, self.mesh.axes_size(dp)
+
+    def _gather_params(self, tree, blocks, specs) -> None:
+        """Write the whole parameters, gathered from the blocks, into the
+        model's tensors."""
+        with torch.no_grad():
+            for full, blk, spec in zip(tree_leaves(tree), tree_leaves(blocks),
+                                       tree_leaves(specs)):
+                full.copy_(gather_full(blk, spec, self.mesh))
+
+    def _local_batch(self, batch):
+        """This rank's block of the batch under ``task.batch_specs`` (the
+        whole batch where there are none)."""
+        if self.task.batch_specs is None:
+            return batch
+        return tree_map(lambda b, s: local_slice(b, s, self.mesh), batch,
+                        self.task.batch_specs)
+
+    def _mesh_grads(self, grads, specs, ef_state):
+        """The blocks of the gradients summed over the data axes and
+        divided by their size; under int8 EF from each rank's quantised
+        gradient (returns the new residual too)."""
+        mesh, t = self.mesh, self.task
+        dp, n_dp = self._dp()
+        if t.grad_compression == "int8_ef":
+            q, scales, ef_state = ef_compress(grads, ef_state)
+            grads = tree_map(
+                lambda qq, sc: (mesh.all_gather(qq, dp, tiled=False).float()
+                                * mesh.all_gather(sc.reshape(1), dp).reshape(
+                                    -1, *([1] * qq.dim()))).sum(0),
+                q, scales)
+        out = []
+        for g, spec in zip(tree_leaves(grads), tree_leaves(specs)):
+            g = g.to(torch.float32) if t.grad_compression else g
+            at = [d for d, ax in enumerate(spec) if ax is not None and (
+                ax if isinstance(ax, tuple) else (ax,)) == dp]
+            if t.grad_compression or n_dp == 1:
+                block = local_slice(g, spec, mesh)
+            elif at:
+                rest = list(spec)
+                rest[at[0]] = None
+                block = local_slice(mesh.reduce_scatter(
+                    g.contiguous(), dp, at[0]), rest, mesh)
+            else:
+                block = local_slice(mesh.all_reduce(g, dp), spec, mesh)
+            out.append(block / n_dp if n_dp > 1 else block)
+        return tree_unflatten(specs, out), ef_state
+
+    def _mesh_norm(self, grads, specs) -> torch.Tensor:
+        """The global norm of the whole gradients from the blocks: each
+        block's squared sum over the ranks that hold the same block, one
+        all_reduce over the mesh."""
+        mesh = self.mesh
+        total = 0
+        for g, spec in zip(tree_leaves(grads), tree_leaves(specs)):
+            copies = mesh.size // mesh.axes_size(spec_axes(spec))
+            total = total + torch.sum(torch.square(g.to(torch.float32))) \
+                / copies
+        total = torch.as_tensor(total, dtype=torch.float32,
+                                device=mesh.device).reshape(1)
+        return torch.sqrt(mesh.all_reduce(total, mesh.axis_names)[0])
+
+    def _mesh_step(self, params, tree, blocks, specs, opt_state, ef_state,
+                   batch, step: int):
+        t = self.task
+        lr = cosine_schedule(step, peak_lr=t.lr, warmup=t.warmup,
+                             total=t.total_steps)
+        self._gather_params(tree, blocks, specs)
+        metrics, grads = self._grads(params, tree_leaves(tree),
+                                     self._local_batch(batch))
+        metrics = self._mesh_metrics({k: v.detach()
+                                      for k, v in metrics.items()})
+        grads, ef_state = self._mesh_grads(tree_unflatten(tree, grads),
+                                           specs, ef_state)
+        _, opt_state, om = adamw_update(
+            grads, opt_state, blocks, lr=lr, weight_decay=t.weight_decay,
+            clip_norm=t.clip_norm, grad_norm=self._mesh_norm(grads, specs))
+        return ef_state, {**metrics, **om, "lr": lr}
+
+    def _mesh_metrics(self, metrics: dict) -> dict:
+        """The metrics of the whole batch: where the batch is split over
+        the data axes, each rank's (means over equal blocks) averaged in
+        one all_reduce."""
+        dp, n = self._dp()
+        if self.task.batch_specs is None or n == 1 or not metrics:
+            return metrics
+        vals = self.mesh.all_reduce(torch.stack(
+            [v.to(torch.float32) for v in metrics.values()]), dp) / n
+        return dict(zip(metrics, vals))
+
+    def _saved_ef(self, ef_state):
+        """The residual a mesh checkpoint stores: the mean over the data
+        axes of the ranks' own."""
+        dp, n = self._dp()
+        if not self.task.grad_compression or n == 1:
+            return ef_state
+        return tree_map(lambda r: self.mesh.all_reduce(r, dp) / n, ef_state)
+
     # ------------------------------------------------------------------
     def run(self, *, steps: int | None = None, resume: bool = True,
             fail_at_step: int | None = None) -> dict:
-        """Train. fail_at_step simulates a node failure (tests)."""
+        """Train. fail_at_step simulates a node failure (tests). On a mesh
+        the returned model holds the whole trained parameters on every
+        rank, ``blocks`` and ``opt`` this rank's blocks."""
         t = self.task
         dev = resolve_device(t.device)
+        mesh = self.mesh
+        if mesh is not None and torch.device(mesh.device).type != dev.type:
+            raise ValueError(f"the mesh's device {mesh.device} is not the "
+                             f"task's {dev}")
+        if mesh is not None:
+            dev = torch.device(mesh.device)
         steps = steps or t.total_steps
         params = t.init_params(
             torch.Generator(device=dev).manual_seed(self.seed))
         tree = params.param_tree()
+        specs = blocks = None
+        if mesh is not None:
+            specs = self._specs(tree)
+            blocks = tree_map(lambda p, s: local_slice(
+                p.detach(), s, mesh).clone(), tree, specs)
         for p in tree_leaves(tree):
             p.requires_grad_(True)
-        opt_state = adamw_init(tree, moments_dtype=t.moments_dtype)
+        state_of = blocks if mesh is not None else tree
+        opt_state = adamw_init(state_of, moments_dtype=t.moments_dtype)
         ef_state = (ef_init(tree) if t.grad_compression
                     else {"_": torch.zeros((), device=dev)})
         start = 0
 
+        def live():
+            return {"params": state_of, "opt": opt_state, "ef": ef_state}
+
+        shardings = None if mesh is None else (
+            mesh, self._state_specs(specs, ef_state))
         if self.ckpt and resume:
             latest = self.ckpt.latest_step()
             if latest is not None:
-                live = {"params": tree, "opt": opt_state, "ef": ef_state}
-                saved = self.ckpt.restore(latest, live, device=dev)
+                saved = self.ckpt.restore(latest, live(), device=dev,
+                                          shardings=shardings)
                 with torch.no_grad():
-                    for dst, src in zip(tree_leaves(live),
+                    for dst, src in zip(tree_leaves(live()),
                                         tree_leaves(saved)):
                         dst.copy_(src)
                 del saved
                 start = latest
+
+        def save(step, **kw):
+            if mesh is None:
+                self.ckpt.save(step, live(), **kw)
+                return
+            self.ckpt.save(step, {**live(), "ef": self._saved_ef(ef_state)},
+                           shardings=shardings, **kw)
 
         ema = None
         it = iter(t.batches)
@@ -165,8 +329,13 @@ class Trainer:
         for step in range(start, steps):
             batch = next(it)
             t0 = time.perf_counter()
-            ef_state, metrics = self._step(params, tree, opt_state, ef_state,
-                                           batch, step)
+            if mesh is None:
+                ef_state, metrics = self._step(params, tree, opt_state,
+                                               ef_state, batch, step)
+            else:
+                ef_state, metrics = self._mesh_step(
+                    params, tree, blocks, specs, opt_state, ef_state, batch,
+                    step)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             dt = time.perf_counter() - t0
@@ -178,15 +347,16 @@ class Trainer:
                 rec["straggler"] = "input" if depth == 0 else "compute"
             self.metrics_log.append(rec)
             if self.ckpt and (step + 1) % self.ckpt_every == 0:
-                self.ckpt.save(step + 1, {"params": tree, "opt": opt_state,
-                                          "ef": ef_state})
+                save(step + 1)
             if fail_at_step is not None and step + 1 >= fail_at_step:
                 self.ckpt and self.ckpt.wait()
                 raise RuntimeError(f"simulated node failure at step {step+1}")
         if self.ckpt:
-            self.ckpt.save(steps, {"params": tree, "opt": opt_state,
-                                   "ef": ef_state}, blocking=True)
+            save(steps, blocking=True)
             self.ckpt.wait()
-        return {"params": params, "opt": opt_state,
+        if mesh is not None:
+            self._gather_params(tree, blocks, specs)
+        out = {"blocks": blocks} if mesh is not None else {}
+        return {**out, "params": params, "opt": opt_state,
                 "log": self.metrics_log, "final_loss":
                     self.metrics_log[-1]["loss"] if self.metrics_log else None}

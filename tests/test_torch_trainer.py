@@ -142,11 +142,21 @@ def test_trainer_int8_ef_converges():
 
 
 def test_trainer_refuses_a_mesh_and_no_card():
-    """The Trainer's mesh is still unported (ROADMAP, Queue 1 item 5, where
-    the MoE and decode mesh paths joined it): its message still names
-    "Queue 1", so this body is unchanged."""
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        Trainer(make_task(), mesh=object())
+    """On a mesh the Trainer places its state by the task's spec tree, and
+    refuses one that does not match the parameters (a leaf missing, a spec
+    of the wrong length, an axis the mesh lacks); without a card the
+    default device raises."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding.rules import P, replicated
+    mesh = make_local_mesh(device="cpu")
+    for bad in ({"embed": P("data", None)},
+                lambda tree: {**replicated(tree), "embed": P("data")},
+                lambda tree: {**replicated(tree),
+                              "embed": P("model", None)}):
+        t = make_task()
+        t.param_specs = bad
+        with pytest.raises(ValueError, match="spec"):
+            Trainer(t, mesh=mesh).run(steps=1)
     t = make_task()
     t.device = "cuda"
     if not torch.cuda.is_available():

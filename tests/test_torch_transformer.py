@@ -278,8 +278,10 @@ def test_unported_configs_raise():
     """The MoE and MLA archs were refused here until they were ported; the
     test now holds what is true: both build (`Transformer.random` with the
     reference's leaf count, `init_cache` in the reference's layouts), an
-    MTP head comes across through `from_jax`, and what stays unported is
-    the mesh: the Trainer refuses one (ROADMAP, Queue 1 item 5)."""
+    MTP head comes across through `from_jax`, and the mesh that stayed
+    unported after them is ported too: a MoE model trains on a one-rank
+    mesh with `lm_rules`' specs, and a spec tree that does not fit its
+    parameters is refused."""
     for arch in ("qwen2-moe-a2.7b", "deepseek-v3-671b"):
         jcfg = get_arch(arch).smoke()
         cfg = tr.LMConfig(**dataclasses.asdict(jcfg))
@@ -301,9 +303,18 @@ def test_unported_configs_raise():
                          jax.random.PRNGKey(0))
     model = tr.Transformer.from_jax(cfg, jp, device="cpu")
     assert sorted(model.params["mtp"]) == ["block", "proj"]
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.sharding.rules import P, lm_rules, make_param_specs
+    mesh = make_device_mesh((1, 1), ("data", "model"), device="cpu")
     task = train.build_task("qwen2-moe-a2.7b", 1, 1, 8, False, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        Trainer(task, mesh=object())
+    task.param_specs = lambda tree: make_param_specs(
+        tree, mesh, lm_rules(mesh, fsdp=True))
+    log = Trainer(task, mesh=mesh).run(steps=1)["log"]
+    assert np.isfinite(log[0]["loss"])
+    task = train.build_task("qwen2-moe-a2.7b", 1, 1, 8, False, device="cpu")
+    task.param_specs = {"embed": P("data", None)}
+    with pytest.raises(ValueError, match="does not match the parameters"):
+        Trainer(task, mesh=mesh).run(steps=1)
 
 
 def test_random_weights_follow_the_reference_distribution():
