@@ -272,11 +272,30 @@ order; any failure exits non-zero:
    reduced; the MLA split decode at deepseek-v3's widths (2 dense
    layers, bf16, wkv_b held a block over "model" and gathered) on 2 x 2;
    the Trainer at granite-3-8b's widths (2 layers, float32, batch 4 x
-   1,024, lm_rules(fsdp=True)) for 3 steps on 2 x 2 against the
+   1,024, lm_rules(fsdp=True)) for one step on 2 x 2 against the
    one-device Trainer (losses within 1e-3 relative), checkpointed (rank 0
-   writes the one-device layout), restored onto 4 x 1 for a fourth step;
+   writes the one-device layout), restored onto 4 x 1 for a second step;
    peak memory a rank;
-12. summary — every kernel's launches on its path.
+12. minibatch_lg and the dry run — (a) the neighbour sampler's batch at
+   full size (1,024 seeds at fan-outs 15, 10 over the synthetic 232,965-
+   node, 114,615,892-edge graph; its host build timed), GCN
+   (gcn_cora.full("minibatch_lg")), EGNN, NequIP and Equiformer-v2 (at
+   the depth whose forward the dry run predicts under 70 GB) forwards
+   through segment_spmm against the plain path as in phase 10, GCN
+   trained 3 steps through the Trainer (2 launches a step, finite
+   losses, one step's gradients against the plain path), and
+   segment_spmm's record at GCN layer 2's shape there; (b) the dry run on
+   the meta device (repro_torch.launch.dryrun.run_cell, one process a
+   core): one shape an architecture on 16 x 16 and one cell a family on
+   2 x 16 x 16, then the other cells while 60 s last, and the engine
+   rows; no error record, each written to build/dryrun.jsonl; (c) the
+   dry run against the card on a 1 x 1 mesh for GCN minibatch_lg
+   (train), gcn-cora molecule (train) and xDeepFM serve_p99 (forward):
+   the same step run for real, its FLOPs (FlopCounterMode) equal to the
+   meta run's, each kernel's meta calls equal to its launches, and the
+   meta peak above the held bytes within 10% of max_memory_allocated's;
+   the card's total_memory equals the dry run's H100 constant (phase 1);
+13. summary — every kernel's launches on its path.
 
 The last three lines are the card's name and power limit, a JSON line of
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -403,6 +422,13 @@ from repro_torch.data import Prefetcher  # noqa: E402
 from repro_torch.launch.train import build_task  # noqa: E402
 from repro_torch.runtime.trainer import Trainer, TrainTask  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.launch import cells as dry_cells  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import (MetaMesh,  # noqa: E402
+                                     make_device_mesh,
+                                     make_production_mesh)
+from repro_torch.models import meta_generator  # noqa: E402
+from repro_torch.models.gnn.common import GraphBatch  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
@@ -550,7 +576,8 @@ def time_ms(fn, reps: int = REPS, warm: int = 3) -> float:
     50 MB L2."""
     global _FLUSH
     if _FLUSH is None:
-        _FLUSH = torch.empty(64 << 20, dtype=torch.int32, device=DEV)
+        with torch.inference_mode(False):    # written in place on every run
+            _FLUSH = torch.empty(64 << 20, dtype=torch.int32, device=DEV)
     for _ in range(warm):
         fn()
     times = []
@@ -1800,20 +1827,25 @@ def spmm_sweep() -> None:
         f"(hubs of 40 and 3 PIECEs, D 47, 6,272 and 3)")
 
 
-def spmm_record(shape: str, d: int) -> dict:
+def spmm_record(shape: str, d: int, g=None) -> dict:
     """segment_spmm at a GNN path's shape: random float32 (E, d) messages
-    over the path's own receivers (every edge live), checked against the
-    plain version, twice through one plan (the two must be bit-identical).
+    over the path's own receivers and edge mask (``g``, or the phase's
+    batch of ``shape``), checked against the plain version, twice through
+    one plan (the two must be bit-identical).
     Timed: the op given the plan built (as the forward calls it, ``ms``),
     the op that builds its own plan (``ms_with_plan``), the plan alone,
     the kernel alone through the plan's order (on the path's receivers and
     on as many uniformly drawn ones, which have no hub), the plain version
     and one index_add_ call."""
-    g, _ = gnn_graph(shape)
+    if g is None:
+        g, _ = gnn_graph(shape)
     recv, mask = g.receivers, g.edge_mask
-    if not bool(mask.all()):
-        raise AssertionError(f"{shape}: the record expects every edge live")
     e, n = recv.shape[0], g.node_mask.shape[0]
+    # the live edges lead (a padded batch masks its tail): the library
+    # call sums them alone
+    live = int(mask.sum().item())
+    if not bool(mask[:live].all()):
+        raise AssertionError(f"{shape}: the live edges do not lead")
     gen = torch.Generator(device=DEV).manual_seed(3)
     vals = torch.randn((e, d), generator=gen, device=DEV)
     plan = seg_ops.segment_plan(recv, mask, n)
@@ -1827,9 +1859,10 @@ def spmm_record(shape: str, d: int) -> dict:
     err = float_err(out, ref, atol=GNN_SHARE * ref.abs().max().item(),
                     rtol=GNN_SHARE)
     del out, ref
-    # the function's own inputs: messages, receivers and mask, the output
-    n_bytes = 4 * e * d + 4 * e + e + 4 * n * d
-    b_ms, b_by = bound(n_bytes, e * d)
+    # the function's own inputs: the live messages, receivers and mask,
+    # the output
+    n_bytes = 4 * live * d + 4 * e + e + 4 * n * d
+    b_ms, b_by = bound(n_bytes, live * d)
     rec = dict(
         name=f"segment_spmm.segment_spmm[{shape}]", route="cuda",
         source="src/repro_torch/csrc/segment_spmm.cu",
@@ -1847,7 +1880,8 @@ def spmm_record(shape: str, d: int) -> dict:
                          reps=10),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: torch.zeros(
-            (n, d), device=DEV).index_add_(0, recv, vals), reps=10),
+            (n, d), device=DEV).index_add_(0, recv[:live], vals[:live]),
+            reps=10),
         shape=[e, d, n], piece=PIECE, n_pieces=plan.n_pieces,
         n_split=plan.n_split)
     # the same E, D and N over uniformly drawn receivers: no hub
@@ -3843,7 +3877,9 @@ def phase_lm_moe(card: str) -> dict:
 # phase 10: GNN serving (GCN at ogbn-products, the geometric models)
 # ---------------------------------------------------------------------------
 
-def gnn_check(name: str, model, g) -> int:
+def gnn_check(name: str, model, g, *, launches: int | None = None,
+              reps: int | None = None, warm: int = 3,
+              profile: bool = True) -> int:
     """One forward of ``model`` on ``g`` through the kernel, counted, then
     checked against the same forward with `aggregate` on the plain
     index_add_ path (rtol GNN_SHARE, atol GNN_SHARE x max |plain|), timed
@@ -3867,14 +3903,16 @@ def gnn_check(name: str, model, g) -> int:
             errs.append(float_err(o, p, rtol=GNN_SHARE,
                                   atol=GNN_SHARE * p.abs().max().item()))
         del out, plain, outs, plains
-        if c["segment_spmm"] != GNN_LAUNCHES[name]:
+        want = GNN_LAUNCHES[name] if launches is None else launches
+        if c["segment_spmm"] != want:
             raise AssertionError(f"{name}: forward launched {c}")
         if builds != 1:
             raise AssertionError(f"{name}: forward built {builds} segment "
                                  f"plans")
-        reps = GNN_REPS[name]
-        ms = time_ms(lambda: model(g), reps=reps)
-        plain_ms = time_ms(lambda: model(g, use_kernel=False), reps=reps)
+        reps = reps or GNN_REPS[name]
+        ms = time_ms(lambda: model(g), reps=reps, warm=warm)
+        plain_ms = time_ms(lambda: model(g, use_kernel=False), reps=reps,
+                           warm=warm)
         log(f"  {name}: {ms:.3f} ms per forward with the kernel (median of "
             f"{reps}, CUDA events), plain index_add_ path {plain_ms:.3f} ms; "
             f"within rtol {GNN_SHARE} and atol {GNN_SHARE} x max |plain| of "
@@ -3886,8 +3924,9 @@ def gnn_check(name: str, model, g) -> int:
                f"{GCN_PEAK_SORTED_COPY:,} bytes, "
                f"{(GCN_PEAK_SORTED_COPY - peak) / 1e9:.2f} GB more"
                if name == "gcn" else ""))
-        log(f"  {name} forward, profiled: " + device_breakdown(
-            lambda: model(g), share_of=SPMM_KERNELS))
+        if profile:
+            log(f"  {name} forward, profiled: " + device_breakdown(
+                lambda: model(g), share_of=SPMM_KERNELS))
     return c["segment_spmm"]
 
 
@@ -4438,7 +4477,9 @@ MM_TRAIN_RTOL = 1e-3         # mesh Trainer's losses against one device's
 MM_DS_TOKENS = 4096          # deepseek-v3's MoE layer: a 1 x 4,096 prefill
 MM_QWEN_B, MM_QWEN_S = 2, 4096   # qwen2-moe's: 2 x 4,096 tokens
 MM_DECODE_LAYERS, MM_DECODE_REPS = 2, 5
-MM_TRAIN_B, MM_TRAIN_S, MM_TRAIN_STEPS = 4, 1024, 3
+# one step on 2 x 2 before the restore onto 4 x 1 (with three steps there,
+# phase 12 took the smoke past 1,000 s)
+MM_TRAIN_B, MM_TRAIN_S, MM_TRAIN_STEPS = 4, 1024, 1
 MM_CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_mesh_ckpt"
 # flash's lse route at the split decode's rank shape: granite-3-8b's 8
 # sequences over a 32,768-slot cache on 2 x 4, a rank's 4 sequences over
@@ -4982,6 +5023,337 @@ def phase_mesh_models(card: str) -> dict:
     return gqa
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the minibatch_lg batch on the card; the dry run on meta
+# ---------------------------------------------------------------------------
+
+# minibatch_lg: GCN trains a few steps; Equiformer-v2's depth is the most
+# of its 12 layers whose forward the dry run predicts under MB_PEAK_LIMIT
+MB_TRAIN_STEPS = 3
+MB_PEAK_LIMIT = 70e9
+MB_REPS = 3
+# the batch's numpy build (about 90 s of one host core) runs in a process
+# of its own from phase 9 on, while the card serves the LMs, into this file
+MB_NPZ = Path(__file__).resolve().parent / "build" / "minibatch_lg.npz"
+# the dry run: every cell on 16 x 16 while the phase's seconds last (the
+# whole sweep is the CLI's, `--all --both-meshes`), one
+# shape an architecture first (the cheapest: serving shapes, molecule);
+# one cell a family on 2 x 16 x 16, and one LM train cell there (the mesh
+# Trainer step with ZeRO, remat and accumulation), started first as the
+# longest; the engine rows on 16 x 16. The meta runs are the host's work:
+# one process a core, one cell a process
+DRYRUN_BUDGET_S = 60.0
+DRYRUN_WORKERS = os.cpu_count() or 1
+DRYRUN_FIRST = {"granite-3-8b": "decode_32k", "granite-20b": "decode_32k",
+                "nemotron-4-15b": "decode_32k",
+                "qwen2-moe-a2.7b": "decode_32k",
+                "deepseek-v3-671b": "decode_32k", "equiformer-v2": "molecule",
+                "nequip": "molecule", "egnn": "molecule",
+                "gcn-cora": "minibatch_lg", "xdeepfm": "serve_p99"}
+DRYRUN_MULTIPOD = (("granite-3-8b", "decode_32k"), ("egnn", "molecule"),
+                   ("gcn-cora", "minibatch_lg"), ("xdeepfm", "serve_p99"))
+DRYRUN_TRAIN = ("granite-3-8b", "train_4k")
+DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun.jsonl"
+# the dry run against the card on a 1 x 1 mesh: FLOPs equal, the peak
+# within PEAK_GAP of max_memory_allocated less what the step found held
+CARD_CELLS = (("gcn-cora", "minibatch_lg"), ("gcn-cora", "molecule"),
+              ("xdeepfm", "serve_p99"))
+PEAK_GAP = 0.10
+
+
+def meta_batch(g):
+    """A meta GraphBatch of ``g``'s shapes and dtypes."""
+    return dataclasses.replace(g, **{
+        f.name: torch.empty(getattr(g, f.name).shape,
+                            dtype=getattr(g, f.name).dtype, device="meta")
+        for f in dataclasses.fields(g)
+        if isinstance(getattr(g, f.name), torch.Tensor)})
+
+
+def predicted_forward_peak(cls, cfg, g) -> int:
+    """The dry run's live-bytes peak of one inference forward of ``cls``
+    at ``cfg`` on ``g``'s shapes: the weights, the batch and the temps."""
+    model = cls.random(cfg, meta_generator(0))
+    gm = meta_batch(g)
+
+    def fwd(m, b):
+        with torch.inference_mode():
+            return m(b)
+    return dryrun.account(fwd, (model, gm))["peak_bytes_per_device"]
+
+
+def build_minibatch(path: str) -> None:
+    """The minibatch_lg batch built on the host (make_graph_batch on the
+    CPU: the same numpy draws as on the card), written to ``path`` with
+    its build seconds."""
+    t0 = time.perf_counter()
+    g = make_graph_batch("minibatch_lg", **gcn_cora.SHAPE_DIMS[
+        "minibatch_lg"], seed=0, device="cpu")
+    arrays = {f.name: getattr(g, f.name).numpy()
+              for f in dataclasses.fields(g)
+              if isinstance(getattr(g, f.name), torch.Tensor)}
+    np.savez(path + ".tmp.npz", n_graphs=g.n_graphs,
+             build_s=time.perf_counter() - t0, **arrays)
+    os.replace(path + ".tmp.npz", path)
+
+
+def start_minibatch_build():
+    """Start `build_minibatch` in a process of its own (a daemon: it ends
+    with this one)."""
+    import multiprocessing
+    MB_NPZ.parent.mkdir(parents=True, exist_ok=True)
+    MB_NPZ.unlink(missing_ok=True)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=build_minibatch, args=(str(MB_NPZ),), daemon=True)
+    proc.start()
+    return proc
+
+
+def load_minibatch(proc):
+    """Wait for the build process; the batch on the card and its build
+    seconds."""
+    t0 = time.perf_counter()
+    proc.join()
+    if proc.exitcode != 0:
+        raise AssertionError(f"the minibatch_lg build exited with "
+                             f"{proc.exitcode}")
+    waited = time.perf_counter() - t0
+    with np.load(MB_NPZ) as z:
+        g = GraphBatch(**{k: dev(z[k]) for k in z.files
+                          if k not in ("n_graphs", "build_s")},
+                       n_graphs=int(z["n_graphs"]))
+        build_s = float(z["build_s"])
+    MB_NPZ.unlink()
+    return g, build_s, waited
+
+
+def phase_minibatch(card: str, build) -> dict:
+    """minibatch_lg at full size: the neighbour sampler's batch over the
+    232,965-node, 114,615,892-edge graph (built by ``build``, a
+    `start_minibatch_build` process); the four GNNs' forwards through
+    segment_spmm against the plain path (Equiformer-v2 at the depth the dry
+    run predicts under MB_PEAK_LIMIT); GCN trained; segment_spmm's record at
+    GCN layer 2's shape. Returns launches and the record."""
+    g, build_s, waited = load_minibatch(build)
+    n, e = g.node_mask.shape[0], g.receivers.shape[0]
+    n_live, e_live = int(g.node_mask.sum()), int(g.edge_mask.sum())
+    nbytes = sum(getattr(g, f.name).nbytes for f in dataclasses.fields(g)
+                 if isinstance(getattr(g, f.name), torch.Tensor))
+    log(f"  minibatch_lg built in {build_s:.1f} s (numpy on the host, in a "
+        f"process of its own since phase 9; this phase waited "
+        f"{waited:.1f} s for it: the synthetic 232,965-node, 114,615,892-"
+        f"edge graph, its CSR, the sampler's 1,024 seeds at fan-outs 15, "
+        f"10): {n_live:,} nodes of "
+        f"{n:,} padded, {e_live:,} edges of {e:,} padded; {nbytes:,} bytes "
+        f"on the card, node features {g.node_feat.nbytes:,}; the cell's "
+        f"analytic pad {dry_cells.gnn_full_shapes('minibatch_lg')}")
+    launched = {}
+    full_eq = eq_configs.full()
+    eq_cfg, eq_pred = full_eq, None
+    for layers in range(full_eq.n_layers, 0, -1):
+        eq_cfg = dataclasses.replace(full_eq, n_layers=layers)
+        eq_pred = predicted_forward_peak(EquiformerV2, eq_cfg, g)
+        if eq_pred <= MB_PEAK_LIMIT:
+            break
+    log(f"  equiformer_v2 on minibatch_lg: the dry run predicts a forward "
+        f"peak of {eq_pred:,} bytes at {eq_cfg.n_layers} of "
+        f"{full_eq.n_layers} layers (limit {MB_PEAK_LIMIT:.0f})")
+    for name, cls, cfg in (("gcn", GCN, gcn_cora.full("minibatch_lg")),
+                           ("egnn", EGNN, egnn_configs.full()),
+                           ("nequip", NequIP, nequip_configs.full()),
+                           ("equiformer_v2", EquiformerV2, eq_cfg)):
+        model = cls.random(cfg, torch.Generator(device=DEV).manual_seed(0))
+        want = GNN_LAUNCHES[name] if name != "equiformer_v2" \
+            else cfg.n_layers
+        launched[name] = gnn_check(
+            name, model, g, launches=want,
+            reps=1 if name == "equiformer_v2" else MB_REPS,
+            warm=1 if name == "equiformer_v2" else 3, profile=False)
+        del model
+        torch.cuda.empty_cache()
+    cfg = gcn_cora.full("minibatch_lg")
+    model = GCN.random(cfg, torch.Generator(device=DEV).manual_seed(0))
+    err = gnn_grad_check("gcn", model, gcn_mod.loss_fn, g)
+    del model
+
+    def batches():
+        while True:
+            yield g
+    task = TrainTask(name="gcn", init_params=lambda gen: GCN.random(cfg, gen),
+                     loss_fn=gcn_mod.loss_fn, batches=batches(), lr=1e-3,
+                     warmup=10, total_steps=MB_TRAIN_STEPS, device=DEV)
+    reset_counts()
+    _, res, peak = train_run(task, MB_TRAIN_STEPS)
+    n_train = counts()["segment_spmm"]
+    if n_train != GNN_LAUNCHES["gcn"] * MB_TRAIN_STEPS:
+        raise AssertionError(f"gcn on minibatch_lg: {MB_TRAIN_STEPS} steps "
+                             f"launched segment_spmm {n_train} times")
+    losses = [r["loss"] for r in res["log"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"gcn on minibatch_lg: losses {losses}")
+    log(f"  gcn training on minibatch_lg: {step_ms(res['log']):.3f} ms a "
+        f"step (median of {MB_TRAIN_STEPS - 1}), segment_spmm "
+        f"{n_train // MB_TRAIN_STEPS} launches a step, losses "
+        f"{[f'{x:.7g}' for x in losses]}, max_memory_allocated {peak:,} "
+        f"bytes; one step's gradients with the kernel against "
+        f"use_kernel=False: worst max |diff| {err:.3g} of the leaf's max "
+        f"|plain| (<= {GRAD_SHARE['gcn']}) [{card}]")
+    del res
+    torch.cuda.empty_cache()
+    rec = spmm_record("minibatch_lg", cfg.n_classes, g)
+    rec["launches"] = launched["gcn"] + n_train
+    return {"launched": launched, "train": n_train, "record": rec,
+            "graph": g, "build_s": build_s}
+
+
+def dry_summary(rec: dict) -> str:
+    if "error" in rec:
+        return f"{rec['arch']}/{rec['shape']} {rec['mesh']}: ERROR"
+    c = rec["collectives"]["per_kind_bytes"]
+    ratio = rec["flops"] / rec["model_flops"] if rec["model_flops"] else 0
+    return (f"{rec['arch']}/{rec['shape']} {rec['mesh']}: fits "
+            f"{rec['fits']}, peak {rec['peak_bytes_per_device'] / 1e9:.3f} "
+            f"GB, flops/model_flops {ratio:.4f}, collectives "
+            f"{ {k: int(v) for k, v in c.items() if v} } "
+            f"({rec['trace_s']:.1f} s)")
+
+
+def _one_thread() -> None:
+    torch.set_num_threads(1)
+
+
+def phase_dryrun() -> dict:
+    """The dry run on the meta device: `run_cell` on the 16 x 16 mesh, one
+    shape an architecture, one cell a family on 2 x 16 x 16 and
+    DRYRUN_TRAIN on 2 x 16 x 16 first, then
+    the other cells while the budget lasts, in DRYRUN_WORKERS processes
+    (the ones still running at the deadline are stopped); the engine rows
+    beside them. Every record free of errors, each written to
+    build/dryrun.jsonl."""
+    import multiprocessing
+    t0 = time.perf_counter()
+    DRYRUN_OUT.parent.mkdir(parents=True, exist_ok=True)
+    DRYRUN_OUT.write_text("")
+    from repro_torch.configs import all_cells
+    first = [(a, s) for a, s in DRYRUN_FIRST.items()]
+    rest = [c for c in all_cells() if c not in first]
+    must = [(*DRYRUN_TRAIN, True)] + [(a, s, False) for a, s in first] \
+        + [(a, s, True) for a, s in DRYRUN_MULTIPOD]
+    todo = must + [(a, s, False) for a, s in rest]
+    records, skipped = [], []
+
+    def emit(rec):
+        records.append(rec)
+        with open(DRYRUN_OUT, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        log("  " + dry_summary(rec))
+
+    pool = multiprocessing.get_context("spawn").Pool(
+        DRYRUN_WORKERS, initializer=_one_thread)
+    try:
+        engine = pool.apply_async(dryrun.run_engine_rows)
+        jobs = [pool.apply_async(dryrun.run_cell, (a, s), {"multi_pod": mp})
+                for a, s, mp in todo]
+        for i, ((arch, shape, mp), job) in enumerate(zip(todo, jobs)):
+            left = t0 + DRYRUN_BUDGET_S - time.perf_counter()
+            try:
+                emit(job.get(None if i < len(must) else max(left, 0.01)))
+            except multiprocessing.TimeoutError:
+                skipped.append(f"{arch}/{shape}")
+            except Exception as exc:
+                emit({"arch": arch, "shape": shape,
+                      "mesh": "2x16x16" if mp else "16x16",
+                      "error": f"{type(exc).__name__}: {exc}"})
+        t_eng = time.perf_counter()
+        rows = engine.get()
+    finally:
+        pool.terminate()
+        pool.join()
+    for r in rows:
+        with open(DRYRUN_OUT, "a") as f:
+            f.write(json.dumps(r) + "\n")
+    by = {}
+    for r in rows:
+        m = r["arch"].rsplit("-", 1)[1]
+        by[m] = by.get(m, 0) + r["collectives"]["per_kind_bytes"][
+            "all-gather"]
+    log(f"  engine rows (LUBM(1) scale 0.5, 16 shards on the 'model' axis, "
+        f"{len(rows)} rows, {time.perf_counter() - t_eng:.1f} s past the "
+        f"cells): gathered "
+        f"bytes a rank over the 14 templates, wawpart {by.get('wawpart'):,} "
+        f"against random {by.get('random'):,}")
+    bad = [r for r in records if "error" in r]
+    if bad:
+        raise AssertionError(f"dry run: error records {bad}")
+    if len(rows) != 2 * len(lubm_queries()):
+        raise AssertionError(f"dry run: {len(rows)} engine rows")
+    log(f"  dry run: {len(records)} records in {DRYRUN_WORKERS} processes "
+        f"(past the {DRYRUN_BUDGET_S:.0f} s budget, not run here: "
+        f"{skipped}), written to {DRYRUN_OUT.relative_to(DRYRUN_OUT.parents[1])}"
+        f" ({time.perf_counter() - t0:.1f} s)")
+    return {"records": records, "skipped": skipped, "engine": by}
+
+
+def card_cell(arch: str, shape: str, graph=None) -> dict:
+    """One cell's step on a 1 x 1 mesh: the dry run on meta, then the same
+    step for real on the card (once to warm the allocator and cuBLAS, then
+    counted). FLOPs must be equal, each kernel's meta calls its launches,
+    and the meta peak within PEAK_GAP of max_memory_allocated less the
+    bytes held before the step."""
+    meta_cell = dry_cells.build_cell(arch, shape,
+                                     MetaMesh((1, 1), ("data", "model")))
+    meta = dryrun.account(meta_cell.fn, meta_cell.args)
+    real_cell = dry_cells.build_cell(
+        arch, shape, make_device_mesh((1, 1), ("data", "model"),
+                                      device=DEV))
+    args = real_cell.make_args(DEV, batch=graph) if graph is not None \
+        else real_cell.make_args(DEV)
+    real_cell.fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    before = torch.cuda.memory_allocated(DEV)
+    real = dryrun.account(real_cell.fn, args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(DEV) - before
+    launched = {k: v for k, v in counts().items() if v}
+    gap = meta["temp_size_bytes"] / peak - 1 if peak else float("inf")
+    line = (f"{arch}/{shape} on 1 x 1: FLOPs meta {meta['dispatch_flops']:,}"
+            f" card {real['dispatch_flops']:,}; kernel calls meta "
+            f"{meta['kernel_calls']} launches {launched}; peak above the "
+            f"held bytes: meta {meta['temp_size_bytes']:,} card "
+            f"{peak:,} (gap {gap:+.4f}); whole: meta "
+            f"{meta['peak_bytes_per_device']:,} card "
+            f"{torch.cuda.max_memory_allocated(DEV):,}")
+    log("  " + line)
+    if meta["dispatch_flops"] != real["dispatch_flops"]:
+        raise AssertionError(f"dry run FLOPs differ from the card's: {line}")
+    if meta["kernel_calls"] != launched:
+        raise AssertionError(f"dry run kernel calls differ: {line}")
+    if not abs(gap) <= PEAK_GAP:
+        raise AssertionError(f"dry run peak off by more than "
+                             f"{PEAK_GAP:.0%}: {line}")
+    del args, real_cell
+    torch.cuda.empty_cache()
+    return {"flops": meta["dispatch_flops"], "gap": gap,
+            "meta_peak": meta["temp_size_bytes"], "card_peak": peak,
+            "launches": launched}
+
+
+def phase_dry_card(graph) -> dict:
+    """12c: the dry run against the card for cells that fit one H100."""
+    out = {}
+    for arch, shape in CARD_CELLS:
+        g = None
+        if (arch, shape) == ("gcn-cora", "minibatch_lg"):
+            gs = dry_cells.gnn_full_shapes(shape)
+            g = dry_cells.pad_graph_batch(graph, gs["n"], gs["e"])
+        out[f"{arch}/{shape}"] = card_cell(arch, shape, g)
+        del g
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
 
@@ -4989,20 +5361,24 @@ def main() -> None:
         """Seconds since the start, for each phase's header."""
         return f"({time.perf_counter() - t_start:.0f} s)"
     card = card_line()
-    log(f"[1/12] device: {card}; torch.cuda.get_device_name: "
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"[1/13] device: {card}; torch.cuda.get_device_name: "
         f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
+        f"CUDA {torch.version.cuda}; total_memory {total:,} bytes")
+    if total != dryrun.H100_TOTAL_MEMORY:
+        raise AssertionError(f"the card holds {total:,} bytes; the dry run "
+                             f"takes {dryrun.H100_TOTAL_MEMORY:,}")
     # the plain versions' float32 products run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log(f"[2/12] {at()} build: {kernels.build():.2f} s (nvcc, "
+    log(f"[2/13] {at()} build: {kernels.build():.2f} s (nvcc, "
         f"{' '.join(kernels.NVCC_FLAGS)}; {len(kernels.SOURCES)} libraries)")
 
-    log(f"[3/12] {at()} kernels against their plain versions on the card")
+    log(f"[3/13] {at()} kernels against their plain versions on the card")
     rec = phase_kernels()
 
-    log(f"[4/12] {at()} main path: LUBM(1) scale 1.0, WawPart 3 shards from the "
+    log(f"[4/13] {at()} main path: LUBM(1) scale 1.0, WawPart 3 shards from the "
         f"Jaccard kernel, join sorted, backend cuda, {BATCH} requests per "
         "serve()")
     main_counts, main_path = serve_path(1.0, "sorted", kernel_partition=True)
@@ -5029,22 +5405,22 @@ def main() -> None:
         f"{main_counts['merge_joins']}, {main_counts['select_joins']} "
         f"expanding without verification)")
 
-    log(f"[4b/12] {at()} pipeline on phase 4's store and partition: submit / pump "
+    log(f"[4b/13] {at()} pipeline on phase 4's store and partition: submit / pump "
         "/ drain / shutdown, batches retired on CUDA events, migrate()")
     pipe_counts = phase_pipeline(main_path, card)
 
-    log(f"[4c/12] {at()} faults, replication and the adaptive controller on phase "
+    log(f"[4c/13] {at()} faults, replication and the adaptive controller on phase "
         "4's store and partition: chaos with and without retry, a "
         "shard-down window, replicate_hot then failover, adaptive "
         "migrations and aborted ones")
     fault_counts = phase_faults(main_path, card)
 
-    log(f"[4d/12] {at()} mesh on phase 4's store: one gloo rank per shard on the "
+    log(f"[4d/13] {at()} mesh on phase 4's store: one gloo rank per shard on the "
         "one card; 3 ranks (WawPart and random, both joins; run_sharded; "
         "the mesh-routed server; replicate_hot) and 8 (WawPart)")
     mesh_counts = phase_mesh(main_path, main_counts, card)
 
-    log(f"[5/12] {at()} expand path: LUBM scale 0.1, join expand, backend cuda")
+    log(f"[5/13] {at()} expand path: LUBM scale 0.1, join expand, backend cuda")
     expand_counts, _ = serve_path(0.1, "expand")
     for k in ("compat_select", "scan_hits", "scan_select"):
         if expand_counts[k] <= 0:
@@ -5070,7 +5446,7 @@ def main() -> None:
         f"make), compat_matrix 0, scan_select {expand_counts['scan_select']},"
         f" scan_hits {expand_counts['scan_hits']}")
 
-    log(f"[6/12] {at()} per-query engine (the paper's execution path): "
+    log(f"[6/13] {at()} per-query engine (the paper's execution path): "
         "run_vmapped over every template, backend cuda; LUBM(1) scale 1.0 "
         "under WawPart (expand and sorted joins), random and centralized "
         "(sorted join); BSBM 1,000 products under WawPart (both joins)")
@@ -5083,30 +5459,31 @@ def main() -> None:
         raise AssertionError("per-query engine launched compat_matrix")
     log(f"  per-query engine launches over its runs: {pq_launches}")
 
-    log(f"[7/12] {at()} clustering: {UNIVERSITIES * DEPARTMENTS * 14:,} LUBM query "
+    log(f"[7/13] {at()} clustering: {UNIVERSITIES * DEPARTMENTS * 14:,} LUBM query "
         "instances")
     cluster_counts = phase_clustering()
     if cluster_counts["jaccard_distance"] <= 0:
         raise AssertionError("clustering never launched jaccard_distance")
 
-    log(f"[8/12] {at()} xDeepFM serving forward, full config")
+    log(f"[8/13] {at()} xDeepFM serving forward, full config")
     xdeepfm_counts = phase_xdeepfm()
 
-    log(f"[9/12] {at()} LM serving: granite-3-8b full config, bf16, random weights "
+    mb_build = start_minibatch_build()
+    log(f"[9/13] {at()} LM serving: granite-3-8b full config, bf16, random weights "
         "from seed 0; float32 checks at full width and 4 layers")
     lm_counts = phase_lm()
 
-    log(f"[9b/12] {at()} LM serving, MoE and MLA: qwen2-moe-a2.7b full "
+    log(f"[9b/13] {at()} LM serving, MoE and MLA: qwen2-moe-a2.7b full "
         "config and deepseek-v3-671b's widths at 4 layers, bf16, random "
         "weights from seed 0; float32 checks")
     moe_counts = phase_lm_moe(card)
 
-    log(f"[10/12] {at()} GNN serving: GCN at the full ogbn-products size; EGNN, "
+    log(f"[10/13] {at()} GNN serving: GCN at the full ogbn-products size; EGNN, "
         "NequIP and Equiformer-v2 full configs on the molecule batch; "
         "random weights from seed 0")
     gnn_counts = phase_gnn()
 
-    log(f"[11/12] {at()} training through the port's Trainer: GCN at ogbn-products "
+    log(f"[11/13] {at()} training through the port's Trainer: GCN at ogbn-products "
         "and EGNN, NequIP, Equiformer-v2 on the molecule batch through "
         "segment_spmm; xDeepFM full() (memory probe, resume, card vs CPU, "
         "int8 EF through the CLI); granite-3-8b and qwen2-moe-a2.7b widths "
@@ -5114,7 +5491,7 @@ def main() -> None:
     train = phase_train(card)
     train_gnn = train["gnn"]
 
-    log(f"[11b/12] {at()} mesh models: gloo ranks on the one card; "
+    log(f"[11b/13] {at()} mesh models: gloo ranks on the one card; "
         "deepseek-v3's MoE layer expert-parallel on 1 x 4, qwen2-moe's on "
         "2 x 4 (EP, ZeRO re-gather) and 1 x 8 (expert-TP), the GQA split "
         "decode (granite-3-8b widths) on 2 x 4 through flash's lse route, "
@@ -5122,6 +5499,19 @@ def main() -> None:
         "(granite-3-8b widths, lm_rules(fsdp=True)) on 2 x 2, resumed on "
         "4 x 1")
     mesh_models = phase_mesh_models(card)
+
+    log(f"[12/13] {at()} minibatch_lg on the card: the neighbour sampler's "
+        "batch over 232,965 nodes and 114,615,892 edges; GCN, EGNN, NequIP "
+        "and Equiformer-v2 forwards through segment_spmm; GCN trained")
+    mb = phase_minibatch(card, mb_build)
+    rec["segment_spmm[minibatch_lg]"] = mb["record"]
+    log(f"[12b/13] {at()} dry run on the meta device: one rank of the "
+        "16 x 16 and 2 x 16 x 16 meshes, no allocation, collectives "
+        "counted; the engine rows")
+    dry = phase_dryrun()
+    log(f"[12c/13] {at()} the dry run against the card on a 1 x 1 mesh: "
+        f"{', '.join(f'{a}/{b}' for a, b in CARD_CELLS)}")
+    dry_card = phase_dry_card(mb.pop("graph"))
 
     rec["scan_hits"]["launches"] = expand_counts["scan_hits"]
     rec["scan_select"]["launches"] = main_counts["scan_select"]
@@ -5169,7 +5559,9 @@ def main() -> None:
                                            "training (phase 11)",
              "segment_spmm[molecule]":
                  "EGNN, NequIP, Equiformer-v2 forwards (phase 10); GNN "
-                 "training (phase 11)"}
+                 "training (phase 11)",
+             "segment_spmm[minibatch_lg]":
+                 "GCN forward and training on minibatch_lg (phase 12)"}
     # the per-query engine's kernels (phase 6), where it launched them; its
     # launches are printed with the phase, the records keep phase 4's and
     # 5's
@@ -5187,7 +5579,7 @@ def main() -> None:
             paths[name] += "; per-query engine (phase 6)"
     for name, path in paths.items():
         rec[name]["path"] = path
-    log(f"[12/12] {at()} kernels: " + ", ".join(
+    log(f"[13/13] {at()} kernels: " + ", ".join(
         f"{r['name']} ok launches={r['launches']}" for r in rec.values())
         + f"; main path launches {main_counts}, pipeline launches "
         f"{pipe_counts}, faults, replication and adaptive launches "
@@ -5203,7 +5595,11 @@ def main() -> None:
         f"segment_spmm launches {gnn_counts}, GNN training segment_spmm "
         f"launches ({GNN_TRAIN_STEPS} steps each) {train_gnn}, split-KV "
         f"decode flash lse launches over the 8 ranks ({MM_DECODE_REPS} "
-        f"steps) {mesh_models['launches']}; total "
+        f"steps) {mesh_models['launches']}, minibatch_lg segment_spmm "
+        f"launches (forwards {mb['launched']}, GCN training {mb['train']}), "
+        f"dry run {len(dry['records'])} records (not run here: "
+        f"{dry['skipped']}), dry run against the card "
+        f"{ {k: round(v['gap'], 4) for k, v in dry_card.items()} }; total "
         f"{time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")

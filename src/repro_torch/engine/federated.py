@@ -335,6 +335,45 @@ def run_sharded(plan: PhysicalPlan, kg: ShardedKG, mesh,
     return res
 
 
+def lower_engine(plan: PhysicalPlan, kg_shape: tuple[int, int], mesh=None,
+                 *, join_impl: str = "expand", max_per_row: int = 64,
+                 axis: str = "model") -> dict:
+    """Count (not run) the per-query engine of ``plan`` on a mesh: the
+    dry run's count of the paper's distributed-join bytes, as the
+    reference lowers its engine for the production mesh.
+
+    Rank 0 of a `launch.mesh.MetaEngineMesh` of ``kg_shape[0]`` ranks
+    runs `make_engine(..., mesh=)` with the kernels' route on meta
+    shard blocks, (cap, 3) int32 triples and (cap,) bool valid, with
+    ``kg_shape = (n_shards, cap)``. ``mesh`` (a production mesh, or None)
+    only names the axis the shards lie along; its size there must be
+    ``n_shards``. Returns {"collectives": the gathers by the reference's
+    HLO convention (`MetaEngineMesh.hlo_collectives`), "gathers" and
+    "gathered_bytes" (`EngineMesh`'s count), "flops" (the kernels' meta
+    operations)}. Each cut step is one all_gather of the rank's
+    owner-masked matches with the mask packed as a fourth int32 column
+    (`gather_matches`): 16 bytes a row where the reference's lowered
+    program gathers the matches (12) and the mask (1) apart."""
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import MetaEngineMesh
+    n, cap = kg_shape
+    if mesh is not None and int(mesh.shape[axis]) != n:
+        raise ValueError(f"{n} shards on a mesh axis {axis!r} of "
+                         f"{mesh.shape[axis]}")
+    meta = MetaEngineMesh(n, axis_name=axis)
+    engine = make_engine(plan, join_impl=join_impl, max_per_row=max_per_row,
+                         backend="cuda", mesh=meta)
+    kernels.meta_cost.reset()
+    engine(torch.empty((1, cap, 3), dtype=torch.int32, device="meta"),
+           torch.empty((1, cap), dtype=torch.bool, device="meta"),
+           torch.empty((max(1, plan.n_params),), dtype=torch.int32,
+                       device="meta"))
+    return {"collectives": meta.hlo_collectives(),
+            "gathers": meta.collectives,
+            "gathered_bytes": meta.gathered_bytes,
+            "flops": kernels.meta_cost.ops}
+
+
 def _extract(plan: PhysicalPlan, table, tmask, overflow):
     """Pull the PPN shard's solutions, dedup, sort (matching the oracle).
     table (S, R, V), tmask (S, R), overflow (S,): the PPN's rows go to

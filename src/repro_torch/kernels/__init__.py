@@ -35,6 +35,15 @@ backward); it is the one kernel on a training forward. The others write
 their outputs through ``ctypes`` into tensors autograd knows nothing of,
 so each raises on the card when autograd would record it
 (`forbid_backward`) rather than train with a gradient quietly missing.
+
+A tensor on PyTorch's ``meta`` device is a third case, beside the CPU and
+the card: the op returns meta outputs of the shapes and dtypes its plain
+version returns, launches nothing, bumps no ``launches`` counter, and adds
+the kernel's own work to `meta_cost` (operations and bytes by the formulas
+of the kernels' bounds in ``chip_smoke.py``), which the dry run
+(`repro_torch.launch.dryrun`) reads. Where the work depends on the data
+(which rows a gather names, which pairs of a join are live) the meta count
+takes every row and pair.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -186,3 +196,35 @@ def lead_strides(t, tail: int, lead: tuple) -> tuple:
         out.append(0 if size == 1 else stride[i])
     return tuple(out)
 
+
+
+def is_meta(t) -> bool:
+    """Whether ``t`` is a tensor on the meta device."""
+    return t is not None and t.device.type == "meta"
+
+
+class MetaCost:
+    """The kernels' work on meta tensors since the last `reset`: ``ops``
+    (floating-point or integer operations), ``bytes`` (each input read
+    once, each output written once) and ``calls`` by kernel name."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.ops = 0
+        self.bytes = 0
+        self.calls: Counter = Counter()
+
+    def add(self, name: str, *, ops: int, n_bytes: int) -> None:
+        self.ops += int(ops)
+        self.bytes += int(n_bytes)
+        self.calls[name] += 1
+
+
+meta_cost = MetaCost()
+
+
+def nbytes(t) -> int:
+    """A tensor's elements times their size (0 for None)."""
+    return 0 if t is None else t.numel() * t.element_size()

@@ -17,9 +17,9 @@ from collections import Counter
 
 import torch
 
-from repro_torch.kernels import forbid_backward
+from repro_torch.kernels import forbid_backward, is_meta, meta_cost
 from repro_torch.kernels.flash_attention.kernel import (
-    SPLIT_ROWS, flash_attention_kernel, plan)
+    SPLIT_ROWS, flash_attention_kernel, plan, split_scratch_numel)
 from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
                                                      attention_ref)
 
@@ -40,7 +40,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``return_lse`` also returns each row's float32 log-sum-exp of its
     scaled scores, (B, H, S): on the card the split route always takes the
     call (its combine writes them), in launches of at most 16 rows a KV
-    head (the query heads of a KV head in groups where G * S is more)."""
+    head (the query heads of a KV head in groups where G * S is more).
+
+    On meta tensors it returns meta outputs as the plain version does and
+    counts its bound's work in `kernels.meta_cost`: 4 d operations a
+    visible (row, key) pair, q and out once, the K and V rows the rows
+    see once (and the log-sum-exp)."""
     s_n, t_n = q.shape[2], k.shape[2]
     scale = 1.0 / math.sqrt(q.shape[3]) if scale is None else float(scale)
     q_start = t_n - s_n if q_start is None else int(q_start)
@@ -50,6 +55,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         fn = attention_lse_ref if return_lse else attention_ref
         return fn(q, k, v, causal=causal, scale=scale, q_start=q_start)
+    if is_meta(q):
+        return _meta(q, k, v, causal=causal, q_start=q_start,
+                     return_lse=return_lse)
     forbid_backward("flash_attention", "transformer._sdpa, use_kernel=False",
                     q, k, v)
     if return_lse:
@@ -65,6 +73,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.routes = Counter()
+
+
+def _meta(q, k, v, *, causal: bool, q_start: int, return_lse: bool):
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if causal:
+        # row i sees min(t, q_start + i + 1) keys
+        lo = max(0, min(s, t - q_start))       # rows that see fewer than t
+        pairs = lo * q_start + lo * (lo + 1) // 2 + (s - lo) * t
+        kv_rows = min(t, q_start + s)
+    else:
+        pairs, kv_rows = s * t, t
+    meta_cost.add("flash_attention", ops=4 * b * h * d * pairs,
+                  n_bytes=q.element_size() * (2 * b * h * s * d
+                                              + 2 * b * hkv * kv_rows * d)
+                  + (4 * b * h * s if return_lse else 0))
+    # the output as the kernel lays it, (B, S, H, d) storage, and the split
+    # route's partials while the launch runs, as on the card
+    out = torch.empty((b, s, h, d), dtype=q.dtype,
+                      device="meta").transpose(1, 2)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device="meta") \
+        if return_lse else None
+    route = plan(q, k, v, causal=causal, q_start=q_start, lse=return_lse)
+    if route.route == "split":
+        torch.empty(split_scratch_numel(b, hkv, h // hkv * s, route.n_split,
+                                        d), dtype=torch.float32,
+                    device="meta")
+    return (out, lse) if return_lse else out
 
 
 def _with_lse(q, k, v, **kw):

@@ -5,13 +5,17 @@ compat matrix and its select).
 A CPU tensor runs the plain version (`ref.py`); a CUDA tensor launches the
 kernel, and anything the kernel does not take raises. There is no fallback
 from the card to the plain version. Every kernel reads its inputs in
-place, broadcast leading dims included.
+place, broadcast leading dims included. A meta tensor gets meta outputs
+and its work counted in `kernels.meta_cost` (see the package's
+docstring).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import lead_strides
+import math
+
+from repro_torch.kernels import is_meta, lead_strides, meta_cost, nbytes
 from repro_torch.kernels.kg_join.kernel import (MAX_LEAD, compat_matrix_kernel,
                                                 compat_select_kernel,
                                                 ranges_kernel, select_kernel)
@@ -45,6 +49,16 @@ def _fold(keys, rkey, tmask, lead):
     return keys, rkey, tmask, tuple(lead), strides
 
 
+def _meta(shape, dtype):
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _search_ops(searches: int, c: int) -> int:
+    """A binary search's operations, as the range search's bound counts
+    them: two searches of ceil(log2(C + 1)) steps, 3 operations a step."""
+    return searches * 2 * math.ceil(math.log2(c + 1)) * 3
+
+
 def join_ranges(keys, rkey):
     """Candidate ranges (lo, hi) int32 of each table-row key in the sorted
     match keys — integer-identical to searchsorted left/right.
@@ -59,6 +73,15 @@ def join_ranges(keys, rkey):
     blocked = keys.dim() == rkey.dim() + 1
     k = keys if blocked else keys[..., None, :]
     shape = torch.broadcast_shapes(k.shape[:-2], rkey.shape[:-1])
+    if is_meta(keys):
+        tail = (k.shape[-2], rkey.shape[-1]) if blocked \
+            else (rkey.shape[-1],)
+        lo, hi = _meta((*shape, *tail), torch.int32), \
+            _meta((*shape, *tail), torch.int32)
+        searches = shape.numel() * k.shape[-2] * rkey.shape[-1]
+        meta_cost.add("join_ranges", ops=_search_ops(searches, k.shape[-1]),
+                      n_bytes=nbytes(keys) + nbytes(rkey) + 8 * searches)
+        return lo, hi
     kk, rk, _, lead, strides = _fold(k, rkey, None, shape)
     lo, hi = ranges_kernel(kk, rk, lead, strides)
     join_ranges.launches += 1
@@ -89,6 +112,8 @@ def join_select(keys, rkey, tmask, k: int, cap: int):
         return join_select_ref(keys, rkey, tmask, k, cap)
     shape = torch.broadcast_shapes(keys.shape[:-2], rkey.shape[:-1],
                                    tmask.shape[:-1])
+    if is_meta(keys):
+        return _meta_join_select(keys, rkey, tmask, k, cap, shape)
     lo, counts, order, omask, total = select_kernel(
         *_fold(keys, rkey, tmask, shape), k, cap)
     join_select.launches += 1
@@ -99,6 +124,27 @@ def join_select(keys, rkey, tmask, k: int, cap: int):
 
 
 join_select.launches = 0
+
+
+def _meta_join_select(keys, rkey, tmask, k, cap, shape):
+    sb, c, r = keys.shape[-2], keys.shape[-1], rkey.shape[-1]
+    m = min(cap, r * sb * k)
+    searches = shape.numel() * sb * r
+    meta_cost.add("join_select", ops=_search_ops(searches, c),
+                  n_bytes=nbytes(keys) + nbytes(rkey) + nbytes(tmask)
+                  + 8 * searches + shape.numel() * (m * 5 + 4))
+    return (_meta((*shape, sb, r), torch.int32),
+            _meta((*shape, sb, r), torch.int32),
+            _meta((*shape, m), torch.int32), _meta((*shape, m), torch.bool),
+            _meta(shape, torch.int32))
+
+
+def _meta_compat(name, operands, shape, out_bytes) -> None:
+    """The compat launch's bound with every pair live and every triple
+    position tested: 3 integer compares a (row, match) pair."""
+    r, c = operands[0].shape[-2], operands[2].shape[-2]
+    meta_cost.add(name, ops=3 * shape.numel() * r * c,
+                  n_bytes=sum(nbytes(t) for t in operands) + out_bytes)
 
 
 # the compat operands and their trailing (non-leading) dims
@@ -137,6 +183,10 @@ def compat_matrix(table, tmask, matches, mmask, kind, col):
         return compat_matrix_ref(table, tmask, matches, mmask, kind, col)
     operands = (table, tmask, matches, mmask, kind, col)
     shape = _compat_lead(operands)
+    r, c = table.shape[-2], matches.shape[-2]
+    if is_meta(table):
+        _meta_compat("compat_matrix", operands, shape, shape.numel() * r * c)
+        return _meta((*shape, r, c), torch.bool)
     out = compat_matrix_kernel(*_fold_compat(operands, shape))
     compat_matrix.launches += 1
     return out.reshape(*shape, table.shape[-2], matches.shape[-2])
@@ -161,6 +211,14 @@ def compat_select(table, tmask, matches, mmask, kind, col, cap: int):
         return compat_select_ref(table, tmask, matches, mmask, kind, col, cap)
     operands = (table, tmask, matches, mmask, kind, col)
     shape = _compat_lead(operands)
+    if is_meta(table):
+        r = table.shape[-2]
+        m = min(cap, r * matches.shape[-2])
+        _meta_compat("compat_select", operands, shape,
+                     shape.numel() * (r + m * 5 + 4))
+        return (_meta((*shape, r), torch.bool),
+                _meta((*shape, m), torch.int32),
+                _meta((*shape, m), torch.bool), _meta(shape, torch.int32))
     keep, order, omask, total = compat_select_kernel(
         *_fold_compat(operands, shape), cap)
     compat_select.launches += 1

@@ -4,10 +4,14 @@ A CPU tensor runs the plain version (`ref.py`); a CUDA tensor launches the
 kg_scan kernel, and anything the kernel does not take raises. There is no
 fallback from the card to the plain version. Each op call on the card is
 one launch of the one-pass scan (after the zeroing of its tile status).
+A meta tensor gets meta outputs and its work counted in
+`kernels.meta_cost` (see the package's docstring).
 """
 from __future__ import annotations
 
-from repro_torch.kernels import lead_strides
+import torch
+
+from repro_torch.kernels import is_meta, lead_strides, meta_cost, nbytes
 from repro_torch.kernels.kg_scan.kernel import MAX_LEAD, scan_kernel
 from repro_torch.kernels.kg_scan.ref import scan_hits_ref, scan_select_ref
 
@@ -42,6 +46,48 @@ def _fold(triples, valid, spo, eq):
     return triples, valid, spo, eq, lead, strides
 
 
+def _meta_lead(triples, valid, spo, eq) -> torch.Size:
+    return torch.broadcast_shapes(
+        valid.shape[:-1], *(() if t is None else t.shape[:t.dim() - n]
+                            for t, n in ((triples, 2), (spo, 1), (eq, 1))))
+
+
+def _meta_count(name, triples, valid, spo, eq, rows, out_bytes) -> None:
+    """The scan's bound: its inputs read once, ``out_bytes`` written, 20
+    integer operations a row with a pattern (2 over a plain mask)."""
+    n_bytes = nbytes(valid) + nbytes(triples) + nbytes(spo) + nbytes(eq)
+    meta_cost.add(name, ops=rows * (2 if triples is None else 20),
+                  n_bytes=n_bytes + out_bytes)
+
+
+def _meta_hits(triples, valid, spo, eq, with_cum):
+    lead = _meta_lead(triples, valid, spo, eq)
+    n = valid.shape[-1]
+    rows = lead.numel() * n
+    hit = valid if triples is None else torch.empty(
+        (*lead, n), dtype=torch.bool, device="meta")
+    cum = torch.empty((*lead, n), dtype=torch.int32, device="meta") \
+        if with_cum else None
+    _meta_count("scan_hits", triples, valid, spo, eq, rows,
+                (0 if triples is None else rows) + (rows * 4 if with_cum
+                                                    else 0))
+    return hit, cum
+
+
+def _meta_select(triples, valid, cap, spo, eq, with_hit):
+    lead = _meta_lead(triples, valid, spo, eq)
+    n = valid.shape[-1]
+    k = min(cap, n)
+    rows = lead.numel() * n
+    hit = None if triples is None or not with_hit else torch.empty(
+        (*lead, n), dtype=torch.bool, device="meta")
+    _meta_count("scan_select", triples, valid, spo, eq, rows,
+                (0 if hit is None else rows) + lead.numel() * (k * 5 + 4))
+    return (hit, torch.empty((*lead, k), dtype=torch.int32, device="meta"),
+            torch.empty((*lead, k), dtype=torch.bool, device="meta"),
+            torch.empty(lead, dtype=torch.int32, device="meta"))
+
+
 def scan_hits(triples, valid, spo=None, eq=None, *, with_cum: bool = True):
     """(hit (…, N) bool, cum (…, N) int32): fused triple-pattern predicate
     plus inclusive hit-count prefix sum over shard blocks.
@@ -56,6 +102,8 @@ def scan_hits(triples, valid, spo=None, eq=None, *, with_cum: bool = True):
         raise ValueError("scan_hits without cum needs the triples")
     if valid.device.type == "cpu":
         return scan_hits_ref(triples, valid, spo, eq, with_cum=with_cum)
+    if is_meta(valid):
+        return _meta_hits(triples, valid, spo, eq, with_cum)
     t, v, s, e, lead, strides = _fold(triples, valid, spo, eq)
     hit, cum = scan_kernel(t, v, s, e, lead, strides, with_cum=with_cum)
     scan_hits.launches += 1
@@ -86,6 +134,8 @@ def scan_select(triples, valid, cap: int, spo=None, eq=None, *,
     n = valid.shape[-1]
     if n == 0:
         raise ValueError("scan_select needs at least one row")
+    if is_meta(valid):
+        return _meta_select(triples, valid, cap, spo, eq, with_hit)
     k = min(cap, n)
     t, v, s, e, lead, strides = _fold(triples, valid, spo, eq)
     out = scan_kernel(t, v, s, e, lead, strides, k=k, with_hit=with_hit)

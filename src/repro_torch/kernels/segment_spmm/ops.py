@@ -21,11 +21,18 @@ output gradient at each live edge's receiver in plain PyTorch
 (`ref.segment_spmm_backward`), as XLA transposes `jax.ops.segment_sum`.
 The TPU kernel has no backward of its own. The plain versions on the CPU
 are differentiable as they stand.
+
+On meta tensors `segment_plan` returns a plan of meta tensors (its sort
+and search as on the card, an empty piece table: the table's sizes are
+read from the host) and the op returns a meta output under the same
+autograd function, launching nothing, its bound's work counted in
+`kernels.meta_cost`.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import is_meta, meta_cost, nbytes
 from repro_torch.kernels.segment_spmm.kernel import (INT32_MAX, PIECE,
                                                      SegmentPlan,
                                                      check_values,
@@ -59,6 +66,15 @@ def segment_plan(receivers: torch.Tensor, edge_mask: torch.Tensor,
     offsets = torch.searchsorted(
         keys, torch.arange(n_nodes + 1, dtype=torch.int32, device=dev))
     segment_plan.builds += 1
+    if dev.type == "meta":
+        none = torch.empty(0, dtype=torch.int32, device=dev)
+        return SegmentPlan(
+            order=order.to(torch.int32), offsets=offsets, piece_node=none,
+            piece_start=torch.empty(0, dtype=torch.int64, device=dev),
+            split_node=none,
+            split_pieces=torch.zeros(1, dtype=torch.int64, device=dev),
+            piece=PIECE, receivers=receivers, edge_mask=edge_mask,
+            n_edges=recv.shape[0], n_nodes=n_nodes)
     return SegmentPlan(order=order.to(torch.int32), offsets=offsets,
                        **piece_table(offsets, PIECE), receivers=receivers,
                        edge_mask=edge_mask, n_edges=recv.shape[0],
@@ -103,6 +119,13 @@ class SegmentSum(torch.autograd.Function):
     def forward(ctx, values: torch.Tensor, plan: SegmentPlan,
                 n_nodes: int) -> torch.Tensor:
         ctx.plan, ctx.n_nodes = plan, n_nodes
+        if is_meta(values):
+            e, d = values.shape
+            # messages, receivers and mask read once, the output written
+            meta_cost.add("segment_spmm", ops=e * d,
+                          n_bytes=nbytes(values) + 4 * e + e
+                          + values.element_size() * n_nodes * d)
+            return values.new_empty((n_nodes, d))
         return segment_spmm_kernel(values, plan, n_nodes)
 
     @staticmethod
@@ -133,12 +156,14 @@ def segment_spmm(values: torch.Tensor, receivers: torch.Tensor,
             return segment_spmm_ref(values, receivers, edge_mask, n_nodes)
         return segment_spmm_plan_ref(values, plan.order, plan.offsets)
     values = values.contiguous()
-    check_values(values)
+    if not is_meta(values):
+        check_values(values)
     if plan is None:
         plan = segment_plan(receivers, edge_mask, n_nodes,
                             assume_sorted=assume_sorted)
     out = SegmentSum.apply(values, plan, n_nodes)
-    segment_spmm.launches += 1
+    if not is_meta(values):
+        segment_spmm.launches += 1
     return out
 
 

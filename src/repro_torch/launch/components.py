@@ -1,0 +1,243 @@
+"""Per-component cost accounting of an LM cell, recombined by trip count.
+
+The port of the reference's `launch/components.py`. XLA's cost analysis
+counts a while-loop body once, so the reference lowers the scan-free
+components of a step (one layer, the head and loss, the optimizer) and
+recombines them:
+
+  train:   accum * (L_dense*layer_d + L_moe*layer_m + head) + opt
+  prefill: L_dense*layer_d + L_moe*layer_m + head
+  decode:  L_dense*layer_d + L_moe*layer_m + head
+
+The port's whole-program meta run has no scan: it runs every layer of
+every micro-batch. So here ``adjusted`` EQUALS the whole program's
+totals, FLOPs and collective bytes alike, and that equality tests both.
+Each component is a meta run (`launch.dryrun.account`) of the piece of
+the cell's own step:
+  layer_dense / layer_moe — one layer as the step runs it: for train its
+      forward under `torch.utils.checkpoint` and its backward (the
+      recompute included), for prefill its cached forward through the
+      flash kernel, for decode its cached split-KV step on the mesh;
+  head — everything of a micro-batch but the layers: the embedding, the
+      final norm, the cross-entropy (``ce_chunk``) and the MTP term with
+      their backward (train), the logits (prefill), the logits and their
+      gather over the data axes (decode);
+  opt — everything once per step: the Trainer's gather of the whole
+      parameters, the metrics' and the gradients' collectives (the ZeRO
+      reduce-scatter), the norm and AdamW.
+Each gives ``flops`` (the dispatcher's and the kernels'), ``bytes`` (the
+sum of every dispatched op's input and output bytes plus the kernels'
+meta bytes: not XLA's "bytes accessed"), ``collectives`` (bytes by HLO
+kind) and ``collective_total``. Peak memory comes from the whole program.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.launch.cells import build_lm_cell
+from repro_torch.tree import tree_leaves
+
+
+def _cost(fn, args, mesh) -> dict:
+    from repro_torch.launch.dryrun import account
+    mesh.reset_counts()
+    rec = account(fn, args)
+    coll = mesh.hlo_collectives()
+    return {"flops": rec["flops"], "bytes": rec["bytes_accessed"],
+            "collectives": coll["per_kind_bytes"],
+            "collective_total": coll["total_bytes"]}
+
+
+def _scale(c: dict, k: float) -> dict:
+    return {"flops": c["flops"] * k, "bytes": c["bytes"] * k,
+            "collectives": {kk: v * k for kk, v in c["collectives"].items()},
+            "collective_total": c["collective_total"] * k}
+
+
+def _add(*cs) -> dict:
+    out = {"flops": 0.0, "bytes": 0.0, "collective_total": 0.0,
+           "collectives": {}}
+    for c in cs:
+        out["flops"] += c["flops"]
+        out["bytes"] += c["bytes"]
+        out["collective_total"] += c["collective_total"]
+        for k, v in c["collectives"].items():
+            out["collectives"][k] = out["collectives"].get(k, 0.0) + v
+    return out
+
+
+def _no_layers(cfg):
+    return dataclasses.replace(cfg, n_layers=0, first_dense_layers=0)
+
+
+def _meta_like(shape, dtype, grad: bool = False) -> torch.Tensor:
+    t = torch.empty(tuple(shape), dtype=dtype, device="meta")
+    return t.requires_grad_(grad)
+
+
+def lm_component_costs(arch_id: str, shape_id: str, mesh, *, cell=None,
+                       **overrides) -> dict:
+    """{"components", "adjusted", "trips"} of an LM cell on ``mesh`` (a
+    `MetaMesh`); ``cell`` reuses a built cell, ``overrides`` pass to
+    `cells.build_lm_cell` (cfg, shape_def, knobs)."""
+    from repro_torch.models.transformer import (Transformer, _depths,
+                                                _layer_fwd, decode_axes,
+                                                init_cache, loss_fn)
+    from repro_torch.runtime.trainer import Trainer, TrainTask
+    cell = cell or build_lm_cell(arch_id, shape_id, mesh, **overrides)
+    model = cell.args[0]
+    cfg = cell.parts["cfg"]
+    params = model.params
+    dt = params["embed"].dtype
+    n_dense, n_moe = _depths(cfg)
+    train = cell.kind == "train"
+    comps = {}
+
+    def first_layer(moe: bool) -> dict:
+        name = "moe" if moe else "dense"
+        return next(lp[0] for nm, _, lp in model.stacks if nm == name)
+
+    if train:
+        accum = cell.parts["accum"]
+        x_shape = cell.parts["x_shape"]
+        s = x_shape[1]
+
+        def layer_cost(moe: bool):
+            def fn(lp, x):
+                positions = torch.arange(s, device="meta")[None]
+                out = torch.utils.checkpoint.checkpoint(
+                    lambda x_, lp_: _layer_fwd(lp_, cfg, x_, positions, 0,
+                                               moe, use_kernel=False,
+                                               mesh=mesh),
+                    x, lp, use_reentrant=False)
+                leaves = [x] + tree_leaves(lp)
+                return torch.autograd.grad(out, leaves,
+                                           grad_outputs=torch.ones_like(out),
+                                           allow_unused=True)
+            lp = {k: v for k, v in first_layer(moe).items()}
+            lp = _detached(lp)
+            return _cost(fn, (lp, _meta_like(x_shape, dt, True)), mesh)
+
+        def head_fn(p, tokens, labels):
+            loss, _ = loss_fn(p, _no_layers(cfg), tokens, labels, remat=True,
+                              mesh=mesh)
+            leaves = [t for t in tree_leaves(p) if t.requires_grad]
+            return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+        batch = cell.args[3]
+        mb = {k: v[0] for k, v in batch.items()}
+        head_params = _detached({k: v for k, v in params.items()
+                                 if k not in ("dense_layers", "moe_layers")})
+        comps_head = _cost(head_fn, (head_params, mb["tokens"],
+                                     mb["labels"]), mesh)
+
+        # the once-a-step part: the Trainer's mesh step with a loss that
+        # reaches every leaf with no product and no collective
+        task = cell.parts["task"]
+        metric_keys = ["ce", "loss"] + (["mtp_ce"] if cfg.mtp_depth
+                                        and "mtp" in params else [])
+
+        def zero_loss(m, b):
+            loss = sum((t.sum() * 0).float() for t in tree_leaves(
+                m.param_tree()))
+            return loss, {k: loss for k in metric_keys}
+        opt_task = TrainTask(
+            name=task.name, init_params=None, loss_fn=zero_loss,
+            batches=iter(()), lr=task.lr, grad_accum=accum,
+            moments_dtype=task.moments_dtype, device=task.device,
+            param_specs=task.param_specs, batch_specs=task.batch_specs)
+        trainer = Trainer(opt_task, mesh=mesh)
+
+        def opt_fn(model_, blocks, opt_state, batch_):
+            tree = model_.param_tree()
+            for p in tree_leaves(tree):
+                p.requires_grad_(True)
+            specs = trainer._specs(tree)
+            ef = {"_": torch.zeros((), device="meta")}
+            trainer._mesh_step(model_, tree, blocks, specs, opt_state, ef,
+                               batch_, 1, batch_is_local=True)
+        comps["head"] = comps_head
+        if n_dense:
+            comps["layer_dense"] = layer_cost(False)
+        if n_moe:
+            comps["layer_moe"] = layer_cost(True)
+        comps["opt"] = _cost(opt_fn, (model, cell.args[1], cell.args[2],
+                                      batch), mesh)
+    else:
+        accum = 1
+        zero = Transformer(_no_layers(cfg), params)
+        if cell.kind == "prefill":
+            b, s, _ = cell.parts["x_shape"]
+            tokens = cell.args[1]
+
+            def layer_cost(moe: bool):
+                stack = init_cache(cfg, b, s, device="meta")[
+                    "moe" if moe else "dense"]
+                cache = tuple(t[0] for t in stack)
+
+                def fn(lp, x, ca, cb):
+                    positions = torch.arange(s, device="meta")[None]
+                    with torch.no_grad():
+                        return _layer_fwd(lp, cfg, x, positions, 0, moe,
+                                          (ca, cb, 0), use_kernel=True,
+                                          drops=[])
+                return _cost(fn, (first_layer(moe), _meta_like(
+                    (b, s, cfg.d_model), dt), *cache), mesh)
+
+            def head_fn(z, toks):
+                with torch.no_grad():
+                    logits, cache = z.prefill(toks)
+                return logits[:, -1, :], cache
+            comps["head"] = _cost(head_fn, (zero, tokens), mesh)
+        else:
+            cur = cell.parts["cur"]
+            cache, tokens = cell.args[1], cell.args[2]
+            b_ax, t_ax = decode_axes(mesh, tokens.shape[0])
+            b_loc = tokens.shape[0] // (mesh.axes_size(b_ax) if b_ax else 1)
+
+            def layer_cost(moe: bool):
+                name = "moe" if moe else "dense"
+                ca, cb = (c[0] for c in cache[name])
+
+                def fn(lp, x, ca_, cb_):
+                    positions = torch.full((b_loc, 1), cur, dtype=torch.int32,
+                                           device="meta")
+                    with torch.no_grad():
+                        return _layer_fwd(lp, cfg, x, positions, cur, moe,
+                                          (ca_, cb_, cur), use_kernel=True,
+                                          drops=[], mesh=mesh,
+                                          seq_axes=t_ax,
+                                          split=b_ax is not None)
+                return _cost(fn, (first_layer(moe), _meta_like(
+                    (b_loc, 1, cfg.d_model), dt), ca, cb), mesh)
+
+            def head_fn(z, toks):
+                with torch.no_grad():
+                    return z.decode_step({"dense": None, "moe": None}, toks,
+                                         cur, mesh=mesh)[0]
+            comps["head"] = _cost(head_fn, (zero, tokens), mesh)
+        if n_dense:
+            comps["layer_dense"] = layer_cost(False)
+        if n_moe:
+            comps["layer_moe"] = layer_cost(True)
+
+    nothing = _scale(comps["head"], 0.0)
+    total = _add(
+        _scale(comps.get("layer_dense", nothing), n_dense * accum),
+        _scale(comps.get("layer_moe", nothing), n_moe * accum),
+        _scale(comps["head"], accum),
+        comps.get("opt", nothing))
+    return {"components": comps, "adjusted": total,
+            "trips": {"accum": accum, "n_dense": n_dense, "n_moe": n_moe}}
+
+
+def _detached(tree):
+    """Meta leaves of ``tree``'s shapes that require grad, as the Trainer's
+    whole parameters do."""
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    return _meta_like(tree.shape, tree.dtype, True)
+
+

@@ -29,6 +29,11 @@ fastest, as JAX lays devices on `jax.make_mesh`), a process group per line
 of every combination of axes, and the collectives along an axis or a tuple
 of axes (`all_gather`, `all_reduce` sum and max, `reduce_scatter`), each
 counted in calls and bytes. `spawn` with a tuple shape starts one.
+
+`MetaMesh` and `MetaEngineMesh` are one chosen rank of such meshes on
+PyTorch's ``meta`` device, with no process group, for the dry run
+(`launch.dryrun`): their collectives have the real meshes' signatures and
+result shapes, return meta tensors, and count what they would move.
 """
 from __future__ import annotations
 
@@ -48,6 +53,9 @@ from typing import Callable
 import torch
 
 AXIS = "shards"
+# the collective kinds of the reference's HLO count (`collective_bytes`)
+HLO_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+             "collective-permute")
 BACKENDS = ("gloo", "nccl")
 ENGINE_SOURCES = ("kg_scan.cu", "kg_join.cu", "kg_compat.cu")
 MODEL_SOURCES = ("flash_attention.cu",)
@@ -194,6 +202,70 @@ class EngineMesh(_Wire):
         box = [obj]
         _dist().broadcast_object_list(box, src=0)
         return box[0]
+
+
+class HloCounts:
+    """Collectives counted as the reference counts them in a lowered
+    program (`collective_bytes`): by HLO kind, each the bytes of its
+    output in the tensor's own dtype, and the number of them."""
+
+    def _hlo_reset(self) -> None:
+        self.per_kind_bytes = {k: 0 for k in HLO_KINDS}
+        self.per_kind_count = {k: 0 for k in HLO_KINDS}
+
+    def _hlo(self, kind: str, out_bytes: int) -> None:
+        self.per_kind_bytes[kind] += int(out_bytes)
+        self.per_kind_count[kind] += 1
+
+    def hlo_collectives(self) -> dict:
+        """``{"per_kind_bytes", "per_kind_count", "total_bytes"}``, the
+        keys of the reference's `collective_bytes`."""
+        return {"per_kind_bytes": dict(self.per_kind_bytes),
+                "per_kind_count": dict(self.per_kind_count),
+                "total_bytes": sum(self.per_kind_bytes.values())}
+
+
+def _meta_like(t: torch.Tensor, shape=None) -> torch.Tensor:
+    return torch.empty(tuple(t.shape if shape is None else shape),
+                       dtype=t.dtype, device="meta")
+
+
+class MetaEngineMesh(EngineMesh, HloCounts):
+    """Rank ``rank`` of an engine mesh of ``size`` ranks on the meta
+    device: no process group; a gather returns meta tensors of every
+    rank's shape (this rank's own tensor at its place). ``collectives``
+    and ``gathered_bytes`` count the cut gathers as `EngineMesh` does;
+    `hlo_collectives` counts every gather by the reference's HLO
+    convention."""
+
+    def __init__(self, size: int, rank: int = 0, *, axis_name: str = AXIS):
+        super().__init__(size, rank, torch.device("meta"), backend="meta",
+                         axis_name=axis_name)
+        self._hlo_reset()
+
+    def __repr__(self) -> str:
+        return f"MetaEngineMesh({self.shape}, rank={self.rank})"
+
+    def reset_counts(self) -> None:
+        super().reset_counts()
+        self._hlo_reset()
+
+    def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
+        if self.size == 1:
+            return [t]
+        self._hlo("all-gather", t.numel() * t.element_size() * self.size)
+        return [t if r == self.rank else _meta_like(t)
+                for r in range(self.size)]
+
+    def gather(self, t: torch.Tensor) -> list[torch.Tensor] | None:
+        if self.size == 1:
+            return [t]
+        if self.rank != 0:
+            return None
+        return [t if r == 0 else _meta_like(t) for r in range(self.size)]
+
+    def broadcast_object(self, obj=None):
+        return obj
 
 
 def make_engine_mesh(n_shards: int, *, device="cuda", backend: str = "gloo",
@@ -461,6 +533,99 @@ class DeviceMesh(MeshShape, _Wire):
         """Every rank of the mesh meets here (uncounted)."""
         if self.size > 1:
             _dist().barrier()
+
+
+class MetaMesh(MeshShape, HloCounts):
+    """Rank ``rank`` (default 0) of an N-dimensional mesh of any size on
+    the meta device, with no process group: the dry run's mesh.
+
+    `axis_index`, `all_gather`, `all_reduce`, `reduce_scatter`,
+    `gather_to_root` and `barrier` take `DeviceMesh`'s arguments and give
+    its result shapes and dtypes, as meta tensors, so the model paths'
+    autograd collectives (`sharding.rules`) run on it unchanged. Along
+    axes of size one they are the identity, as on `DeviceMesh`, and count
+    nothing. ``calls`` and ``bytes`` count by name as `DeviceMesh` does
+    (the gathered tensor whole, the reduced tensor, the scattered input, a
+    gather to rank 0 what rank 0 receives or the others send);
+    `hlo_collectives` counts by the reference's HLO convention (the
+    output's bytes in its own dtype: a bfloat16 sum is 2 bytes an
+    element, whatever a backend's wire carries). The port issues no
+    all-to-all and no collective-permute; those stay 0."""
+
+    def __init__(self, sizes, axis_names, rank: int = 0):
+        super().__init__(sizes, axis_names)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        self.rank = rank
+        self.device = torch.device("meta")
+        self.backend = "meta"
+        self.calls: Counter = Counter()
+        self.bytes: Counter = Counter()
+        self._hlo_reset()
+
+    def __repr__(self) -> str:
+        return f"MetaMesh({self.shape}, rank={self.rank})"
+
+    def axis_index(self, axes) -> int:
+        return self.index_of(self.rank, axes)
+
+    def reset_counts(self) -> None:
+        self.calls.clear()
+        self.bytes.clear()
+        self._hlo_reset()
+
+    def _count(self, name: str, t: torch.Tensor, factor: int = 1) -> None:
+        self.calls[name] += 1
+        self.bytes[name] += t.numel() * t.element_size() * factor
+
+    def all_gather(self, t: torch.Tensor, axes, dim: int = 0, *,
+                   tiled: bool = True) -> torch.Tensor:
+        n = self.axes_size(axes)
+        if n == 1:
+            return t if tiled else t[None]
+        self._count("all_gather", t, n)
+        self._hlo("all-gather", t.numel() * t.element_size() * n)
+        if not tiled:
+            return _meta_like(t, (n, *t.shape))
+        shape = list(t.shape)
+        shape[dim] *= n
+        return _meta_like(t, shape)
+
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"
+                   ) -> torch.Tensor:
+        if op not in ("sum", "max"):
+            raise ValueError(f"all_reduce op must be 'sum' or 'max', got "
+                             f"{op!r}")
+        if self.axes_size(axes) == 1:
+            return t.clone()
+        self._count("all_reduce", t)
+        self._hlo("all-reduce", t.numel() * t.element_size())
+        return _meta_like(t)
+
+    def reduce_scatter(self, t: torch.Tensor, axes, dim: int = 0
+                       ) -> torch.Tensor:
+        n = self.axes_size(axes)
+        if n == 1:
+            return t
+        if t.shape[dim] % n:
+            raise ValueError(f"reduce_scatter of dim {dim} ({t.shape[dim]}) "
+                             f"over {n} ranks")
+        self._count("reduce_scatter", t)
+        self._hlo("reduce-scatter", t.numel() * t.element_size() // n)
+        shape = list(t.shape)
+        shape[dim] //= n
+        return _meta_like(t, shape)
+
+    def gather_to_root(self, t: torch.Tensor) -> list | None:
+        if self.size == 1:
+            return [t]
+        self._count("gather", t, self.size if self.rank == 0 else 1)
+        if self.rank != 0:
+            return None
+        return [t if r == 0 else _meta_like(t) for r in range(self.size)]
+
+    def barrier(self) -> None:
+        """Nothing to meet: the other ranks do not run."""
 
 
 def make_device_mesh(sizes, axis_names, *, device="cuda",

@@ -781,15 +781,20 @@ class Transformer:
         a time (one layer's, or one expert's) in float32 and cast, so no
         float32 copy of a whole stack is needed. A dense config's weights
         are drawn in the order they always were: its layers, the embedding,
-        the head; the MoE layers and the MTP head follow."""
+        the head; the MoE layers and the MTP head follow. On
+        ``device="meta"`` it allocates nothing and draws nothing: the
+        parameters' shapes and dtypes, for the dry run."""
         dev = resolve_device(device)
         dt = dtype or getattr(torch, cfg.dtype)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        meta = dev.type == "meta"
+        gen = None if meta else torch.Generator(device=dev).manual_seed(seed)
         c, d = cfg, cfg.d_model
         n_dense, n_moe = _depths(cfg)
 
         def normal(*shape, scale, stack=()):
             out = torch.empty((*stack, *shape), dtype=dt, device=dev)
+            if meta:            # shapes and dtypes only: nothing to draw
+                return out
             for view in out.view(-1, *shape):
                 view.copy_(torch.randn(shape, generator=gen, device=dev) * scale)
             return out

@@ -231,13 +231,16 @@ class Trainer:
         return torch.sqrt(mesh.all_reduce(total, mesh.axis_names)[0])
 
     def _mesh_step(self, params, tree, blocks, specs, opt_state, ef_state,
-                   batch, step: int):
+                   batch, step: int, *, batch_is_local: bool = False):
+        """One step on the mesh; ``batch_is_local`` takes ``batch`` as
+        this rank's block already (the dry run hands a rank's blocks)."""
         t = self.task
         lr = cosine_schedule(step, peak_lr=t.lr, warmup=t.warmup,
                              total=t.total_steps)
         self._gather_params(tree, blocks, specs)
-        metrics, grads = self._grads(params, tree_leaves(tree),
-                                     self._local_batch(batch))
+        metrics, grads = self._grads(
+            params, tree_leaves(tree),
+            batch if batch_is_local else self._local_batch(batch))
         metrics = self._mesh_metrics({k: v.detach()
                                       for k, v in metrics.items()})
         grads, ef_state = self._mesh_grads(tree_unflatten(tree, grads),

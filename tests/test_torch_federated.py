@@ -308,8 +308,14 @@ def test_strict_overflow_raises_with_the_reference_message(tiny):
 
 def test_cuda_without_a_card_raises_and_nothing_falls_back(tiny, monkeypatch):
     """run_vmapped defaults to the card and raises without one; the engine
-    on tensors that are not on the CPU goes to the kernels' launchers,
-    which refuse them, and never runs the plain versions instead."""
+    on tensors that are not on the CPU goes to the kernels' ops and never
+    runs the plain versions instead: on meta tensors (the dry run's
+    device) every step takes the kernels' meta branches, which launch
+    nothing and count their work (the ops' own launchers refuse any other
+    device but CUDA: tests/test_torch_shared.py)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.kg_join import ops as join_ops
+    from repro_torch.kernels.kg_scan import ops as scan_ops
     store, q, part, plan, kg, *_ = tiny
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -320,9 +326,18 @@ def test_cuda_without_a_card_raises_and_nothing_falls_back(tiny, monkeypatch):
     tr = torch.zeros(kg.triples.shape, dtype=torch.int32, device=meta)
     va = torch.zeros(kg.valid.shape, dtype=torch.bool, device=meta)
     p = torch.zeros((1,), dtype=torch.int32, device=meta)
+    ops = (scan_ops.scan_select, join_ops.compat_select,
+           join_ops.join_select, join_ops.join_ranges)
     for impl in ("expand", "sorted"):
-        with pytest.raises(ValueError, match="CUDA tensor"):
-            make_engine(plan, join_impl=impl)(tr, va, p)
+        launches = [op.launches for op in ops]
+        kernels.meta_cost.reset()
+        out = make_engine(plan, join_impl=impl)(tr, va, p)
+        assert all(t.device.type == "meta" for t in out)
+        # the one pattern's scan, and its join with no shared variable
+        # (the expand join's selection under both join_impl)
+        assert dict(kernels.meta_cost.calls) == {"scan_select": 1,
+                                                 "compat_select": 1}
+        assert [op.launches for op in ops] == launches
     with pytest.raises(ValueError, match="backend"):
         make_engine(plan, backend="jnp")
     assert AXIS == j_fed.AXIS

@@ -277,11 +277,23 @@ def test_bag_sum_bf16_table_and_jnp_take_ids():
     assert torch.isnan(out[2]).all()
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device that is neither the CPU, the card
+    nor meta (each of which has its own branch in the ops)."""
+
+    @property
+    def device(self):
+        return torch.device("xla")
+
+
 def test_kernel_ops_raise_off_cpu_instead_of_falling_back():
+    """Off the CPU and off the meta device (its own branch, held in
+    tests/test_torch_dryrun.py) the ops go to the kernels' launchers,
+    which refuse anything that is not a CUDA tensor."""
     meta = torch.device("meta")
-    vals = torch.zeros((8, 4), device=meta)
-    recv = torch.zeros((8,), dtype=torch.int32, device=meta)
-    mask = torch.ones((8,), dtype=torch.bool, device=meta)
+    vals = torch.zeros((8, 4)).as_subclass(_Elsewhere)
+    recv = torch.zeros((8,), dtype=torch.int32).as_subclass(_Elsewhere)
+    mask = torch.ones((8,), dtype=torch.bool).as_subclass(_Elsewhere)
     with pytest.raises(ValueError, match="CUDA tensor"):
         segment_spmm(vals, recv, mask, 3)
     # a plan is taken only for its E and N, with the very receivers and
@@ -301,11 +313,11 @@ def test_kernel_ops_raise_off_cpu_instead_of_falling_back():
             with pytest.raises(ValueError, match="built from other"):
                 segment_spmm(torch.zeros((8, 4), device=device), *other, 3,
                              plan=plan)
-    ids = torch.zeros((2, 3), dtype=torch.int32, device=meta)
+    ids = torch.zeros((2, 3), dtype=torch.int32).as_subclass(_Elsewhere)
     with pytest.raises(ValueError, match="CUDA tensor"):
         bag_sum(vals, ids)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        bag_sum(vals, ids, torch.ones((2, 3), device=meta))
+        bag_sum(vals, ids, torch.ones((2, 3)).as_subclass(_Elsewhere))
 
 
 # ---------------------------------------------------------------------------

@@ -373,10 +373,24 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
         init_cache(lm, 1, 8)
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device that is neither the CPU, the card
+    nor meta (each of which has its own branch in the ops)."""
+
+    @property
+    def device(self):
+        return torch.device("xla")
+
+
+def _elsewhere(shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype).as_subclass(_Elsewhere)
+
+
 def test_kernel_ops_raise_off_cpu_instead_of_falling_back():
-    """A tensor that is not on the CPU goes to the kernel's launcher, which
-    refuses anything that is not a CUDA tensor — it never runs the plain
-    version instead."""
+    """A tensor that is neither on the CPU nor on the meta device goes to
+    the kernel's launcher, which refuses anything that is not a CUDA
+    tensor — it never runs the plain version instead. (A meta tensor has
+    its own branch, held in tests/test_torch_dryrun.py.)"""
     from repro_torch.kernels.cin.ops import cin_layer
     from repro_torch.kernels.embedding_bag.ops import gather_rows
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -384,10 +398,9 @@ def test_kernel_ops_raise_off_cpu_instead_of_falling_back():
     from repro_torch.kernels.kg_join.ops import compat_matrix, join_ranges
     from repro_torch.kernels.kg_scan.ops import scan_hits, scan_select
 
-    meta = torch.device("meta")
-    tr = torch.zeros((2, 8, 3), dtype=torch.int32, device=meta)
-    va = torch.zeros((2, 8), dtype=torch.bool, device=meta)
-    spo = torch.zeros((2, 3), dtype=torch.int32, device=meta)
+    tr = _elsewhere((2, 8, 3), torch.int32)
+    va = _elsewhere((2, 8), torch.bool)
+    spo = _elsewhere((2, 3), torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         scan_hits(tr, va, spo)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -402,14 +415,14 @@ def test_kernel_ops_raise_off_cpu_instead_of_falling_back():
         join_ranges(spo, spo)
     with pytest.raises(ValueError, match="CUDA tensor"):
         compat_matrix(tr, va, tr, va, spo, spo)
-    f32 = torch.zeros((4, 3, 5), dtype=torch.float32, device=meta)
+    f32 = _elsewhere((4, 3, 5))
     with pytest.raises(ValueError, match="CUDA tensor"):
         jaccard_distance(f32[0])
     with pytest.raises(ValueError, match="CUDA tensor"):
         gather_rows(f32[0], spo[0])
     with pytest.raises(ValueError, match="CUDA tensor"):
         cin_layer(f32, f32, f32[:, :, :3])
-    qkv = torch.zeros((1, 2, 4, 8), dtype=torch.bfloat16, device=meta)
+    qkv = _elsewhere((1, 2, 4, 8), torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention(qkv, qkv[:, :1], qkv[:, :1])
     with pytest.raises(ValueError, match="CUDA tensor"):
