@@ -272,10 +272,13 @@ order; any failure exits non-zero:
    reduced; the MLA split decode at deepseek-v3's widths (2 dense
    layers, bf16, wkv_b held a block over "model" and gathered) on 2 x 2;
    the Trainer at granite-3-8b's widths (2 layers, float32, batch 4 x
-   1,024, lm_rules(fsdp=True)) for one step on 2 x 2 against the
-   one-device Trainer (losses within 1e-3 relative), checkpointed (rank 0
-   writes the one-device layout), restored onto 4 x 1 for a second step;
-   peak memory a rank;
+   1,024, lm_rules(fsdp=True)) for one FSDP step on 2 x 2 (each layer's
+   blocks gathered inside the layer, the gradients reduce-scattered as
+   the backward leaves it) against the one-device Trainer (losses within
+   1e-3 relative), checkpointed (rank 0 writes the one-device layout),
+   restored onto 4 x 1 for a second step; each rank's peak memory over
+   the run (beside the whole-leaf route's) and over the steps alone, its
+   gathers and reduce-scatters;
 12. minibatch_lg and the dry run — (a) the neighbour sampler's batch at
    full size (1,024 seeds at fan-outs 15, 10 over the synthetic 232,965-
    node, 114,615,892-edge graph; its host build timed), GCN
@@ -294,7 +297,11 @@ order; any failure exits non-zero:
    the same step run for real, its FLOPs (FlopCounterMode) equal to the
    meta run's, each kernel's meta calls equal to its launches, and the
    meta peak above the held bytes within 10% of max_memory_allocated's;
-   the card's total_memory equals the dry run's H100 constant (phase 1);
+   then an FSDP train cell (granite-3-8b's widths, 2 layers, bf16, accum
+   2) on 2 x 2 gloo ranks sharing the card, each rank's MetaMesh run
+   against its real one: FLOPs and collectives equal, the peak above the
+   held bytes within 10%; the card's total_memory equals the dry run's
+   H100 constant (phase 1);
 13. summary — every kernel's launches on its path.
 
 The last three lines are the card's name and power limit, a JSON line of
@@ -675,6 +682,11 @@ def device_breakdown(fn, share_of: tuple[str, ...] = ()) -> str:
                    if e.device_type == on_device and not e.is_user_annotation),
                   key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in rows)
+    if not busy_us:
+        # a short run can show no device time (the profiler saw no
+        # kernel): nothing to divide by
+        return (f"no device time reported over {wall_us / 1e3:.3f} ms of "
+                f"profiled wall")
     top = "; ".join(f"{e.key[:70]} x{e.count} "
                     f"{e.self_device_time_total / 1e3:.3f} ms"
                     for e in rows[:6])
@@ -1690,19 +1702,30 @@ def flash_record() -> dict:
 
 
 _GRAPHS: dict = {}
+# batches whose numpy build runs on the host in a process of its own from
+# the start (`start_graph_build`): shape -> (process, file)
+GRAPH_BUILDS: dict = {}
+# the ogb_products batch's build (80-165 s of one host core) overlaps the
+# earlier phases' device work from here
+OGB_NPZ = Path(__file__).resolve().parent / "build" / "ogb_products.npz"
 
 
 def gnn_graph(shape: str):
     """The GNN paths' batch for ``shape`` at full size on the card
     (ogb_products: 2,449,029 nodes, 64,308,169 edges with self loops;
     molecule: 128 molecules, 3,840 nodes, 8,192 edges), built once from
-    seed 0. Returns (batch, seconds to build it)."""
+    seed 0, or taken from its build started in GRAPH_BUILDS. Returns
+    (batch, seconds to build it, seconds waited for it)."""
     if shape not in _GRAPHS:
         t0 = time.perf_counter()
-        g = make_graph_batch(shape, **gcn_cora.SHAPE_DIMS[shape], seed=0,
-                             device=DEV)
-        torch.cuda.synchronize()
-        _GRAPHS[shape] = (g, time.perf_counter() - t0)
+        if shape in GRAPH_BUILDS:
+            _GRAPHS[shape] = load_graph(GRAPH_BUILDS.pop(shape))
+        else:
+            g = make_graph_batch(shape, **gcn_cora.SHAPE_DIMS[shape],
+                                 seed=0, device=DEV)
+            torch.cuda.synchronize()
+            _GRAPHS[shape] = (g, time.perf_counter() - t0,
+                              time.perf_counter() - t0)
     return _GRAPHS[shape]
 
 
@@ -1838,7 +1861,7 @@ def spmm_record(shape: str, d: int, g=None) -> dict:
     on as many uniformly drawn ones, which have no hub), the plain version
     and one index_add_ call."""
     if g is None:
-        g, _ = gnn_graph(shape)
+        g = gnn_graph(shape)[0]
     recv, mask = g.receivers, g.edge_mask
     e, n = recv.shape[0], g.node_mask.shape[0]
     # the live edges lead (a padded batch masks its tail): the library
@@ -2119,10 +2142,11 @@ def phase_kernels() -> dict:
     rec["bag_sum"] = bag_record()
     spmm_sweep()
     t0 = time.perf_counter()
-    g, build_s = gnn_graph("ogb_products")
+    g, build_s, waited = gnn_graph("ogb_products")
     log(f"  ogb_products batch: {g.node_mask.shape[0]:,} nodes, "
         f"{g.receivers.shape[0]:,} edges with self loops, built from seed "
-        f"0 in {build_s:.2f} s (numpy, then copied to the card)")
+        f"0 in {build_s:.2f} s (numpy on the host, in a process of its own "
+        f"from the start; waited {waited:.2f} s, then copied to the card)")
     # GCN layer 2's messages: (E, n_classes)
     rec["segment_spmm[ogb_products]"] = spmm_record(
         "ogb_products", gcn_cora.SHAPE_DIMS["ogb_products"]["n_classes"])
@@ -3937,7 +3961,7 @@ def phase_gnn() -> dict:
     kernel against the plain path; Equiformer-v2's energies also under a
     random rotation and translation. Returns each model's launches."""
     launched = {}
-    g, _ = gnn_graph("ogb_products")
+    g = gnn_graph("ogb_products")[0]
     cfg = gcn_cora.full("ogb_products")
     model = GCN.random(cfg, torch.Generator(device=DEV).manual_seed(0))
     log(f"  {cfg.name} at ogb_products: {cfg.n_layers} layers, d_in "
@@ -3949,7 +3973,7 @@ def phase_gnn() -> dict:
     del model
     torch.cuda.empty_cache()
 
-    g, build_s = gnn_graph("molecule")
+    g, build_s, _ = gnn_graph("molecule")
     log(f"  molecule batch: {g.n_graphs} molecules, {g.node_mask.shape[0]:,} "
         f"nodes, {g.receivers.shape[0]:,} edges ({build_s:.2f} s to build)")
     for name, cls, cfg in (("egnn", EGNN, egnn_configs.full()),
@@ -4262,7 +4286,7 @@ def phase_train_gnn(card: str) -> dict:
              "molecule"),
             ("equiformer_v2", eq_mod, EquiformerV2, eq_configs.full(),
              "molecule")):
-        g, _ = gnn_graph(shape)
+        g = gnn_graph(shape)[0]
         model = cls.random(cfg, torch.Generator(device=DEV).manual_seed(0))
         err = gnn_grad_check(name, model, mod.loss_fn, g)
         del model
@@ -4480,6 +4504,11 @@ MM_DECODE_LAYERS, MM_DECODE_REPS = 2, 5
 # one step on 2 x 2 before the restore onto 4 x 1 (with three steps there,
 # phase 12 took the smoke past 1,000 s)
 MM_TRAIN_B, MM_TRAIN_S, MM_TRAIN_STEPS = 4, 1024, 1
+# a 2 x 2 rank's max_memory_allocated over that one step under the
+# whole-leaf route the FSDP step replaced (every leaf gathered whole into
+# the model first), measured by mm_rank_train before the change on an
+# NVIDIA H100 80GB HBM3 at 700.00 W
+MM_TRAIN_WHOLE_LEAF_PEAK = 10_308_495_360
 MM_CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_mesh_ckpt"
 # flash's lse route at the split decode's rank shape: granite-3-8b's 8
 # sequences over a 32,768-slot cache on 2 x 4, a rank's 4 sequences over
@@ -4923,14 +4952,33 @@ def mm_train_task(mesh=None) -> TrainTask:
 
 
 def mm_rank_train(mesh, steps: int) -> dict:
-    """The mesh Trainer from MM_CKPT_DIR's latest checkpoint (none on the
-    first run) to ``steps``, checkpointing at the end."""
+    """The mesh Trainer (its FSDP step: each layer's blocks gathered in
+    the layer, the gradients reduce-scattered as the backward leaves it)
+    from MM_CKPT_DIR's latest checkpoint (none on the first run) to
+    ``steps``, checkpointing at the end; the collectives counted over the
+    steps alone, max_memory_allocated over the run and over the steps
+    alone."""
     torch.cuda.reset_peak_memory_stats()
-    res = Trainer(mm_train_task(mesh), mesh=mesh, ckpt_dir=str(MM_CKPT_DIR),
-                  ckpt_every=1000).run(steps=steps)
+    trainer = Trainer(mm_train_task(mesh), mesh=mesh,
+                      ckpt_dir=str(MM_CKPT_DIR), ckpt_every=1000)
+    step, counted, peaks = trainer._mesh_step, {}, {"run": 0, "step": 0}
+
+    def counting(*a, **kw):
+        mesh.reset_counts()
+        peaks["run"] = max(peaks["run"], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        out = step(*a, **kw)
+        peaks["step"] = max(peaks["step"], torch.cuda.max_memory_allocated())
+        for k, v in mesh.calls.items():
+            counted[k] = counted.get(k, 0) + v
+        return out
+    trainer._mesh_step = counting
+    res = trainer.run(steps=steps)
     return dict(log=[{k: r[k] for k in ("step", "loss", "grad_norm", "dt")}
                      for r in res["log"]],
-                calls=dict(mesh.calls), peak=torch.cuda.max_memory_allocated())
+                calls=counted, peak=max(peaks["run"],
+                                        torch.cuda.max_memory_allocated()),
+                step_peak=peaks["step"])
 
 
 def mm_rank_2x4(mesh, qwen_cfg) -> dict:
@@ -5009,13 +5057,17 @@ def phase_mesh_models(card: str) -> dict:
                       for a, b in zip(lg, want))
             if gap > MM_TRAIN_RTOL:
                 raise AssertionError(f"mesh Trainer {label}: loss gap {gap}")
-        log(f"  mesh Trainer {label}: losses "
+        rs = train if label == "2 x 2" else resumed
+        log(f"  mesh Trainer {label} (FSDP step): losses "
             f"{[round(x['loss'], 6) for x in logs[0]]} against one "
             f"device's {[round(x['loss'], 6) for x in want]} (max relative "
             f"gap {max(abs(a['loss'] - b['loss']) / abs(b['loss']) for lg in logs for a, b in zip(lg, want)):.3g}, within {MM_TRAIN_RTOL}); ms a "
-            f"step {[round(x['dt'] * 1e3, 1) for x in logs[0]]}; peak a "
-            f"rank {max(t['peak'] for t in (train if label == '2 x 2' else resumed)):,} "
-            f"bytes [{card}]")
+            f"step {[round(x['dt'] * 1e3, 1) for x in logs[0]]}; "
+            f"max_memory_allocated a rank over the run "
+            f"{[t['peak'] for t in rs]} bytes (the whole-leaf route's on "
+            f"2 x 2: {MM_TRAIN_WHOLE_LEAF_PEAK:,}), over the steps alone "
+            f"{[t['step_peak'] for t in rs]}; collectives a rank over the "
+            f"steps {[t['calls'] for t in rs]} [{card}]")
     log(f"  one-device Trainer: ms a step "
         f"{[round(x['dt'] * 1e3, 1) for x in one]}")
     shutil.rmtree(MM_CKPT_DIR, ignore_errors=True)
@@ -5059,6 +5111,10 @@ DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun.jsonl"
 CARD_CELLS = (("gcn-cora", "minibatch_lg"), ("gcn-cora", "molecule"),
               ("xdeepfm", "serve_p99"))
 PEAK_GAP = 0.10
+# and one reduced FSDP train cell on 2 x 2 gloo ranks sharing the card:
+# granite-3-8b's widths at 2 layers in bfloat16, accum 2, 8 sequences of
+# 1,024 (2 a data rank a micro-batch)
+FSDP_CELL = dict(layers=2, seq=1024, batch=8, accum=2)
 
 
 def meta_batch(g):
@@ -5082,13 +5138,13 @@ def predicted_forward_peak(cls, cfg, g) -> int:
     return dryrun.account(fwd, (model, gm))["peak_bytes_per_device"]
 
 
-def build_minibatch(path: str) -> None:
-    """The minibatch_lg batch built on the host (make_graph_batch on the
-    CPU: the same numpy draws as on the card), written to ``path`` with
-    its build seconds."""
+def build_graph(shape: str, path: str) -> None:
+    """``shape``'s batch built on the host (make_graph_batch on the CPU:
+    the same numpy draws as on the card), written to ``path`` with its
+    build seconds."""
     t0 = time.perf_counter()
-    g = make_graph_batch("minibatch_lg", **gcn_cora.SHAPE_DIMS[
-        "minibatch_lg"], seed=0, device="cpu")
+    g = make_graph_batch(shape, **gcn_cora.SHAPE_DIMS[shape], seed=0,
+                         device="cpu")
     arrays = {f.name: getattr(g, f.name).numpy()
               for f in dataclasses.fields(g)
               if isinstance(getattr(g, f.name), torch.Tensor)}
@@ -5097,44 +5153,44 @@ def build_minibatch(path: str) -> None:
     os.replace(path + ".tmp.npz", path)
 
 
-def start_minibatch_build():
-    """Start `build_minibatch` in a process of its own (a daemon: it ends
-    with this one)."""
+def start_graph_build(shape: str, path: Path):
+    """Start `build_graph` in a process of its own (a daemon: it ends with
+    this one)."""
     import multiprocessing
-    MB_NPZ.parent.mkdir(parents=True, exist_ok=True)
-    MB_NPZ.unlink(missing_ok=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
     proc = multiprocessing.get_context("spawn").Process(
-        target=build_minibatch, args=(str(MB_NPZ),), daemon=True)
+        target=build_graph, args=(shape, str(path)), daemon=True)
     proc.start()
-    return proc
+    return proc, path
 
 
-def load_minibatch(proc):
-    """Wait for the build process; the batch on the card and its build
-    seconds."""
+def load_graph(build):
+    """Wait for a `start_graph_build` process; the batch on the card, its
+    build seconds and the seconds waited."""
+    proc, path = build
     t0 = time.perf_counter()
     proc.join()
     if proc.exitcode != 0:
-        raise AssertionError(f"the minibatch_lg build exited with "
-                             f"{proc.exitcode}")
+        raise AssertionError(f"the graph build exited with {proc.exitcode}")
     waited = time.perf_counter() - t0
-    with np.load(MB_NPZ) as z:
+    with np.load(path) as z:
         g = GraphBatch(**{k: dev(z[k]) for k in z.files
                           if k not in ("n_graphs", "build_s")},
                        n_graphs=int(z["n_graphs"]))
         build_s = float(z["build_s"])
-    MB_NPZ.unlink()
+    path.unlink()
     return g, build_s, waited
 
 
 def phase_minibatch(card: str, build) -> dict:
     """minibatch_lg at full size: the neighbour sampler's batch over the
     232,965-node, 114,615,892-edge graph (built by ``build``, a
-    `start_minibatch_build` process); the four GNNs' forwards through
+    `start_graph_build` process); the four GNNs' forwards through
     segment_spmm against the plain path (Equiformer-v2 at the depth the dry
     run predicts under MB_PEAK_LIMIT); GCN trained; segment_spmm's record at
     GCN layer 2's shape. Returns launches and the record."""
-    g, build_s, waited = load_minibatch(build)
+    g, build_s, waited = load_graph(build)
     n, e = g.node_mask.shape[0], g.receivers.shape[0]
     n_live, e_live = int(g.node_mask.sum()), int(g.edge_mask.sum())
     nbytes = sum(getattr(g, f.name).nbytes for f in dataclasses.fields(g)
@@ -5341,8 +5397,83 @@ def card_cell(arch: str, shape: str, graph=None) -> dict:
             "launches": launched}
 
 
-def phase_dry_card(graph) -> dict:
-    """12c: the dry run against the card for cells that fit one H100."""
+def fsdp_cell(mesh):
+    """FSDP_CELL's train cell on ``mesh`` (a rank's step: the Trainer's
+    FSDP step over the rank's blocks)."""
+    cfg = dataclasses.replace(granite_3_8b.full(),
+                              n_layers=FSDP_CELL["layers"])
+    return dry_cells.build_lm_cell(
+        "granite-3-8b", "train_4k", mesh, cfg=cfg,
+        shape_def=dict(seq=FSDP_CELL["seq"], batch=FSDP_CELL["batch"]),
+        knobs=dict(accum=FSDP_CELL["accum"], fsdp=True, moments="float32"))
+
+
+def fsdp_cell_rank(mesh) -> dict:
+    """One rank of the FSDP cell: its meta run on a `MetaMesh` rank of the
+    same coordinates, then the step for real on the card (cuBLAS warmed
+    by a small product first), counted."""
+    meta_mesh = MetaMesh(mesh.sizes, mesh.axis_names, rank=mesh.rank)
+    cell = fsdp_cell(meta_mesh)
+    meta_mesh.reset_counts()
+    meta = dryrun.account(cell.fn, cell.args)
+    meta_calls = dict(meta_mesh.calls)
+    cell = fsdp_cell(mesh)
+    args = cell.make_args(DEV)
+    w = torch.ones(64, 64, dtype=torch.bfloat16, device=DEV,
+                   requires_grad=True)
+    (w @ w).sum().backward()
+    del w
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    before = torch.cuda.memory_allocated(DEV)
+    mesh.reset_counts()
+    real = dryrun.account(cell.fn, args)
+    torch.cuda.synchronize()
+    return dict(meta_temp=meta["temp_size_bytes"],
+                meta_peak=meta["peak_bytes_per_device"],
+                card_temp=torch.cuda.max_memory_allocated(DEV) - before,
+                card_peak=torch.cuda.max_memory_allocated(DEV),
+                flops_meta=meta["dispatch_flops"],
+                flops_card=real["dispatch_flops"],
+                calls=dict(mesh.calls), meta_calls=meta_calls)
+
+
+def fsdp_card_cell(card: str) -> dict:
+    """12c's FSDP cell: each rank's meta peak above its held bytes within
+    PEAK_GAP of its max_memory_allocated above them, FLOPs and collectives
+    equal."""
+    t0 = time.perf_counter()
+    ranks = spawn((2, 2), fsdp_cell_rank, device=DEV.type, timeout=MM_TIMEOUT,
+                  join_timeout=MM_JOIN)
+    gaps = []
+    for r, x in enumerate(ranks):
+        gap = x["meta_temp"] / x["card_temp"] - 1
+        gaps.append(gap)
+        line = (f"granite-3-8b widths, {FSDP_CELL['layers']} layers, FSDP "
+                f"train cell, rank {r} of 2 x 2: FLOPs meta "
+                f"{x['flops_meta']:,} card {x['flops_card']:,}; peak above "
+                f"the held bytes: meta {x['meta_temp']:,} card "
+                f"{x['card_temp']:,} (gap {gap:+.4f}); whole: meta "
+                f"{x['meta_peak']:,} card {x['card_peak']:,}; collectives "
+                f"{x['calls']}")
+        log("  " + line)
+        if x["flops_meta"] != x["flops_card"]:
+            raise AssertionError(f"FSDP cell FLOPs differ: {line}")
+        if x["calls"] != x["meta_calls"]:
+            raise AssertionError(f"FSDP cell collectives differ from the "
+                                 f"MetaMesh's {x['meta_calls']}: {line}")
+        if not abs(gap) <= PEAK_GAP:
+            raise AssertionError(f"FSDP cell peak off by more than "
+                                 f"{PEAK_GAP:.0%}: {line}")
+    log(f"  FSDP cell on 2 x 2: {time.perf_counter() - t0:.1f} s from spawn "
+        f"to the last rank's exit [{card}]")
+    return {"gap": max(gaps, key=abs), "ranks": ranks}
+
+
+def phase_dry_card(graph, card: str) -> dict:
+    """12c: the dry run against the card for cells that fit one H100, and
+    the FSDP train cell on 2 x 2 ranks."""
     out = {}
     for arch, shape in CARD_CELLS:
         g = None
@@ -5351,6 +5482,8 @@ def phase_dry_card(graph) -> dict:
             g = dry_cells.pad_graph_batch(graph, gs["n"], gs["e"])
         out[f"{arch}/{shape}"] = card_cell(arch, shape, g)
         del g
+    torch.cuda.empty_cache()
+    out["granite-3-8b/train_4k[fsdp 2x2]"] = fsdp_card_cell(card)
     return out
 
 
@@ -5372,6 +5505,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    GRAPH_BUILDS["ogb_products"] = start_graph_build("ogb_products",
+                                                     OGB_NPZ)
     log(f"[2/13] {at()} build: {kernels.build():.2f} s (nvcc, "
         f"{' '.join(kernels.NVCC_FLAGS)}; {len(kernels.SOURCES)} libraries)")
 
@@ -5468,7 +5603,7 @@ def main() -> None:
     log(f"[8/13] {at()} xDeepFM serving forward, full config")
     xdeepfm_counts = phase_xdeepfm()
 
-    mb_build = start_minibatch_build()
+    mb_build = start_graph_build("minibatch_lg", MB_NPZ)
     log(f"[9/13] {at()} LM serving: granite-3-8b full config, bf16, random weights "
         "from seed 0; float32 checks at full width and 4 layers")
     lm_counts = phase_lm()
@@ -5510,8 +5645,10 @@ def main() -> None:
         "counted; the engine rows")
     dry = phase_dryrun()
     log(f"[12c/13] {at()} the dry run against the card on a 1 x 1 mesh: "
-        f"{', '.join(f'{a}/{b}' for a, b in CARD_CELLS)}")
-    dry_card = phase_dry_card(mb.pop("graph"))
+        f"{', '.join(f'{a}/{b}' for a, b in CARD_CELLS)}; an FSDP train "
+        f"cell (granite-3-8b widths, {FSDP_CELL['layers']} layers) on 2 x 2 "
+        f"gloo ranks")
+    dry_card = phase_dry_card(mb.pop("graph"), card)
 
     rec["scan_hits"]["launches"] = expand_counts["scan_hits"]
     rec["scan_select"]["launches"] = main_counts["scan_select"]

@@ -10,10 +10,14 @@ whole leaf where the port's path takes it whole, and the spec trees. The
 constants are the reference's, copied and held equal by the tests.
 
 The steps are the port's own:
-  train   — `loss_fn` and `torch.autograd.grad` with ``remat=True`` over
-            ``accum`` micro-batches, then the ZeRO reduce-scatter of the
-            gradients and AdamW: `runtime.trainer.Trainer`'s mesh step
-            (not `Trainer.run`, which reads metrics to the host);
+  train   — `runtime.trainer.Trainer`'s mesh step (not `Trainer.run`,
+            which reads metrics to the host) on (a view of the model over
+            the blocks, the blocks, AdamW's state, the batch): the loss
+            with ``remat=True`` over ``accum`` micro-batches, each leaf
+            gathered where it is used (the LM a layer at a time) and its
+            gradient reduce-scattered as the backward leaves it, the
+            float32 sum of the gradient blocks, AdamW. The model's whole
+            leaves hold no storage;
   prefill — `Transformer.prefill` on the rank's block of the batch;
   decode  — `Transformer.decode_step(..., mesh=)`, split-KV over the
             cache's sequence axes (`models.transformer.decode_axes`);
@@ -47,9 +51,10 @@ from repro_torch.models import meta_generator
 from repro_torch.models.gnn.common import GraphBatch
 from repro_torch.optim import adamw_init
 from repro_torch.runtime.trainer import Trainer, TrainTask
-from repro_torch.sharding.rules import (P, batch_axis, gnn_rules, lm_rules,
-                                        local_slice, make_param_specs,
-                                        recsys_rules)
+from repro_torch.sharding.rules import (Blocks, P, batch_axis, block_view,
+                                        gnn_rules, lm_rules, local_slice,
+                                        make_param_specs, recsys_rules,
+                                        whole_shape)
 from repro_torch.tree import leaves_with_path, tree_leaves, tree_map
 
 I32, F32 = torch.int32, torch.float32
@@ -78,10 +83,20 @@ class Cell:
 
     def param_leaves(self) -> dict:
         """{path: (shape, dtype name, spec tuple)} of the whole parameter
-        tree, under the reference's leaf paths."""
-        tree = self.args[self.arg_names.index("model")].param_tree()
+        tree, under the reference's leaf paths (a train cell's from its
+        blocks and their specs)."""
         specs = dict(leaves_with_path(self.param_specs))
-        return {p: (tuple(t.shape), str(t.dtype).replace("torch.", ""),
+        if "params" in self.arg_names:
+            tree = self.args[self.arg_names.index("params")]
+
+            def shape(p, t):
+                return whole_shape(t, specs[p], self.mesh)
+        else:
+            tree = self.args[self.arg_names.index("model")].param_tree()
+
+            def shape(p, t):
+                return tuple(t.shape)
+        return {p: (shape(p, t), str(t.dtype).replace("torch.", ""),
                     tuple(specs[p]))
                 for p, t in leaves_with_path(tree)}
 
@@ -123,18 +138,13 @@ def _blocks(tree, specs, mesh, device="meta"):
 
 
 def _train_step(task: TrainTask, mesh):
-    """The Trainer's mesh step over a rank's blocks: (model, blocks,
-    opt_state, batch) -> loss. The model's parameters are turned on for
-    gradients, as `Trainer.run` does."""
+    """The Trainer's mesh step over a rank's blocks: (model view, blocks,
+    opt_state, batch) -> loss."""
     trainer = Trainer(task, mesh=mesh)
 
     def step(model, blocks, opt_state, batch):
-        tree = model.param_tree()
-        for p in tree_leaves(tree):
-            p.requires_grad_(True)
-        specs = trainer._specs(tree)
         ef = {"_": torch.zeros((), device=mesh.device)}
-        _, metrics = trainer._mesh_step(model, tree, blocks, specs,
+        _, metrics = trainer._mesh_step(model, blocks, task.param_specs,
                                         opt_state, ef, batch, 1,
                                         batch_is_local=True)
         return metrics["loss"]
@@ -142,10 +152,17 @@ def _train_step(task: TrainTask, mesh):
 
 
 def _state(model, specs, mesh, moments):
-    """(blocks, AdamW state over them) on the model's device."""
+    """(a view over this rank's blocks, the blocks, AdamW's state over
+    them) on the model's device, as `Trainer.run` keeps them: the blocks
+    turned on for gradients and the model's whole leaves freed."""
     tree = model.param_tree()
     blocks = _blocks(tree, specs, mesh, device=tree_leaves(tree)[0].device)
-    return blocks, adamw_init(blocks, moments_dtype=moments)
+    for t in tree_leaves(tree):
+        t.untyped_storage().resize_(0)
+    for b in tree_leaves(blocks):
+        b.requires_grad_(True)
+    return (block_view(model, Blocks(blocks, specs, mesh)), blocks,
+            adamw_init(blocks, moments_dtype=moments))
 
 
 # ---------------------------------------------------------------------------
@@ -173,9 +190,6 @@ LM_SERVE_FSDP = {"deepseek-v3-671b": True}
 
 LAYOUT_WHOLE_PARAMS = ("whole leaves on every rank: the port has no "
                        "tensor-parallel dense layers")
-LAYOUT_TRAINER = ("the Trainer gathers every leaf whole into the model on "
-                  "every rank before the step (ZeRO storage, whole-leaf "
-                  "compute); blocks and moments are the reference's")
 
 
 def _lm_model_flops(cfg, n_tokens: int, *, train: bool) -> float:
@@ -221,14 +235,14 @@ def build_lm_cell(arch_id: str, shape_id: str, mesh, *, cfg=None,
             model = Transformer.random(cfg_t, seed=seed, device=device)
             specs = make_param_specs(model.param_tree(), mesh,
                                      lm_rules(mesh, fsdp=knobs["fsdp"]))
-            blocks, opt = _state(model, specs, mesh, moments)
+            view, blocks, opt = _state(model, specs, mesh, moments)
             shp = (accum, mb // dp_sz, S)
             if device == "meta":
                 toks, labels = _meta(shp, I32), _meta(shp, I32)
             else:
                 toks = _lm_tokens(cfg.vocab_size, shp, device, seed + 1)
                 labels = torch.roll(toks, -1, dims=-1)
-            return (model, blocks, opt, {"tokens": toks, "labels": labels}), \
+            return (view, blocks, opt, {"tokens": toks, "labels": labels}), \
                 specs
 
         args, specs = build("meta")
@@ -247,8 +261,7 @@ def build_lm_cell(arch_id: str, shape_id: str, mesh, *, cfg=None,
                                                      "v": specs},
                      "batch": bspec},
                     _lm_model_flops(cfg, B * S, train=True),
-                    dict(knobs=knobs, mb=mb,
-                         layout={"model": LAYOUT_TRAINER}),
+                    dict(knobs=knobs, mb=mb),
                     mesh, lambda device: build(device)[0],
                     dict(cfg=cfg_t, accum=accum, task=task,
                          x_shape=(mb // dp_sz, S, cfg.d_model)))
@@ -421,24 +434,23 @@ def build_gnn_cell(arch_id: str, shape_id: str, mesh, *,
             torch.Generator(device=device).manual_seed(seed)
         model = cls.random(cfg, gen)
         specs = make_param_specs(model.param_tree(), mesh, gnn_rules(mesh))
-        blocks, opt = _state(model, specs, mesh, F32)
+        view, blocks, opt = _state(model, specs, mesh, F32)
         if batch is None:
             batch = meta_graph_batch(shape_id) if device == "meta" else \
                 real_graph_batch(shape_id, device, seed)
-        return (model, blocks, opt, batch), specs
+        return (view, blocks, opt, batch), specs
 
     args, specs = build("meta")
     task = TrainTask(name=arch_id, init_params=None, loss_fn=mod.loss_fn,
                      batches=iter(()), lr=1e-3, device=mesh.device,
                      param_specs=specs)
-    n_par = sum(t.numel() for t in tree_leaves(args[0].param_tree()))
+    n_par = sum(t.numel() for t in tree_leaves(args[1]))
     return Cell(arch_id, shape_id, "train", _train_step(task, mesh), args,
                 ("model", "params", "opt_state", "batch"), specs,
                 {"params": specs, "opt_state": {"step": P(), "m": specs,
                                                  "v": specs},
                  "batch": None},
                 6.0 * n_par * gs["n"], dict(n_params=n_par, **gs, layout={
-                    "model": LAYOUT_TRAINER,
                     "batch": "the whole graph on every rank: the port has "
                              "no node or edge sharding (every rank computes "
                              "the whole loss; the gradients' sum over the "
@@ -534,8 +546,8 @@ def build_recsys_cell(arch_id: str, shape_id: str, mesh, *, cfg=None,
         def build(device, seed=0):
             model = meta_model if device == "meta" else model_of(device,
                                                                  seed)
-            blocks, opt = _state(model, specs, mesh, F32)
-            return (model, blocks, opt, batch_of(device, seed))
+            view, blocks, opt = _state(model, specs, mesh, F32)
+            return (view, blocks, opt, batch_of(device, seed))
 
         task = TrainTask(name=arch_id, init_params=None, loss_fn=xd.loss_fn,
                          batches=iter(()), lr=1e-3, device=mesh.device,
@@ -548,8 +560,7 @@ def build_recsys_cell(arch_id: str, shape_id: str, mesh, *, cfg=None,
                             "batch": bspec},
                     6.0 * dense_flops * B
                     + 6.0 * B * cfg.n_sparse * cfg.embed_dim,
-                    dict(n_params=n_par, layout={"model": LAYOUT_TRAINER}),
-                    mesh, build)
+                    dict(n_params=n_par), mesh, build)
 
     def build(device, seed=0):
         model = meta_model if device == "meta" else model_of(device, seed)

@@ -15,16 +15,18 @@ totals, FLOPs and collective bytes alike, and that equality tests both.
 Each component is a meta run (`launch.dryrun.account`) of the piece of
 the cell's own step:
   layer_dense / layer_moe — one layer as the step runs it: for train its
-      forward under `torch.utils.checkpoint` and its backward (the
-      recompute included), for prefill its cached forward through the
-      flash kernel, for decode its cached split-KV step on the mesh;
+      blocks gathered, its forward under `torch.utils.checkpoint` and its
+      backward (the recompute and its gathers included, the gradients'
+      reduce-scatters), for prefill its cached forward through the flash
+      kernel, for decode its cached split-KV step on the mesh;
   head — everything of a micro-batch but the layers: the embedding, the
-      final norm, the cross-entropy (``ce_chunk``) and the MTP term with
-      their backward (train), the logits (prefill), the logits and their
-      gather over the data axes (decode);
-  opt — everything once per step: the Trainer's gather of the whole
-      parameters, the metrics' and the gradients' collectives (the ZeRO
-      reduce-scatter), the norm and AdamW.
+      final norm, the head (each gathered from its blocks), the
+      cross-entropy (``ce_chunk``) and the MTP term with their backward
+      (train), the logits (prefill), the logits and their gather over the
+      data axes (decode);
+  opt — everything once per step: the metrics' collective, the
+      gradients' sum over the micro-batches and division, the norm and
+      AdamW.
 Each gives ``flops`` (the dispatcher's and the kernels'), ``bytes`` (the
 sum of every dispatched op's input and output bytes plus the kernels'
 meta bytes: not XLA's "bytes accessed"), ``collectives`` (bytes by HLO
@@ -37,6 +39,7 @@ import dataclasses
 import torch
 
 from repro_torch.launch.cells import build_lm_cell
+from repro_torch.sharding.rules import Blocks
 from repro_torch.tree import tree_leaves
 
 
@@ -83,8 +86,9 @@ def lm_component_costs(arch_id: str, shape_id: str, mesh, *, cell=None,
     `MetaMesh`); ``cell`` reuses a built cell, ``overrides`` pass to
     `cells.build_lm_cell` (cfg, shape_def, knobs)."""
     from repro_torch.models.transformer import (Transformer, _depths,
-                                                _layer_fwd, decode_axes,
-                                                init_cache, loss_fn)
+                                                _layer_fwd, _map, decode_axes,
+                                                init_cache, layer_specs,
+                                                loss_fn, train_layer)
     from repro_torch.runtime.trainer import Trainer, TrainTask
     cell = cell or build_lm_cell(arch_id, shape_id, mesh, **overrides)
     model = cell.args[0]
@@ -103,21 +107,23 @@ def lm_component_costs(arch_id: str, shape_id: str, mesh, *, cell=None,
         accum = cell.parts["accum"]
         x_shape = cell.parts["x_shape"]
         s = x_shape[1]
+        blocks = params                 # the view's `Blocks`
+        specs = blocks.specs
 
         def layer_cost(moe: bool):
+            key = "moe_layers" if moe else "dense_layers"
+            lspecs = layer_specs(specs, key)
+
             def fn(lp, x):
                 positions = torch.arange(s, device="meta")[None]
                 out = torch.utils.checkpoint.checkpoint(
-                    lambda x_, lp_: _layer_fwd(lp_, cfg, x_, positions, 0,
-                                               moe, use_kernel=False,
-                                               mesh=mesh),
-                    x, lp, use_reentrant=False)
+                    train_layer, x, lp, cfg, positions, moe, mesh,
+                    use_reentrant=False, specs=lspecs, gmesh=blocks.mesh)
                 leaves = [x] + tree_leaves(lp)
                 return torch.autograd.grad(out, leaves,
                                            grad_outputs=torch.ones_like(out),
                                            allow_unused=True)
-            lp = {k: v for k, v in first_layer(moe).items()}
-            lp = _detached(lp)
+            lp = _detached(_map(blocks[key], lambda t: t[0]))
             return _cost(fn, (lp, _meta_like(x_shape, dt, True)), mesh)
 
         def head_fn(p, tokens, labels):
@@ -128,13 +134,14 @@ def lm_component_costs(arch_id: str, shape_id: str, mesh, *, cell=None,
 
         batch = cell.args[3]
         mb = {k: v[0] for k, v in batch.items()}
-        head_params = _detached({k: v for k, v in params.items()
-                                 if k not in ("dense_layers", "moe_layers")})
+        rest = [k for k in blocks if k not in ("dense_layers", "moe_layers")]
+        head_params = Blocks(_detached({k: blocks[k] for k in rest}),
+                             {k: specs[k] for k in rest}, blocks.mesh)
         comps_head = _cost(head_fn, (head_params, mb["tokens"],
                                      mb["labels"]), mesh)
 
         # the once-a-step part: the Trainer's mesh step with a loss that
-        # reaches every leaf with no product and no collective
+        # reaches every block with no product and no collective
         task = cell.parts["task"]
         metric_keys = ["ce", "loss"] + (["mtp_ce"] if cfg.mtp_depth
                                         and "mtp" in params else [])
@@ -150,14 +157,10 @@ def lm_component_costs(arch_id: str, shape_id: str, mesh, *, cell=None,
             param_specs=task.param_specs, batch_specs=task.batch_specs)
         trainer = Trainer(opt_task, mesh=mesh)
 
-        def opt_fn(model_, blocks, opt_state, batch_):
-            tree = model_.param_tree()
-            for p in tree_leaves(tree):
-                p.requires_grad_(True)
-            specs = trainer._specs(tree)
+        def opt_fn(model_, blocks_, opt_state, batch_):
             ef = {"_": torch.zeros((), device="meta")}
-            trainer._mesh_step(model_, tree, blocks, specs, opt_state, ef,
-                               batch_, 1, batch_is_local=True)
+            trainer._mesh_step(model_, blocks_, opt_task.param_specs,
+                               opt_state, ef, batch_, 1, batch_is_local=True)
         comps["head"] = comps_head
         if n_dense:
             comps["layer_dense"] = layer_cost(False)
@@ -235,7 +238,7 @@ def lm_component_costs(arch_id: str, shape_id: str, mesh, *, cell=None,
 
 def _detached(tree):
     """Meta leaves of ``tree``'s shapes that require grad, as the Trainer's
-    whole parameters do."""
+    blocks do."""
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
     return _meta_like(tree.shape, tree.dtype, True)

@@ -11,9 +11,11 @@ counts the collectives it would issue. One JSON record per line, with the
 reference's keys:
 
   flops                 — `torch.utils.flop_counter.FlopCounterMode`'s
-                          total over the step (forward and backward) plus
-                          the kernels' own operations (`kernels.meta_cost`).
-                          It counts matmul-class work (mm, bmm, addmm,
+                          total over the step (forward and backward), with
+                          the matrix-vector and vector products it leaves
+                          out (`FLOP_EXTRA`), plus the kernels' own
+                          operations (`kernels.meta_cost`). It counts
+                          matmul-class work (mm, bmm, addmm, mv, dot,
                           attention) only, unlike XLA's count of every
                           operation.
   bytes_accessed        — the sum over every dispatched op of its input and
@@ -73,6 +75,20 @@ from repro_torch.launch.mesh import MetaMesh, make_production_mesh
 # torch.cuda.get_device_properties(0).total_memory of an NVIDIA H100 80GB
 # HBM3 (chip_smoke.py asserts the card reads this)
 H100_TOTAL_MEMORY = 85_017_493_504
+
+
+def _mv_flop(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * a_shape[0] * a_shape[1]
+
+
+def _dot_flop(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * a_shape[0]
+
+
+# products `FlopCounterMode`'s registry leaves out (torch 2.13 counts mm,
+# bmm, addmm and baddbmm but not a matrix-vector or a vector-vector
+# product): (N, D) @ (D,) is 2 N D, (D,) @ (D,) is 2 D
+FLOP_EXTRA = {torch.ops.aten.mv: _mv_flop, torch.ops.aten.dot: _dot_flop}
 # the CUDA caching allocator hands out blocks in multiples of 512 bytes,
 # and max_memory_allocated counts them so: the live bytes count the same
 BLOCK = 512
@@ -95,7 +111,7 @@ def _tensors(obj, out: list) -> list:
             _tensors(x, out)
     elif hasattr(obj, "param_tree"):
         _tensors(obj.param_tree(), out)
-        if isinstance(obj, torch.nn.Module):
+        if hasattr(obj, "buffers"):         # a module, or a view of one
             out.extend(obj.buffers())
     elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         for f in dataclasses.fields(obj):
@@ -172,7 +188,7 @@ def account(fn, args) -> dict:
     kernels.meta_cost.reset()
     acc = Accounting()
     arg_bytes = acc.hold(args)
-    counter = FlopCounterMode(display=False)
+    counter = FlopCounterMode(display=False, custom_mapping=FLOP_EXTRA)
     t0 = time.perf_counter()
     with counter, acc:
         out = fn(*args)

@@ -375,8 +375,13 @@ class DeviceMesh(MeshShape, _Wire):
     size one they are the identity and count nothing. Pieces gathered
     along a tuple of axes come in the tuple's order (first axis slowest).
     Under gloo on CUDA every collective goes through pinned host memory
-    (`_Wire`), bfloat16 gathers as its raw bytes and bfloat16 sums and
-    maxima in float32, cast back. ``calls`` and ``bytes`` count each
+    (`_Wire`), and the card holds only each collective's result (the host
+    gathers, converts and sums); bfloat16 gathers as its raw bytes and
+    bfloat16 sums and maxima in float32, cast back. A reduce-scatter sums
+    each block in the line's order (one all_to_all_single, then a sum on
+    the rank), so its result does not depend on the tensor's size, as a
+    ring's does: a layer's slice reduce-scattered alone sums as it would
+    inside its stack. ``calls`` and ``bytes`` count each
     collective by name (the bytes it delivers to this rank: the gathered
     tensor whole, the reduced tensor, the scattered input; a gather to
     rank 0 counts what rank 0 receives and what each other rank sends)."""
@@ -462,10 +467,21 @@ class DeviceMesh(MeshShape, _Wire):
         _dist().all_gather(parts, w, group=group)
         # the backend orders the parts by rank
         by_rank = dict(zip(sorted(members), parts))
-        pieces = [self._unwire(by_rank[r]) for r in members]
+        pieces = [by_rank[r] for r in members]
         if t.dtype == torch.bfloat16:
             pieces = [p.view(torch.bfloat16) for p in pieces]
-        return torch.cat(pieces, dim) if tiled else torch.stack(pieces)
+        if not self._host:
+            return torch.cat(pieces, dim) if tiled else torch.stack(pieces)
+        shape = list(t.shape)
+        if tiled:
+            shape[dim] *= len(members)
+        else:
+            shape.insert(0, len(members))
+        out = torch.empty(shape, dtype=t.dtype, device=self.device)
+        views = out.split(t.shape[dim], dim) if tiled else out.unbind(0)
+        for v, p in zip(views, pieces):
+            v.copy_(p, non_blocking=True)
+        return out
 
     def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"
                    ) -> torch.Tensor:
@@ -479,14 +495,15 @@ class DeviceMesh(MeshShape, _Wire):
             return t.clone()
         self._count("all_reduce", t)
         group, _ = line
-        work = t.float() if t.dtype == torch.bfloat16 else t
-        w = self._wire(work)
-        if w.data_ptr() == t.data_ptr():
+        w = self._wire(t)
+        if t.dtype == torch.bfloat16:
+            w = w.float()
+        elif w.data_ptr() == t.data_ptr():
             w = w.clone()
         dist = _dist()
         dist.all_reduce(w, op=dist.ReduceOp.SUM if op == "sum"
                         else dist.ReduceOp.MAX, group=group)
-        return self._unwire(w).to(t.dtype)
+        return self._unwire(w.to(t.dtype))
 
     def reduce_scatter(self, t: torch.Tensor, axes, dim: int = 0
                        ) -> torch.Tensor:
@@ -502,14 +519,25 @@ class DeviceMesh(MeshShape, _Wire):
             raise ValueError(f"reduce_scatter of dim {dim} ({t.shape[dim]}) "
                              f"over {n} ranks")
         self._count("reduce_scatter", t)
-        work = t.float() if t.dtype == torch.bfloat16 else t
-        blocks = work.chunk(n, dim)
-        # the backend sends input i to the line's i-th rank in rank order
-        by_rank = dict(zip(members, blocks))
-        inputs = [self._wire(by_rank[r]) for r in sorted(members)]
-        out = self._empty(inputs[0])
-        _dist().reduce_scatter(out, inputs, group=group)
-        return self._unwire(out).to(t.dtype)
+        # block i goes to the line's i-th rank in rank order, and block i
+        # of what comes back is that rank's
+        by_rank = dict(zip(members, t.chunk(n, dim)))
+        ordered = [by_rank[r] for r in sorted(members)]
+        k = ordered[0].numel()
+        kw = dict(pin_memory=True) if self._host else dict(device=t.device)
+        send = torch.empty(n * k, dtype=t.dtype, **kw)
+        for i, blk in enumerate(ordered):
+            send[i * k:(i + 1) * k].view(blk.shape).copy_(blk)
+        recv = torch.empty_like(send)
+        raw = (lambda x: x.view(torch.uint8)) \
+            if t.dtype == torch.bfloat16 else (lambda x: x)
+        _dist().all_to_all_single(raw(recv), raw(send), group=group)
+        got = dict(zip(sorted(members), recv.view(n, *ordered[0].shape)))
+        first = got[members[0]]
+        acc = first.float() if t.dtype == torch.bfloat16 else first.clone()
+        for r in members[1:]:
+            acc += got[r]
+        return self._unwire(acc.to(t.dtype))
 
     def gather_to_root(self, t: torch.Tensor) -> list | None:
         """Every rank's ``t`` (equal shapes), in rank order, as host

@@ -69,8 +69,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.engine.batch import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_lse_ref
-from repro_torch.sharding.rules import (AllReduce, Gather, P, Replicated,
-                                        Shard, batch_axis)
+from repro_torch.sharding.rules import (AllReduce, Blocks, Gather, P,
+                                        Replicated, Shard, batch_axis,
+                                        gather_for_compute)
 
 
 @dataclass(frozen=True)
@@ -871,6 +872,11 @@ class Transformer:
     def n_params(self) -> int:
         return sum(t.numel() for t in _leaves(self.params))
 
+    def on_blocks(self, blocks: Blocks) -> Transformer:
+        """The model over a mesh rank's `Blocks` (no whole leaf of its
+        own): `loss_fn` on its ``params`` gathers layer by layer."""
+        return Transformer(self.cfg, blocks)
+
     def param_tree(self) -> dict:
         """The reference's `init_params` pytree: ``params`` itself."""
         return self.params
@@ -979,30 +985,77 @@ class Transformer:
 # training: the reference's loss on its plain path
 # ---------------------------------------------------------------------------
 
+def _whole(params, *path):
+    """The leaf at ``path`` as the model computes with it: gathered where
+    ``params`` is a mesh rank's `Blocks`, else the leaf itself."""
+    if isinstance(params, Blocks):
+        return params.gather(*path)
+    for k in path:
+        params = params[k]
+    return params
+
+
+def _gather_tree(tree, specs, mesh, *, data_only: bool):
+    if isinstance(tree, dict):
+        return {k: _gather_tree(v, specs[k], mesh, data_only=data_only)
+                for k, v in tree.items()}
+    return gather_for_compute(tree, specs, mesh, data_only=data_only)
+
+
+def train_layer(x, lp, cfg: LMConfig, positions, moe: bool, mesh=None,
+                specs=None, gmesh=None):
+    """One layer of the training forward (`_sdpa` attention). With
+    ``specs``, ``lp`` holds the layer's blocks on ``gmesh``, gathered here
+    first: inside the function that ``remat`` checkpoints, so the whole
+    layer is freed after the forward, gathered again in the recompute, and
+    its gradients reduce-scattered as the backward leaves it. The routed
+    experts of an expert-parallel layer (``moe`` on a ``mesh``) gather
+    their data dims only and keep the model-axis blocks they compute on
+    (`_expert_weights`)."""
+    if specs is not None:
+        ep = moe and mesh is not None
+        lp = {k: _gather_tree(v, specs[k], gmesh,
+                              data_only=ep and k == "experts")
+              for k, v in lp.items()}
+    return _layer_fwd(lp, cfg, x, positions, 0, moe, use_kernel=False,
+                      mesh=mesh)
+
+
+def layer_specs(specs, key: str):
+    """One layer's spec tree of the stack ``key``: each stacked leaf's spec
+    less its layer dim."""
+    return _map(specs[key], lambda s: P(*s[1:]))
+
+
 def hidden_forward(params, cfg: LMConfig, tokens, *, remat: bool = False,
                    mesh=None):
     """tokens (B, S) -> final hidden states (B, S, D) (pre-head), through
     `_sdpa` attention, the dense layers then the MoE layers. ``remat``
     recomputes each layer in the backward. On a ``mesh`` the tokens are
     this rank's block along the data axes and the MoE layers run
-    expert-parallel (`_moe_mlp`)."""
+    expert-parallel (`_moe_mlp`). ``params`` may be a mesh rank's `Blocks`:
+    the embedding and the final norm are then gathered where they are used
+    and each layer's blocks inside its layer (`train_layer`). Each stack is
+    split into its layers once, so the backward stacks the layers'
+    gradients once."""
     S = tokens.shape[1]
-    x = F.embedding(tokens, params["embed"])
+    x = F.embedding(tokens, _whole(params, "embed"))
     positions = torch.arange(S, device=tokens.device)[None]
     n_dense, n_moe = _depths(cfg)
-
-    def layer(x, stacked, i, moe):
-        lp = _map(stacked, lambda t: t[i])
-        return _layer_fwd(lp, cfg, x, positions, 0, moe, use_kernel=False,
-                          mesh=mesh)
-
+    blocks = isinstance(params, Blocks)
     for key, moe, n in (("dense_layers", False, n_dense),
                         ("moe_layers", True, n_moe)):
+        if not n:
+            continue
+        split = _map(params[key], lambda t: t.unbind(0))
+        kw = dict(specs=layer_specs(params.specs, key),
+                  gmesh=params.mesh) if blocks else {}
         for i in range(n):
-            x = (checkpoint(layer, x, params[key], i, moe,
-                            use_reentrant=False) if remat
-                 else layer(x, params[key], i, moe))
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps)
+            lp = _map(split, lambda u, i=i: u[i])
+            x = (checkpoint(train_layer, x, lp, cfg, positions, moe, mesh,
+                            use_reentrant=False, **kw) if remat
+                 else train_layer(x, lp, cfg, positions, moe, mesh, **kw))
+    return rmsnorm(x, _whole(params, "final_norm"), cfg.norm_eps)
 
 
 def _ce(logits, labels, cfg: LMConfig):
@@ -1054,20 +1107,26 @@ def loss_fn(params, cfg: LMConfig, tokens, labels, *, remat: bool = False,
     the tokens and the next ones re-embedded, projected to D, one dense
     block, the shared head against the labels rolled by one; loss + 0.3 x
     its cross-entropy ("mtp_ce"). On a ``mesh`` (`hidden_forward`) the loss
-    is this rank's block's."""
+    is this rank's block's. With `Blocks` for ``params`` the head, the
+    embedding, the final norm and the MTP head are gathered where they are
+    used (the head once, outside the cross-entropy's chunks) and the
+    layers one at a time (`hidden_forward`)."""
     x = hidden_forward(params, cfg, tokens, remat=remat, mesh=mesh)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = _whole(params, "embed").T if cfg.tie_embeddings \
+        else _whole(params, "lm_head")
     main = ce_from_hidden(x, head, labels, cfg)
     metrics = {"ce": main}
     loss = main
     if cfg.mtp_depth and "mtp" in params:
-        embed = params["embed"]
+        embed = head.T if cfg.tie_embeddings else _whole(params, "embed")
         h = torch.cat([F.embedding(tokens, embed),
                        F.embedding(torch.roll(tokens, -1, dims=1), embed)],
-                      dim=-1) @ params["mtp"]["proj"]
+                      dim=-1) @ _whole(params, "mtp", "proj")
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-        h = _layer_fwd(params["mtp"]["block"], cfg, h, positions, 0,
-                       use_kernel=False)
+        kw = dict(specs=params.specs["mtp"]["block"], gmesh=params.mesh) \
+            if isinstance(params, Blocks) else {}
+        h = train_layer(h, params["mtp"]["block"], cfg, positions, False,
+                        **kw)
         mtp = ce_from_hidden(h, head, torch.roll(labels, -1, dims=1), cfg)
         loss = loss + 0.3 * mtp
         metrics["mtp_ce"] = mtp

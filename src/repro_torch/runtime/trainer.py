@@ -22,18 +22,26 @@ rank runs the same Trainer) the state is placed by ``task.param_specs``, a
 tree of `sharding.rules.P` (or a function of the parameter tree that
 returns one), as the reference's `_shard_state` places it: each rank keeps
 its spec's block of every parameter and of AdamW's ``m`` and ``v`` (ZeRO:
-the moments mirror the parameters), the step counter on every rank. A
-step gathers the whole parameters into the model's tensors, runs the loss
-on this rank's block of the batch where ``task.batch_specs`` splits it
-over the data axes (else on the whole batch; the metrics logged are the
-ranks' mean, one all_reduce), sums the gradients over
-`batch_axis(mesh)` and divides by its size (a reduce-scatter where the
-spec keeps a dim over exactly those axes, else an all_reduce, then the
-block), clips on the global norm (one all_reduce of the blocks' squared
-sums) and updates the blocks. Under ``grad_compression="int8_ef"`` the
-data-parallel sum carries each rank's int8 gradient and scale (an
-all_gather), each rank keeping its own residual; a checkpoint stores their
-mean. ``param_specs=None`` on a mesh keeps the state whole on every rank.
+the moments mirror the parameters), the step counter on every rank. The
+model's whole tensors are freed for the run (their storage refilled with
+the trained parameters at its end). A step (FSDP compute, ZeRO-2
+gradients, as the reference's cells train) hands the loss a view of the
+model over the blocks (`sharding.rules.block_view`): the loss gathers
+each leaf where it uses it (`gather_for_compute`; the LM one layer at a
+time, inside the layer its ``remat`` recomputes), on this rank's block of
+the batch where ``task.batch_specs`` splits it over the data axes (else on
+the whole batch; the metrics logged are the ranks' mean, one all_reduce).
+The loss is differentiated with respect to the blocks, whose gradients
+come out summed over `batch_axis(mesh)` (a reduce-scatter where a dim is
+stored over the data axes, else an all_reduce, a leaf a micro-batch) and
+are summed over the micro-batches in float32 as blocks, then divided by
+the data axes' size; the step clips on the global norm (one all_reduce of
+the blocks' squared sums) and updates the blocks. Under
+``grad_compression="int8_ef"`` the whole parameters are gathered into the
+model's tensors instead, and the data-parallel sum carries each rank's
+int8 gradient of the whole leaves and its scale (an all_gather), each rank
+keeping its own residual; a checkpoint stores their mean.
+``param_specs=None`` on a mesh keeps the state whole on every rank.
 A loss that runs its own collectives (the LM's expert-parallel MoE
 layers, `models.transformer.loss_fn(..., mesh=)`) closes over the mesh.
 Checkpoints are the one-device layout: a run may resume on another mesh.
@@ -55,9 +63,9 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.engine.federated import resolve_device
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
 from repro_torch.optim.compress import ef_compress, ef_decompress, ef_init
-from repro_torch.sharding.rules import (P, batch_axis, check_specs,
-                                        gather_full, local_slice, replicated,
-                                        spec_axes)
+from repro_torch.sharding.rules import (Blocks, P, batch_axis,
+                                        block_view, check_specs, gather_full,
+                                        local_slice, replicated, spec_axes)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -172,11 +180,16 @@ class Trainer:
 
     def _gather_params(self, tree, blocks, specs) -> None:
         """Write the whole parameters, gathered from the blocks, into the
-        model's tensors."""
+        model's tensors (their storage brought back where it was freed)."""
         with torch.no_grad():
             for full, blk, spec in zip(tree_leaves(tree), tree_leaves(blocks),
                                        tree_leaves(specs)):
-                full.copy_(gather_full(blk, spec, self.mesh))
+                st = full.untyped_storage()
+                need = (full.storage_offset() + full.numel()) \
+                    * full.element_size()
+                if st.nbytes() < need:
+                    st.resize_(need)
+                full.copy_(gather_full(blk.detach(), spec, self.mesh))
 
     def _local_batch(self, batch):
         """This rank's block of the batch under ``task.batch_specs`` (the
@@ -186,34 +199,21 @@ class Trainer:
         return tree_map(lambda b, s: local_slice(b, s, self.mesh), batch,
                         self.task.batch_specs)
 
-    def _mesh_grads(self, grads, specs, ef_state):
-        """The blocks of the gradients summed over the data axes and
-        divided by their size; under int8 EF from each rank's quantised
-        gradient (returns the new residual too)."""
-        mesh, t = self.mesh, self.task
+    def _ef_grads(self, grads, specs, ef_state):
+        """int8 EF's data-parallel reduction of the whole gradients: each
+        rank's quantised gradient and scale gathered over the data axes,
+        summed, cut to the blocks and divided (returns the new residual
+        too)."""
+        mesh = self.mesh
         dp, n_dp = self._dp()
-        if t.grad_compression == "int8_ef":
-            q, scales, ef_state = ef_compress(grads, ef_state)
-            grads = tree_map(
-                lambda qq, sc: (mesh.all_gather(qq, dp, tiled=False).float()
-                                * mesh.all_gather(sc.reshape(1), dp).reshape(
-                                    -1, *([1] * qq.dim()))).sum(0),
-                q, scales)
-        out = []
-        for g, spec in zip(tree_leaves(grads), tree_leaves(specs)):
-            g = g.to(torch.float32) if t.grad_compression else g
-            at = [d for d, ax in enumerate(spec) if ax is not None and (
-                ax if isinstance(ax, tuple) else (ax,)) == dp]
-            if t.grad_compression or n_dp == 1:
-                block = local_slice(g, spec, mesh)
-            elif at:
-                rest = list(spec)
-                rest[at[0]] = None
-                block = local_slice(mesh.reduce_scatter(
-                    g.contiguous(), dp, at[0]), rest, mesh)
-            else:
-                block = local_slice(mesh.all_reduce(g, dp), spec, mesh)
-            out.append(block / n_dp if n_dp > 1 else block)
+        q, scales, ef_state = ef_compress(grads, ef_state)
+        grads = tree_map(
+            lambda qq, sc: (mesh.all_gather(qq, dp, tiled=False).float()
+                            * mesh.all_gather(sc.reshape(1), dp).reshape(
+                                -1, *([1] * qq.dim()))).sum(0),
+            q, scales)
+        out = [local_slice(g, spec, mesh) / n_dp for g, spec in
+               zip(tree_leaves(grads), tree_leaves(specs))]
         return tree_unflatten(specs, out), ef_state
 
     def _mesh_norm(self, grads, specs) -> torch.Tensor:
@@ -230,21 +230,35 @@ class Trainer:
                                 device=mesh.device).reshape(1)
         return torch.sqrt(mesh.all_reduce(total, mesh.axis_names)[0])
 
-    def _mesh_step(self, params, tree, blocks, specs, opt_state, ef_state,
-                   batch, step: int, *, batch_is_local: bool = False):
-        """One step on the mesh; ``batch_is_local`` takes ``batch`` as
-        this rank's block already (the dry run hands a rank's blocks)."""
+    def _mesh_step(self, model, blocks, specs, opt_state, ef_state, batch,
+                   step: int, *, batch_is_local: bool = False):
+        """One step on the mesh. ``model`` is a view over the blocks
+        (`block_view`) whose loss gathers each leaf where it uses it: the
+        loss is differentiated with respect to the blocks, whose gradients
+        come out summed over the data axes (a reduce-scatter a leaf a
+        micro-batch, `gather_for_compute`) and are summed over the
+        micro-batches in float32, then divided by the data axes' size.
+        Under int8 EF ``model`` holds the whole parameters, gathered into
+        it first, and the whole gradients cross the data axes quantised
+        (`_ef_grads`). ``batch_is_local`` takes ``batch`` as this rank's
+        block already (the dry run hands a rank's blocks)."""
         t = self.task
         lr = cosine_schedule(step, peak_lr=t.lr, warmup=t.warmup,
                              total=t.total_steps)
-        self._gather_params(tree, blocks, specs)
-        metrics, grads = self._grads(
-            params, tree_leaves(tree),
-            batch if batch_is_local else self._local_batch(batch))
+        batch = batch if batch_is_local else self._local_batch(batch)
+        if t.grad_compression == "int8_ef":
+            tree = model.param_tree()
+            self._gather_params(tree, blocks, specs)
+            metrics, grads = self._grads(model, tree_leaves(tree), batch)
+            grads, ef_state = self._ef_grads(tree_unflatten(tree, grads),
+                                             specs, ef_state)
+        else:
+            metrics, grads = self._grads(model, tree_leaves(blocks), batch)
+            _, n_dp = self._dp()
+            grads = tree_unflatten(specs, [g / n_dp if n_dp > 1 else g
+                                           for g in grads])
         metrics = self._mesh_metrics({k: v.detach()
                                       for k, v in metrics.items()})
-        grads, ef_state = self._mesh_grads(tree_unflatten(tree, grads),
-                                           specs, ef_state)
         _, opt_state, om = adamw_update(
             grads, opt_state, blocks, lr=lr, weight_decay=t.weight_decay,
             clip_norm=t.clip_norm, grad_norm=self._mesh_norm(grads, specs))
@@ -288,12 +302,22 @@ class Trainer:
             torch.Generator(device=dev).manual_seed(self.seed))
         tree = params.param_tree()
         specs = blocks = None
+        model = params
         if mesh is not None:
             specs = self._specs(tree)
             blocks = tree_map(lambda p, s: local_slice(
                 p.detach(), s, mesh).clone(), tree, specs)
-        for p in tree_leaves(tree):
-            p.requires_grad_(True)
+        if mesh is not None and t.grad_compression != "int8_ef":
+            # the step computes on the blocks: the whole leaves are freed
+            # until the end of the run
+            for p in tree_leaves(tree):
+                p.untyped_storage().resize_(0)
+            for b in tree_leaves(blocks):
+                b.requires_grad_(True)
+            model = block_view(params, Blocks(blocks, specs, mesh))
+        else:
+            for p in tree_leaves(tree):
+                p.requires_grad_(True)
         state_of = blocks if mesh is not None else tree
         opt_state = adamw_init(state_of, moments_dtype=t.moments_dtype)
         ef_state = (ef_init(tree) if t.grad_compression
@@ -337,8 +361,7 @@ class Trainer:
                                                ef_state, batch, step)
             else:
                 ef_state, metrics = self._mesh_step(
-                    params, tree, blocks, specs, opt_state, ef_state, batch,
-                    step)
+                    model, blocks, specs, opt_state, ef_state, batch, step)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             dt = time.perf_counter() - t0
@@ -358,6 +381,8 @@ class Trainer:
             save(steps, blocking=True)
             self.ckpt.wait()
         if mesh is not None:
+            for b in tree_leaves(blocks):
+                b.requires_grad_(False)
             self._gather_params(tree, blocks, specs)
         out = {"blocks": blocks} if mesh is not None else {}
         return {**out, "params": params, "opt": opt_state,

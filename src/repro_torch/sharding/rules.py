@@ -25,7 +25,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_path, path_tree, tree_map
+from repro_torch.tree import leaves_with_path, path_tree, tree_leaves, tree_map
 
 
 class P:
@@ -329,6 +329,145 @@ class Shard(torch.autograd.Function):
     def backward(ctx, g):
         return (ctx.mesh.all_gather(g.contiguous(), ctx.axes, ctx.dim),
                 None, None, None)
+
+
+class GatherCopies(torch.autograd.Function):
+    """The whole of a tensor stored in blocks along ``dim`` over ``axes``
+    whose ranks all compute the same thing with it (a model column repeats
+    its data block). Backward: this rank's block of the whole gradient,
+    with no sum: every rank of the line computed that same gradient, and a
+    sum would multiply it by the line's size."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return local_slice(g, [ctx.axes if d == ctx.dim else None
+                               for d in range(g.dim())], ctx.mesh), \
+            None, None, None
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """`batch_axis` as a tuple."""
+    return _axes(batch_axis(mesh))
+
+
+def gather_for_compute(block: torch.Tensor, spec, mesh, *,
+                       data_only: bool = False) -> torch.Tensor:
+    """The whole tensor a mesh rank computes with, from its block under
+    ``spec``, with the transposes of the port's compute layout: the batch
+    is split over the data axes only, so every rank of a model column
+    computes on the same data block with the same whole weights.
+
+    Let rank (d, m) compute G_d, the gradient of its block's loss with
+    respect to the whole tensor W; the gradient of the whole batch's loss
+    is sum_d G_d, the same for every m. Its block is then:
+      * along a dim stored over the data axes (W is the concatenation of
+        the data ranks' blocks W_d): block d of sum_d' G_d', which is a
+        reduce-scatter over the data axes (`Gather`);
+      * along a dim stored over other axes (W the concatenation of the
+        blocks W_m): block m of sum_d G_d; G_d is the same on every rank
+        of the line over m, so this is a cut, with no sum
+        (`GatherCopies`);
+      * the data axes that no dim holds still sum: `Replicated` over them
+        (an all_reduce of the block's gradient; a norm's whole gradient).
+    The cut and the reduce-scatter act on different dims and commute; the
+    data dims are gathered first, so the backward cuts first and
+    reduce-scatters only this rank's model-axis block.
+    ``data_only`` gathers the data dims alone and leaves the others this
+    rank's blocks (the routed experts, which compute on their model-axis
+    block). A dim stored over data and other axes at once is refused."""
+    dp = data_axes(mesh)
+    held = set()
+    for ax in spec:
+        if ax is None:
+            continue
+        axes = set(_axes(ax))
+        if axes & set(dp) and not axes <= set(dp):
+            raise ValueError(f"spec {spec!r} mixes the data axes {dp} with "
+                             f"others in one dim")
+        held |= axes & set(dp)
+    rest = tuple(a for a in dp if a not in held)
+    x = block
+    if rest and mesh.axes_size(rest) > 1:
+        x = Replicated.apply(x, mesh, rest)
+    sharded = [(dim, ax) for dim, ax in enumerate(spec)
+               if ax is not None and mesh.axes_size(ax) > 1]
+    # the data dims first: the backward then cuts before it sums, so the
+    # reduce-scatter takes this rank's model-axis block, not the whole
+    for dim, ax in sharded:
+        if set(_axes(ax)) <= set(dp):
+            x = Gather.apply(x, mesh, ax, dim)
+    if not data_only:
+        for dim, ax in sharded:
+            if not set(_axes(ax)) <= set(dp):
+                x = GatherCopies.apply(x, mesh, ax, dim)
+    return x
+
+
+def whole_shape(block, spec, mesh) -> tuple[int, ...]:
+    """The shape of the whole tensor whose block under ``spec`` is
+    ``block``."""
+    return tuple(n * (mesh.axes_size(ax) if ax is not None else 1)
+                 for n, ax in zip(block.shape, spec))
+
+
+class Blocks(dict):
+    """This rank's blocks of a parameter tree (the dict itself, nested as
+    the tree is) with the spec tree (``specs``) and the ``mesh`` that place
+    them: what a mesh step hands its loss in place of whole leaves. A
+    model path that finds one gathers each leaf where it uses it
+    (`gather_for_compute`)."""
+
+    def __init__(self, tree: dict, specs, mesh):
+        super().__init__(tree)
+        self.specs = specs
+        self.mesh = mesh
+
+    def gather(self, *path) -> torch.Tensor:
+        """The whole leaf at ``path`` (keys from the root)."""
+        t, s = self, self.specs
+        for k in path:
+            t, s = t[k], s[k]
+        return gather_for_compute(t, s, self.mesh)
+
+
+class ModuleView:
+    """A `torch.nn.Module` model computing on a mesh rank's blocks: a call
+    gathers every leaf once (`gather_for_compute`) and runs the module
+    with them in place of its own parameters (`torch.func.functional_call`),
+    which need hold no storage. `param_tree()` is the blocks."""
+
+    def __init__(self, module: torch.nn.Module, blocks: Blocks):
+        self.module = module
+        self.blocks = blocks
+        names = {id(p): n for n, p in module.named_parameters()}
+        self._names = [names[id(p)] for p in tree_leaves(
+            module.param_tree())]
+
+    def param_tree(self) -> Blocks:
+        return self.blocks
+
+    def buffers(self):
+        return self.module.buffers()
+
+    def __call__(self, *args, **kwargs):
+        whole = [gather_for_compute(b, s, self.blocks.mesh) for b, s in zip(
+            tree_leaves(self.blocks), tree_leaves(self.blocks.specs))]
+        return torch.func.functional_call(
+            self.module, dict(zip(self._names, whole)), args, kwargs,
+            strict=False)
+
+
+def block_view(model, blocks: Blocks):
+    """The model a mesh step's loss computes with over ``blocks``: the
+    model's own ``on_blocks(blocks)`` where it has one (the LM gathers
+    layer by layer), else a `ModuleView`."""
+    on = getattr(model, "on_blocks", None)
+    return on(blocks) if on is not None else ModuleView(model, blocks)
 
 
 def kg_local(kg, mesh, perms=None):

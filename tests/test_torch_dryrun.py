@@ -49,6 +49,7 @@ from repro_torch.kernels.segment_spmm import ops as seg_ops  # noqa: E402
 from repro_torch.launch import cells, components, dryrun  # noqa: E402
 from repro_torch.launch.mesh import (MetaMesh, make_device_mesh,  # noqa: E402
                                      make_production_mesh, spawn)
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 # one cell a family on the multi-pod mesh
@@ -190,6 +191,17 @@ def test_cells_match_the_references_build_cell(ref_cells):
                 skipped[name] = skipped.get(name, 0) + 1
                 continue
             assert mine[name] == b, (key, name)
+        if cell.kind == "train":
+            # the step's arguments are the reference's shards (the model
+            # a view over the same blocks), the GNN batch named apart
+            apart = [n for n in ref["arg_bytes"] if n in layout]
+            held = {id(t.untyped_storage()) for t in tree_leaves(
+                cell.args[1])}
+            assert all(id(t.untyped_storage()) in held for t in
+                       tree_leaves(cell.args[0].param_tree())), key
+            assert sum(mine[n] for n in ref["arg_bytes"] if n not in apart) \
+                == sum(b for n, b in ref["arg_bytes"].items()
+                       if n not in apart), key
     # the divergences named: the serving steps' whole parameters, the
     # GNNs' whole graph, the decode step's tokens and position
     assert skipped == {"params": 20, "batch": 17, "tokens": 11, "cur": 11}
@@ -255,6 +267,31 @@ def test_components_recombine_to_the_whole_program(arch, shape):
     n_dense, n_moe = comp["trips"]["n_dense"], comp["trips"]["n_moe"]
     assert ("layer_moe" in comp["components"]) == (n_moe > 0)
     assert n_dense + n_moe == get_arch(arch).smoke().n_layers
+
+
+def test_matrix_vector_products_count_their_flops():
+    """`FLOP_EXTRA`: the retrieval cell's ``cand @ q`` is 2 N D, and a
+    smoke train cell, which has no such product, counts what
+    `FlopCounterMode` alone counts."""
+    mesh = _mesh(False)
+    cell = cells.build_cell("xdeepfm", "retrieval_cand", mesh)
+    rec = dryrun.account(cell.fn, cell.args)
+    n_loc, d = cell.args[2].shape[0], get_arch("xdeepfm").full().embed_dim
+    assert rec["dispatch_flops"] == 2 * n_loc * d == rec["flops"]
+    meta = MetaMesh((2, 2), ("data", "model"))
+    train = _smoke_lm("granite-3-8b", "train_4k", meta)
+    with_extra = dryrun.account(train.fn, train.args)["dispatch_flops"]
+    train = _smoke_lm("granite-3-8b", "train_4k", meta)
+    plain = dryrun.FlopCounterMode(display=False)
+    with plain:
+        train.fn(*train.args)
+    assert with_extra == plain.get_total_flops() > 0
+    one = torch.empty(64, device="meta")
+    with dryrun.FlopCounterMode(display=False,
+                                custom_mapping=dryrun.FLOP_EXTRA) as fc:
+        torch.dot(one, one)
+        torch.mv(torch.empty(1000, 64, device="meta"), one)
+    assert fc.get_total_flops() == 2 * 64 + 2 * 1000 * 64
 
 
 def _real_vs_meta(build):
