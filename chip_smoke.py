@@ -278,7 +278,18 @@ order; any failure exits non-zero:
    1e-3 relative), checkpointed (rank 0 writes the one-device layout),
    restored onto 4 x 1 for a second step; each rank's peak memory over
    the run (beside the whole-leaf route's) and over the steps alone, its
-   gathers and reduce-scatters;
+   gathers and reduce-scatters; tensor-parallel serving, each rank
+   serving from its lm_rules blocks (column/row-parallel layers,
+   vocabulary-parallel embedding and head): a prefill into 8,192 slots
+   then 5 decode steps from the cache it leaves, at granite-3-8b's widths
+   (2 layers, 2 x 4,096 on 2 x 4, bf16 and float32; also over whole
+   leaves on the mesh, the peak beside it), granite-20b's (MQA, 1 x 4,096
+   on 1 x 4) and deepseek-v3's 2 dense MLA layers (lm_rules(fsdp=True),
+   2 x 2,048 on 2 x 2), the ranks' logit blocks within 3e-2 of max
+   |logit| of the one-device path (float32: CHECK_LOGIT_SHARE), each GQA
+   rank launching flash on route "wgmma" once a layer at the prefill and
+   its split route with lse once a layer a step (where its slots begin
+   at or before the position), the collectives, ms and peak a rank;
 12. minibatch_lg and the dry run — (a) the neighbour sampler's batch at
    full size (1,024 seeds at fan-outs 15, 10 over the synthetic 232,965-
    node, 114,615,892-edge graph; its host build timed), GCN
@@ -300,8 +311,10 @@ order; any failure exits non-zero:
    then an FSDP train cell (granite-3-8b's widths, 2 layers, bf16, accum
    2) on 2 x 2 gloo ranks sharing the card, each rank's MetaMesh run
    against its real one: FLOPs and collectives equal, the peak above the
-   held bytes within 10%; the card's total_memory equals the dry run's
-   H100 constant (phase 1);
+   held bytes within 10%; then a tensor-parallel prefill cell (4 x 2,048)
+   and decode cell (4 sequences over 8,192 slots) at the same widths on
+   2 x 2, held the same way, flash's meta calls equal to its launches;
+   the card's total_memory equals the dry run's H100 constant (phase 1);
 13. summary — every kernel's launches on its path.
 
 The last three lines are the card's name and power limit, a JSON line of
@@ -407,8 +420,8 @@ from repro_torch.launch.serve import (PipelineConfig,  # noqa: E402
                                       replay_paced, request_stream,
                                       serve_worker, stop_workers,
                                       two_phase_weights)
-from repro_torch.sharding.rules import (P, kg_local,  # noqa: E402
-                                        lm_rules, local_slice,
+from repro_torch.sharding.rules import (Blocks, P,  # noqa: E402
+                                        kg_local, lm_rules, local_slice,
                                         make_param_specs)
 from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.models.gnn.egnn import EGNN  # noqa: E402
@@ -1559,8 +1572,9 @@ def flash_route_cases() -> None:
     T: several chunks, the last one ragged (down to 1 key), chunks wholly
     past the limit of a causal row, d 100 and 7 (8-byte and element
     copies). The tensor-core routes: "wgmma" at T off the 64-key tile,
-    d 64 and G 48, "mma" at d 100 (zero-filled to 112, 8-byte copies) and
-    at T under one tile."""
+    d 64, G 48 and the q heads of a tensor-parallel prefill rank (G 12
+    and 3 over one KV head), "mma" at d 100 (zero-filled to 112, 8-byte
+    copies) and at T under one tile."""
     split = [(2, 2, 4, 1, 300, 128, True, 290, 64),
              (1, 2, 1, 16, 200, 64, True, 50, 64),
              (2, 1, 4, 3, 257, 100, False, 0, 64),
@@ -1571,7 +1585,12 @@ def flash_route_cases() -> None:
           (1, 1, 2, 300, 333, 128, True, 33, "wgmma"),
           (1, 2, 4, 77, 77, 128, False, 0, "wgmma"),
           (1, 1, 48, 5, 300, 64, True, 295, "wgmma"),
-          (2, 2, 1, 200, 200, 128, True, 0, "wgmma")]
+          (2, 2, 1, 200, 200, 128, True, 0, "wgmma"),
+          # a tensor-parallel prefill rank's heads: granite-20b's 12 q
+          # heads over its one KV head on 4 model ranks, nemotron-4-15b's
+          # 3 over one of its 8 KV heads on 16
+          (1, 1, 12, 300, 300, 128, True, 0, "wgmma"),
+          (2, 1, 3, 200, 200, 128, True, 0, "wgmma")]
     worst = {}
     for (b, hkv, g, s, t, d, causal, q_start, chunk) in split:
         for dt in (torch.float32, torch.bfloat16):
@@ -4981,20 +5000,246 @@ def mm_rank_train(mesh, steps: int) -> dict:
                 step_peak=peaks["step"])
 
 
+# tensor-parallel serving: each rank serves from its lm_rules blocks (the
+# layers column/row-parallel over "model", the embedding and the head
+# vocabulary-parallel); a prefill of batch x seq tokens into TP_SLOTS
+# slots, then TP_STEPS decode steps of fixed tokens from that cache, each
+# against the one-device path on the card. Granite-3-8b's ranks also run
+# the same passes over whole leaves on the mesh first: the peak beside it
+TP_SLOTS, TP_STEPS, TP_WARM_S = 8192, 5, 256
+TP_CASES = {
+    "granite-3-8b": dict(mesh=(2, 4), batch=2, seq=4096, fsdp=False,
+                         dtypes=("bfloat16", "float32")),
+    "granite-20b": dict(mesh=(1, 4), batch=1, seq=4096, fsdp=False,
+                        dtypes=("bfloat16",)),
+    "deepseek-v3": dict(mesh=(2, 2), batch=2, seq=2048, fsdp=True,
+                        dtypes=("bfloat16",))}
+
+
+def tp_cfg(name: str, dtype: str):
+    """The case's config: 2 layers at its model's widths (deepseek-v3's 2
+    dense MLA layers)."""
+    if name == "deepseek-v3":
+        return mm_decode_cfg("mla", dtype)
+    full = granite_3_8b.full() if name == "granite-3-8b" \
+        else granite_20b.full()
+    return dataclasses.replace(full, n_layers=MM_DECODE_LAYERS, dtype=dtype)
+
+
+def tp_tokens(cfg, name: str):
+    c = TP_CASES[name]
+    return torch.randint(0, cfg.vocab_size,
+                         (c["batch"], c["seq"] + TP_STEPS),
+                         generator=mm_gen(400), device=DEV)
+
+
+def tp_reference(name: str) -> dict:
+    """The one-device path on the card, per dtype: the prefill's last
+    position's logits, then each step's, (B, V) float32 on the host."""
+    c, out = TP_CASES[name], {}
+    for dt in c["dtypes"]:
+        cfg = tp_cfg(name, dt)
+        model = Transformer.random(cfg, seed=MM_SEED, device=DEV)
+        toks = tp_tokens(cfg, name)
+        s = c["seq"]
+        with torch.no_grad():
+            logits, cache = model.prefill(toks[:, :s], TP_SLOTS)
+            out[dt] = [logits[:, -1].float().cpu()]
+            for i in range(TP_STEPS):
+                step, _ = model.decode_step(cache, toks[:, s + i:s + i + 1],
+                                            s + i)
+                out[dt].append(step[:, 0].float().cpu())
+        del model, cache, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_pass(mesh, model, mine, batch: int, s: int) -> dict:
+    """The mesh prefill of this rank's tokens, then TP_STEPS steps (after
+    a warm prefill of TP_WARM_S tokens): the logits (the rank's blocks, on
+    the host), ms of the prefill and of a step (median), the collectives'
+    calls and bytes and the flash launches and routes of each, this
+    rank's max_memory_allocated over the passes."""
+    with torch.no_grad():
+        model.prefill(mine[:, :TP_WARM_S], 4 * TP_WARM_S, mesh=mesh,
+                      batch=batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(mine[:, :s], TP_SLOTS, mesh=mesh,
+                                      batch=batch)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        out = {"prefill": dict(calls=dict(mesh.calls),
+                               bytes=dict(mesh.bytes),
+                               flash=fa_ops.flash_attention.launches,
+                               routes=dict(fa_ops.flash_attention.routes)),
+               "logits": [logits.float().cpu()], "prefill_ms": pre_ms}
+        reset_counts()
+        mesh.reset_counts()
+        times = []
+        for i in range(TP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step, _ = model.decode_step(cache, mine[:, s + i:s + i + 1],
+                                        s + i, mesh=mesh, batch=batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            out["logits"].append(step[:, 0].float().cpu())
+    out["decode"] = dict(calls=dict(mesh.calls), bytes=dict(mesh.bytes),
+                         flash=fa_ops.flash_attention.launches,
+                         routes=dict(fa_ops.flash_attention.routes))
+    out["step_ms"] = float(np.median(times))
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for v in cache.values() if v for t in v)
+    return out
+
+
+def tp_rank(mesh, name: str) -> dict:
+    """The case on this rank, per dtype: its blocks cut from the seeded
+    whole model (then freed) and `tp_pass` over them; for granite-3-8b in
+    bfloat16 first the same passes over the whole leaves."""
+    c = TP_CASES[name]
+    out = {"coords": (mesh.axis_index("data"), mesh.axis_index("model"))}
+    b, s = c["batch"], c["seq"]
+    n = b // mesh.axes_size("data") if b > 1 else 1
+    d = mesh.axis_index("data") if b > 1 else 0
+    for dt in c["dtypes"]:
+        cfg = tp_cfg(name, dt)
+        model = Transformer.random(cfg, seed=MM_SEED, device=DEV)
+        mine = tp_tokens(cfg, name)[d * n:(d + 1) * n]
+        if name == "granite-3-8b" and dt == "bfloat16":
+            out["whole_leaf"] = tp_pass(mesh, model, mine, b, s)
+        specs = make_param_specs(model.param_tree(), mesh,
+                                 lm_rules(mesh, fsdp=c["fsdp"]))
+        blocks = tree_map(lambda t, sp: local_slice(t, sp, mesh).clone(),
+                          model.param_tree(), specs)
+        del model
+        torch.cuda.empty_cache()
+        out[dt] = tp_pass(mesh, Transformer(cfg, Blocks(blocks, specs, mesh)),
+                          mine, b, s)
+        out[dt]["block_bytes"] = sum(t.numel() * t.element_size()
+                                     for t in tree_leaves(blocks))
+        del blocks
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_check(name: str, ranks, refs, card: str) -> dict:
+    """The ranks' logit blocks put together within CHECK_LOGIT_SHARE
+    (float32) or MM_BF16_SHARE (bfloat16) of max |logit| of the one-device
+    path, at the prefill and every step; a GQA rank launches flash once a
+    layer at the prefill on route "wgmma" ("tile" in float32) and once a
+    layer a step on "split_lse" (in groups of at most 16 q heads a KV
+    head) where its slots begin at or before the step's position.
+    Returns the flash launches over the ranks."""
+    c = TP_CASES[name]
+    layers = MM_DECODE_LAYERS
+    gqa = name != "deepseek-v3"
+    launches = {"prefill": 0, "decode": 0}
+    for dt in c["dtypes"]:
+        worst = 0.0
+        for i, ref in enumerate(refs[dt]):
+            got = torch.full_like(ref, float("nan"))
+            for r in ranks:
+                blk = r[dt]["logits"][i]
+                dd, m = r["coords"]
+                rows = slice(dd * blk.shape[0], (dd + 1) * blk.shape[0]) \
+                    if c["batch"] > 1 else slice(0, 1)
+                got[rows, m * blk.shape[1]:(m + 1) * blk.shape[1]] = blk
+            err, top = float((got - ref).abs().max()), float(ref.abs().max())
+            share = CHECK_LOGIT_SHARE if dt == "float32" else MM_BF16_SHARE
+            if not err <= share * top:
+                raise AssertionError(f"tensor-parallel {name} {dt} "
+                                     f"{'prefill' if i == 0 else f'step {i}'}"
+                                     f": max |mesh - one device| {err} of "
+                                     f"max |logit| {top}")
+            worst = max(worst, err / top)
+        n_data, n_model = c["mesh"]
+        for r in ranks:
+            # a rank whose slots all lie past a step's position launches
+            # nothing in it (its lse is -inf)
+            dd, m = r["coords"]
+            if c["batch"] > 1:          # slots over "model"
+                off = m * TP_SLOTS // n_model
+            else:                       # over ("data", "model")
+                off = (dd * n_model + m) * TP_SLOTS // (n_data * n_model)
+            steps = sum(c["seq"] + i >= off for i in range(TP_STEPS))
+            cfg = tp_cfg(name, dt)
+            # the lse route launches a group of at most 16 q rows a KV
+            # head: granite-20b's 48 heads over its one in three
+            groups = -(-(cfg.n_heads // cfg.n_kv_heads) // 16)
+            # float32 prefills take the CUDA-core route
+            want = ({"wgmma" if dt == "bfloat16" else "tile": layers},
+                    {"split_lse": layers * steps * groups} if steps
+                    else {}) if gqa else ({}, {})
+            for kind, routes in zip(("prefill", "decode"), want):
+                t = r[dt][kind]
+                if t["routes"] != routes or t["flash"] != sum(
+                        routes.values()):
+                    raise AssertionError(
+                        f"tensor-parallel {name} {dt} {kind}: a rank "
+                        f"launched flash {t['flash']} times {t['routes']}, "
+                        f"expected {routes}")
+                launches[kind] += t["flash"]
+        r0 = ranks[0][dt]
+        log(f"  tensor-parallel serving, {name} widths, {layers} layers, "
+            f"{dt}, {c['mesh'][0]} x {c['mesh'][1]}: prefill of "
+            f"{c['batch']} x {c['seq']:,} into {TP_SLOTS:,} slots and "
+            f"{TP_STEPS} steps; max |mesh - one device| share {worst:.3g} "
+            f"of max |logit| (within "
+            f"{CHECK_LOGIT_SHARE if dt == 'float32' else MM_BF16_SHARE}); "
+            f"flash a rank: prefill {r0['prefill']['routes']}, steps "
+            f"{r0['decode']['routes']}; collectives a rank a layer: prefill "
+            f"calls {r0['prefill']['calls']} bytes "
+            f"{r0['prefill']['bytes']} over {layers} layers (the "
+            f"embedding's all_reduce with them), {TP_STEPS} steps calls "
+            f"{r0['decode']['calls']} bytes {r0['decode']['bytes']}; ms "
+            f"(host wall, gloo on one card) prefill "
+            f"{[round(r[dt]['prefill_ms'], 1) for r in ranks]}, a step "
+            f"{[round(r[dt]['step_ms'], 2) for r in ranks]}; "
+            f"max_memory_allocated a rank "
+            f"{[r[dt]['peak'] for r in ranks]} (blocks "
+            f"{r0['block_bytes']:,}, cache block {r0['cache_bytes']:,}) "
+            f"[{card}]")
+    if "whole_leaf" in ranks[0]:
+        wl = [r["whole_leaf"] for r in ranks]
+        tp = [r["bfloat16"]["peak"] for r in ranks]
+        log(f"  {name} bfloat16, the same passes over whole leaves on the "
+            f"mesh: max_memory_allocated a rank {[w['peak'] for w in wl]} "
+            f"against the blocks' {tp} (ratio "
+            f"{max(tp) / max(w['peak'] for w in wl):.3f}); ms prefill "
+            f"{[round(w['prefill_ms'], 1) for w in wl]}, a step "
+            f"{[round(w['step_ms'], 2) for w in wl]}; collectives prefill "
+            f"{wl[0]['prefill']['calls']}, steps {wl[0]['decode']['calls']}")
+    return launches
+
+
+def mm_rank_1x4(mesh, ds_cfg) -> dict:
+    return {"moe": mm_rank_moe(mesh, ds_cfg, MM_DS_TOKENS),
+            "tp": tp_rank(mesh, "granite-20b")}
+
+
 def mm_rank_2x4(mesh, qwen_cfg) -> dict:
     return {"qwen": mm_rank_moe(mesh, qwen_cfg, MM_QWEN_B * MM_QWEN_S),
-            "gqa": mm_rank_decode(mesh, "gqa", ("float32", "bfloat16"))}
+            "gqa": mm_rank_decode(mesh, "gqa", ("float32", "bfloat16")),
+            "tp": tp_rank(mesh, "granite-3-8b")}
 
 
 def mm_rank_2x2(mesh) -> dict:
     return {"mla": mm_rank_decode(mesh, "mla", ("bfloat16",)),
+            "tp": tp_rank(mesh, "deepseek-v3"),
             "train": mm_rank_train(mesh, MM_TRAIN_STEPS)}
 
 
 def phase_mesh_models(card: str) -> dict:
     """Phase 11b: the model-parallel mesh on gloo ranks sharing the card,
     each piece against the one-device path on the card. Returns the GQA
-    split decode's flash launches (every rank's) for the kernel record."""
+    split decode's flash launches (every rank's) for the kernel record,
+    and the tensor-parallel serving's at the prefill and the steps."""
     t_phase = time.perf_counter()
     shutil.rmtree(MM_CKPT_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -5008,19 +5253,24 @@ def phase_mesh_models(card: str) -> dict:
             f"rank's exit")
         return out
 
-    # deepseek-v3's MoE layer, EP on 1 x 4
+    # deepseek-v3's MoE layer, EP on 1 x 4, beside granite-20b's
+    # tensor-parallel serving (MQA: its one KV head over 4 model ranks)
     ds = dataclasses.replace(deepseek_v3_671b.full(), dtype="bfloat16")
     ds, ds_ref = mm_moe_reference(ds, MM_DS_TOKENS, (1,))
+    tp_ref = tp_reference("granite-20b")
+    ranks = run((1, 4), mm_rank_1x4, ds)
     mm_check_moe(f"deepseek-v3 MoE layer, {ds.n_experts} experts x "
                  f"({ds.d_model}, {ds.moe_d_ff}), {MM_DS_TOKENS:,} tokens, "
-                 f"1 x 4", run((1, 4), mm_rank_moe, ds, MM_DS_TOKENS),
-                 ds_ref[1], card)
+                 f"1 x 4", [r["moe"] for r in ranks], ds_ref[1], card)
+    tp = [tp_check("granite-20b", [r["tp"] for r in ranks], tp_ref, card)]
     # qwen2-moe's layer: EP with the ZeRO re-gather on 2 x 4 (beside the
-    # GQA split decode), expert-TP on 1 x 8
+    # GQA split decode and granite-3-8b's tensor-parallel serving),
+    # expert-TP on 1 x 8
     qw = dataclasses.replace(qwen2_moe_a2_7b.full(), dtype="bfloat16")
     n_qw = MM_QWEN_B * MM_QWEN_S
     qw, qw_ref = mm_moe_reference(qw, n_qw, (2, 1))
     gqa_ref = mm_decode_reference("gqa", ("float32", "bfloat16"))
+    tp_ref = tp_reference("granite-3-8b")
     ranks = run((2, 4), mm_rank_2x4, qw)
     mm_check_moe(f"qwen2-moe MoE layer, {n_qw:,} tokens, 2 x 4",
                  [r["qwen"] for r in ranks], qw_ref[2], card)
@@ -5028,18 +5278,22 @@ def phase_mesh_models(card: str) -> dict:
                           f"{MM_DECODE_LAYERS} layers, 2 x 4",
                           [r["gqa"] for r in ranks], gqa_ref,
                           ("float32", "bfloat16"), card)
+    tp.append(tp_check("granite-3-8b", [r["tp"] for r in ranks], tp_ref,
+                       card))
     del ranks
     mm_check_moe(f"qwen2-moe MoE layer, {n_qw:,} tokens, 1 x 8",
                  run((1, 8), mm_rank_moe, qw, n_qw), qw_ref[1], card)
     # MLA split decode and the Trainer on 2 x 2, the Trainer resumed on
     # 4 x 1
     mla_ref = mm_decode_reference("mla", ("bfloat16",))
+    tp_ref = tp_reference("deepseek-v3")
     one = Trainer(mm_train_task()).run(steps=MM_TRAIN_STEPS + 1)["log"]
     torch.cuda.empty_cache()
     ranks = run((2, 2), mm_rank_2x2)
     mm_check_decode(f"MLA split decode, deepseek-v3 widths, "
                     f"{MM_DECODE_LAYERS} dense layers, 2 x 2",
                     [r["mla"] for r in ranks], mla_ref, ("bfloat16",), card)
+    tp_check("deepseek-v3", [r["tp"] for r in ranks], tp_ref, card)
     g = ranks[0]["mla"]["timed"]["bytes"].get("all_gather", 0)
     log(f"  MLA wkv_b gathered a step a rank: {g:,} bytes "
         f"({MM_DECODE_LAYERS} layers, with the logits' gather)")
@@ -5072,7 +5326,8 @@ def phase_mesh_models(card: str) -> dict:
         f"{[round(x['dt'] * 1e3, 1) for x in one]}")
     shutil.rmtree(MM_CKPT_DIR, ignore_errors=True)
     log(f"  phase 11b: {time.perf_counter() - t_phase:.1f} s")
-    return gqa
+    return dict(gqa, tp_prefill=sum(t["prefill"] for t in tp),
+                tp_decode=sum(t["decode"] for t in tp))
 
 
 # ---------------------------------------------------------------------------
@@ -5115,6 +5370,12 @@ PEAK_GAP = 0.10
 # granite-3-8b's widths at 2 layers in bfloat16, accum 2, 8 sequences of
 # 1,024 (2 a data rank a micro-batch)
 FSDP_CELL = dict(layers=2, seq=1024, batch=8, accum=2)
+# and two tensor-parallel serving cells on 2 x 2 gloo ranks sharing the
+# card, granite-3-8b's widths at 2 layers in bfloat16: a prefill of 4 x
+# 2,048 (2 sequences a data rank) and a decode step of 4 sequences over
+# 8,192 slots, each rank's lm_rules blocks and its block of the tokens
+TP_CELLS = {"prefill_32k": dict(seq=2048, batch=4),
+            "decode_32k": dict(seq=8192, batch=4)}
 
 
 def meta_batch(g):
@@ -5471,9 +5732,99 @@ def fsdp_card_cell(card: str) -> dict:
     return {"gap": max(gaps, key=abs), "ranks": ranks}
 
 
+def tp_cell(mesh, shape: str):
+    """TP_CELLS' serving cell ``shape`` on ``mesh`` (a rank's step: the
+    tensor-parallel prefill or decode over the rank's blocks)."""
+    cfg = dataclasses.replace(granite_3_8b.full(),
+                              n_layers=FSDP_CELL["layers"])
+    return dry_cells.build_lm_cell("granite-3-8b", shape, mesh, cfg=cfg,
+                                   shape_def=TP_CELLS[shape])
+
+
+def tp_cell_rank(mesh) -> dict:
+    """Each tensor-parallel cell on this rank: its meta run on a
+    `MetaMesh` rank of the same coordinates, then the step for real on the
+    card (once to warm cuBLAS and the allocator, then counted)."""
+    out = {}
+    for shape in TP_CELLS:
+        meta_mesh = MetaMesh(mesh.sizes, mesh.axis_names, rank=mesh.rank)
+        cell = tp_cell(meta_mesh, shape)
+        meta_mesh.reset_counts()
+        meta = dryrun.account(cell.fn, cell.args)
+        meta_calls = dict(meta_mesh.calls)
+        cell = tp_cell(mesh, shape)
+        args = cell.make_args(DEV)
+        cell.fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(DEV)
+        reset_counts()
+        before = torch.cuda.memory_allocated(DEV)
+        mesh.reset_counts()
+        real = dryrun.account(cell.fn, args)
+        torch.cuda.synchronize()
+        out[shape] = dict(
+            meta_temp=meta["temp_size_bytes"],
+            meta_peak=meta["peak_bytes_per_device"],
+            card_temp=torch.cuda.max_memory_allocated(DEV) - before,
+            card_peak=torch.cuda.max_memory_allocated(DEV),
+            flops_meta=meta["dispatch_flops"],
+            flops_card=real["dispatch_flops"], calls=dict(mesh.calls),
+            meta_calls=meta_calls, kernel_calls=meta["kernel_calls"],
+            launched={k: v for k, v in counts().items() if v})
+        del args, cell
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_card_cells(card: str) -> dict:
+    """12c's tensor-parallel cells: each rank's meta peak above its held
+    bytes within PEAK_GAP of its max_memory_allocated above them, FLOPs,
+    collectives and flash launches equal."""
+    t0 = time.perf_counter()
+    ranks = spawn((2, 2), tp_cell_rank, device=DEV.type, timeout=MM_TIMEOUT,
+                  join_timeout=MM_JOIN)
+    out = {}
+    for shape in TP_CELLS:
+        gaps = []
+        for r, ranked in enumerate(ranks):
+            x = ranked[shape]
+            gap = x["meta_temp"] / x["card_temp"] - 1
+            gaps.append(gap)
+            line = (f"granite-3-8b widths, {FSDP_CELL['layers']} layers, "
+                    f"tensor-parallel {shape} cell {TP_CELLS[shape]}, rank "
+                    f"{r} of 2 x 2: FLOPs meta {x['flops_meta']:,} card "
+                    f"{x['flops_card']:,}; kernel calls meta "
+                    f"{x['kernel_calls']} launches {x['launched']}; peak "
+                    f"above the held bytes: meta {x['meta_temp']:,} card "
+                    f"{x['card_temp']:,} (gap {gap:+.4f}); whole: meta "
+                    f"{x['meta_peak']:,} card {x['card_peak']:,}; "
+                    f"collectives {x['calls']}")
+            log("  " + line)
+            if x["flops_meta"] != x["flops_card"]:
+                raise AssertionError(f"tensor-parallel cell FLOPs differ: "
+                                     f"{line}")
+            if x["calls"] != x["meta_calls"]:
+                raise AssertionError(f"tensor-parallel cell collectives "
+                                     f"differ from the MetaMesh's "
+                                     f"{x['meta_calls']}: {line}")
+            if x["kernel_calls"] != x["launched"]:
+                raise AssertionError(f"tensor-parallel cell kernel calls "
+                                     f"differ: {line}")
+            if not abs(gap) <= PEAK_GAP:
+                raise AssertionError(f"tensor-parallel cell peak off by "
+                                     f"more than {PEAK_GAP:.0%}: {line}")
+        out[f"granite-3-8b/{shape}[tp 2x2]"] = {
+            "gap": max(gaps, key=abs), "ranks": [r[shape] for r in ranks]}
+    log(f"  tensor-parallel cells on 2 x 2: {time.perf_counter() - t0:.1f} "
+        f"s from spawn to the last rank's exit [{card}]")
+    return out
+
+
 def phase_dry_card(graph, card: str) -> dict:
-    """12c: the dry run against the card for cells that fit one H100, and
-    the FSDP train cell on 2 x 2 ranks."""
+    """12c: the dry run against the card for cells that fit one H100, the
+    FSDP train cell and the tensor-parallel prefill and decode cells on
+    2 x 2 ranks."""
     out = {}
     for arch, shape in CARD_CELLS:
         g = None
@@ -5484,6 +5835,7 @@ def phase_dry_card(graph, card: str) -> dict:
         del g
     torch.cuda.empty_cache()
     out["granite-3-8b/train_4k[fsdp 2x2]"] = fsdp_card_cell(card)
+    out.update(tp_card_cells(card))
     return out
 
 
@@ -5632,7 +5984,10 @@ def main() -> None:
         "decode (granite-3-8b widths) on 2 x 4 through flash's lse route, "
         "the MLA split decode (deepseek-v3 widths) and the Trainer "
         "(granite-3-8b widths, lm_rules(fsdp=True)) on 2 x 2, resumed on "
-        "4 x 1")
+        "4 x 1; tensor-parallel serving from each rank's lm_rules blocks, "
+        "a prefill then decode steps from its cache: granite-3-8b widths "
+        "on 2 x 4, granite-20b widths (MQA) on 1 x 4, deepseek-v3's MLA "
+        "layers (fsdp) on 2 x 2")
     mesh_models = phase_mesh_models(card)
 
     log(f"[12/13] {at()} minibatch_lg on the card: the neighbour sampler's "
@@ -5646,8 +6001,8 @@ def main() -> None:
     dry = phase_dryrun()
     log(f"[12c/13] {at()} the dry run against the card on a 1 x 1 mesh: "
         f"{', '.join(f'{a}/{b}' for a, b in CARD_CELLS)}; an FSDP train "
-        f"cell (granite-3-8b widths, {FSDP_CELL['layers']} layers) on 2 x 2 "
-        f"gloo ranks")
+        f"cell and tensor-parallel prefill and decode cells (granite-3-8b "
+        f"widths, {FSDP_CELL['layers']} layers) on 2 x 2 gloo ranks")
     dry_card = phase_dry_card(mb.pop("graph"), card)
 
     rec["scan_hits"]["launches"] = expand_counts["scan_hits"]
@@ -5665,7 +6020,9 @@ def main() -> None:
         rec[f"flash_attention[{name}]"]["launches"] = c["flash_attention"]
     for name, c in moe_counts.items():
         rec[f"flash_attention[moe_{name}]"]["launches"] = c["flash_attention"]
-    rec["flash_attention[decode_lse]"]["launches"] = mesh_models["launches"]
+    rec["flash_attention[decode_lse]"]["launches"] = (
+        mesh_models["launches"] + mesh_models["tp_decode"])
+    rec["flash_attention[prefill]"]["launches"] += mesh_models["tp_prefill"]
     rec["segment_spmm[ogb_products]"]["launches"] = (
         gnn_counts["gcn"] + train_gnn["gcn"])
     rec["segment_spmm[molecule]"]["launches"] = sum(
@@ -5683,7 +6040,11 @@ def main() -> None:
              "gather_rows": "xDeepFM forward (phase 8)",
              "cin_layer": "xDeepFM forward at serve_p99 (phase 8)",
              "cin_layer[serve_bulk]": "xDeepFM forward at serve_bulk (phase 8)",
-             "flash_attention[prefill]": "granite-3-8b prefill (phase 9)",
+             "flash_attention[prefill]": "granite-3-8b prefill (phase 9); "
+                                         "tensor-parallel prefills over "
+                                         "each rank's heads, every rank "
+                                         "of granite-3-8b's 2 x 4 and "
+                                         "granite-20b's 1 x 4 (phase 11b)",
              "flash_attention[decode]": "granite-3-8b decode (phase 9)",
              "flash_attention[moe_prefill]": "qwen2-moe-a2.7b prefill "
                                              "(phase 9b)",
@@ -5691,7 +6052,9 @@ def main() -> None:
                                             "(phase 9b)",
              "flash_attention[decode_lse]": "granite-3-8b widths' split-KV "
                                             "decode, every rank of a 2 x 4 "
-                                            "mesh (phase 11b)",
+                                            "mesh; the tensor-parallel "
+                                            "serving's steps on 2 x 4 and "
+                                            "1 x 4 (phase 11b)",
              "segment_spmm[ogb_products]": "GCN forward (phase 10); GNN "
                                            "training (phase 11)",
              "segment_spmm[molecule]":
@@ -5732,7 +6095,9 @@ def main() -> None:
         f"segment_spmm launches {gnn_counts}, GNN training segment_spmm "
         f"launches ({GNN_TRAIN_STEPS} steps each) {train_gnn}, split-KV "
         f"decode flash lse launches over the 8 ranks ({MM_DECODE_REPS} "
-        f"steps) {mesh_models['launches']}, minibatch_lg segment_spmm "
+        f"steps) {mesh_models['launches']}, tensor-parallel serving flash "
+        f"launches over the ranks (prefill {mesh_models['tp_prefill']}, "
+        f"steps {mesh_models['tp_decode']}), minibatch_lg segment_spmm "
         f"launches (forwards {mb['launched']}, GCN training {mb['train']}), "
         f"dry run {len(dry['records'])} records (not run here: "
         f"{dry['skipped']}), dry run against the card "

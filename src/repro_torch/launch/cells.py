@@ -18,9 +18,14 @@ The steps are the port's own:
             gradient reduce-scattered as the backward leaves it, the
             float32 sum of the gradient blocks, AdamW. The model's whole
             leaves hold no storage;
-  prefill — `Transformer.prefill` on the rank's block of the batch;
-  decode  — `Transformer.decode_step(..., mesh=)`, split-KV over the
-            cache's sequence axes (`models.transformer.decode_axes`);
+  prefill — `Transformer.prefill(..., mesh=)` over the rank's
+            `lm_rules` blocks (``LM_SERVE_FSDP``: over the data axes too)
+            and its block of the batch: the layers tensor-parallel over
+            "model", the last position's logits as the rank's vocabulary
+            block, its block of the cache the decode reads;
+  decode  — `Transformer.decode_step(..., mesh=)` over the same blocks
+            and the rank's block of the tokens, split-KV over the cache's
+            sequence axes (`models.transformer.decode_axes`);
   GNN     — the Trainer's mesh step over the graph batch of
             `gnn_full_shapes`;
   recsys  — the Trainer's mesh step, `XDeepFM.forward` through the
@@ -188,8 +193,8 @@ LM_TRAIN_KNOBS = {
 # deepseek params don't fit TP-only at inference: shard over data too
 LM_SERVE_FSDP = {"deepseek-v3-671b": True}
 
-LAYOUT_WHOLE_PARAMS = ("whole leaves on every rank: the port has no "
-                       "tensor-parallel dense layers")
+LAYOUT_WHOLE_PARAMS = ("whole leaves on every rank: the port serves "
+                       "xDeepFM with whole tables, not rows over 'model'")
 
 
 def _lm_model_flops(cfg, n_tokens: int, *, train: bool) -> float:
@@ -266,72 +271,73 @@ def build_lm_cell(arch_id: str, shape_id: str, mesh, *, cfg=None,
                     dict(cfg=cfg_t, accum=accum, task=task,
                          x_shape=(mb // dp_sz, S, cfg.d_model)))
 
+    fsdp = LM_SERVE_FSDP.get(arch_id, False)
+
+    def serving_state(cfg_x, device, seed):
+        """(this rank's blocks, the spec tree, the model they came from)
+        of the serving weights under `lm_rules`."""
+        model = Transformer.random(cfg_x, seed=seed, device=device)
+        specs = make_param_specs(model.param_tree(), mesh,
+                                 lm_rules(mesh, fsdp=fsdp))
+        return _blocks(model.param_tree(), specs, mesh,
+                       device=device), specs, model
+
     if shape_id == "prefill_32k":
         S = sd["seq"]
         cfg_s = dataclasses.replace(cfg, attn_chunk=2048)
-        fsdp = LM_SERVE_FSDP.get(arch_id, False)
         b_loc = B // dp_sz if B % dp_sz == 0 and B > 1 else B
 
         def build(device, seed=0):
-            model = Transformer.random(cfg_s, seed=seed, device=device)
+            blocks, specs, _ = serving_state(cfg_s, device, seed)
             toks = _meta((b_loc, S), I32) if device == "meta" else \
                 _lm_tokens(cfg.vocab_size, (b_loc, S), device, seed + 1)
-            return (model, toks)
+            return (blocks, toks), specs
 
-        args = build("meta")
-        specs = make_param_specs(args[0].param_tree(), mesh,
-                                 lm_rules(mesh, fsdp=fsdp))
+        args, specs = build("meta")
 
-        def prefill_step(model, tokens):
+        def prefill_step(params, tokens):
+            model = Transformer(cfg_s, Blocks(params, specs, mesh))
             with torch.no_grad():
-                logits, cache = model.prefill(tokens)
-            return logits[:, -1, :], cache
+                return model.prefill(tokens, mesh=mesh, batch=B)
 
         return Cell(arch_id, shape_id, "prefill", prefill_step, args,
-                    ("model", "tokens"), specs,
+                    ("params", "tokens"), specs,
                     {"params": specs, "tokens": P(dp, None)},
                     _lm_model_flops(cfg, B * S, train=False),
-                    dict(attn_chunk=cfg_s.attn_chunk, layout={
-                        "params": LAYOUT_WHOLE_PARAMS,
-                        "logits": "Transformer.prefill takes no mesh= and "
-                                  "computes every position's logits; the "
-                                  "step keeps the last"}),
-                    mesh, build, dict(cfg=cfg_s, x_shape=(b_loc, S,
-                                                          cfg.d_model)))
+                    dict(attn_chunk=cfg_s.attn_chunk),
+                    mesh, lambda device: build(device)[0],
+                    dict(cfg=cfg_s, batch=B,
+                         x_shape=(b_loc, S, cfg.d_model)))
 
     # decode shapes
     T = sd["seq"]
-    fsdp = LM_SERVE_FSDP.get(arch_id, False)
+    b_loc = B // dp_sz if B > 1 else 1
 
     def build(device, seed=0):
-        model = Transformer.random(cfg, seed=seed, device=device)
+        blocks, specs, model = serving_state(cfg, device, seed)
         cache = model.init_cache(B, T, mesh=mesh)
-        toks = _meta((B, 1), I32) if device == "meta" else \
-            _lm_tokens(cfg.vocab_size, (B, 1), device, seed + 1)
-        return (model, cache, toks)
+        toks = _meta((b_loc, 1), I32) if device == "meta" else \
+            _lm_tokens(cfg.vocab_size, (b_loc, 1), device, seed + 1)
+        return (blocks, cache, toks), specs, model.cache_specs(B, mesh)
 
-    args = build("meta")
-    specs = make_param_specs(args[0].param_tree(), mesh,
-                             lm_rules(mesh, fsdp=fsdp))
+    args, specs, cache_specs = build("meta")
 
-    def decode(model, cache, tokens):
+    def decode(params, cache, tokens):
+        model = Transformer(cfg, Blocks(params, specs, mesh))
         with torch.no_grad():
-            logits, cache = model.decode_step(cache, tokens, T - 1,
-                                              mesh=mesh)
-        return logits, cache
+            return model.decode_step(cache, tokens, T - 1, mesh=mesh,
+                                     batch=B)
 
     return Cell(arch_id, shape_id, "decode", decode, args,
-                ("model", "cache", "tokens"), specs,
-                {"params": specs, "cache": args[0].cache_specs(B, mesh),
+                ("params", "cache", "tokens"), specs,
+                {"params": specs, "cache": cache_specs,
                  "tokens": P(dp if B > 1 else None, None)},
                 _lm_model_flops(cfg, B, train=False),
                 dict(kv_len=T, layout={
-                    "params": LAYOUT_WHOLE_PARAMS,
-                    "tokens": "every rank takes every token; logits are "
-                              "gathered over the data axes",
                     "cur": "the position is a Python int (T - 1), not a "
                            "device scalar"}),
-                mesh, build, dict(cfg=cfg, cur=T - 1))
+                mesh, lambda device: build(device)[0],
+                dict(cfg=cfg, batch=B, cur=T - 1))
 
 
 # ---------------------------------------------------------------------------

@@ -17,13 +17,15 @@ the cell's own step:
   layer_dense / layer_moe — one layer as the step runs it: for train its
       blocks gathered, its forward under `torch.utils.checkpoint` and its
       backward (the recompute and its gathers included, the gradients'
-      reduce-scatters), for prefill its cached forward through the flash
-      kernel, for decode its cached split-KV step on the mesh;
+      reduce-scatters); for prefill and decode its blocks gathered over
+      the data axes and its tensor-parallel forward (`serve_layer`): the
+      prefill's through the flash kernel into the rank's cache slots, the
+      decode's cached split-KV step;
   head — everything of a micro-batch but the layers: the embedding, the
       final norm, the head (each gathered from its blocks), the
       cross-entropy (``ce_chunk``) and the MTP term with their backward
-      (train), the logits (prefill), the logits and their gather over the
-      data axes (decode);
+      (train), the vocabulary-parallel embedding and the last position's
+      logits block (prefill, decode);
   opt — everything once per step: the metrics' collective, the
       gradients' sum over the micro-batches and division, the norm and
       AdamW.
@@ -85,14 +87,18 @@ def lm_component_costs(arch_id: str, shape_id: str, mesh, *, cell=None,
     """{"components", "adjusted", "trips"} of an LM cell on ``mesh`` (a
     `MetaMesh`); ``cell`` reuses a built cell, ``overrides`` pass to
     `cells.build_lm_cell` (cfg, shape_def, knobs)."""
-    from repro_torch.models.transformer import (Transformer, _depths,
-                                                _layer_fwd, _map, decode_axes,
-                                                init_cache, layer_specs,
-                                                loss_fn, train_layer)
+    from repro_torch.models.transformer import (Transformer, _depths, _map,
+                                                decode_axes, layer_specs,
+                                                loss_fn, serve_layer,
+                                                train_layer)
     from repro_torch.runtime.trainer import Trainer, TrainTask
     cell = cell or build_lm_cell(arch_id, shape_id, mesh, **overrides)
-    model = cell.args[0]
     cfg = cell.parts["cfg"]
+    if cell.kind == "train":
+        model = cell.args[0]
+    else:                   # the serving cells take the rank's blocks
+        model = Transformer(cfg, Blocks(cell.args[0], cell.param_specs,
+                                        mesh))
     params = model.params
     dt = params["embed"].dtype
     n_dense, n_moe = _depths(cfg)
@@ -170,61 +176,53 @@ def lm_component_costs(arch_id: str, shape_id: str, mesh, *, cell=None,
                                       batch), mesh)
     else:
         accum = 1
-        zero = Transformer(_no_layers(cfg), params)
+        batch = cell.parts["batch"]
+        specs = cell.param_specs
+        tokens = cell.args[-1]
+        _, t_ax = decode_axes(mesh, batch)
+        rest = [k for k in params if k not in ("dense_layers", "moe_layers")]
+        zero = Transformer(_no_layers(cfg), Blocks(
+            {k: params[k] for k in rest}, {k: specs[k] for k in rest}, mesh))
+
+        def layer_cost(moe: bool, x_shape, positions, cur, cache):
+            key = "moe_layers" if moe else "dense_layers"
+            ca, cb = (t[0] for t in cache["moe" if moe else "dense"])
+
+            def fn(lp, x, ca_, cb_):
+                with torch.no_grad():
+                    return serve_layer(lp, cfg, x, positions, cur, moe,
+                                       (ca_, cb_, cur), mesh=mesh,
+                                       specs=layer_specs(specs, key),
+                                       use_kernel=True, drops=[],
+                                       seq_axes=t_ax, split=True)
+            return _cost(fn, (first_layer(moe), _meta_like(x_shape, dt), ca,
+                              cb), mesh)
+
         if cell.kind == "prefill":
             b, s, _ = cell.parts["x_shape"]
-            tokens = cell.args[1]
-
-            def layer_cost(moe: bool):
-                stack = init_cache(cfg, b, s, device="meta")[
-                    "moe" if moe else "dense"]
-                cache = tuple(t[0] for t in stack)
-
-                def fn(lp, x, ca, cb):
-                    positions = torch.arange(s, device="meta")[None]
-                    with torch.no_grad():
-                        return _layer_fwd(lp, cfg, x, positions, 0, moe,
-                                          (ca, cb, 0), use_kernel=True,
-                                          drops=[])
-                return _cost(fn, (first_layer(moe), _meta_like(
-                    (b, s, cfg.d_model), dt), *cache), mesh)
+            cache = model.init_cache(batch, s, mesh=mesh)
+            layer_args = ((b, s, cfg.d_model),
+                          torch.arange(s, device="meta")[None], 0, cache)
 
             def head_fn(z, toks):
                 with torch.no_grad():
-                    logits, cache = z.prefill(toks)
-                return logits[:, -1, :], cache
-            comps["head"] = _cost(head_fn, (zero, tokens), mesh)
+                    return z.prefill(toks, mesh=mesh, batch=batch)
         else:
             cur = cell.parts["cur"]
-            cache, tokens = cell.args[1], cell.args[2]
-            b_ax, t_ax = decode_axes(mesh, tokens.shape[0])
-            b_loc = tokens.shape[0] // (mesh.axes_size(b_ax) if b_ax else 1)
-
-            def layer_cost(moe: bool):
-                name = "moe" if moe else "dense"
-                ca, cb = (c[0] for c in cache[name])
-
-                def fn(lp, x, ca_, cb_):
-                    positions = torch.full((b_loc, 1), cur, dtype=torch.int32,
-                                           device="meta")
-                    with torch.no_grad():
-                        return _layer_fwd(lp, cfg, x, positions, cur, moe,
-                                          (ca_, cb_, cur), use_kernel=True,
-                                          drops=[], mesh=mesh,
-                                          seq_axes=t_ax,
-                                          split=b_ax is not None)
-                return _cost(fn, (first_layer(moe), _meta_like(
-                    (b_loc, 1, cfg.d_model), dt), ca, cb), mesh)
+            b_loc = tokens.shape[0]
+            layer_args = ((b_loc, 1, cfg.d_model),
+                          torch.full((b_loc, 1), cur, dtype=torch.int32,
+                                     device="meta"), cur, cell.args[1])
 
             def head_fn(z, toks):
                 with torch.no_grad():
                     return z.decode_step({"dense": None, "moe": None}, toks,
-                                         cur, mesh=mesh)[0]
-            comps["head"] = _cost(head_fn, (zero, tokens), mesh)
+                                         cur, mesh=mesh, batch=batch)[0]
+        comps["head"] = _cost(head_fn, (zero, tokens), mesh)
         if n_dense:
-            comps["layer_dense"] = layer_cost(False)
+            comps["layer_dense"] = layer_cost(False, *layer_args)
         if n_moe:
-            comps["layer_moe"] = layer_cost(True)
+            comps["layer_moe"] = layer_cost(True, *layer_args)
 
     nothing = _scale(comps["head"], 0.0)
     total = _add(

@@ -41,6 +41,21 @@ kernel's split route with its log-sum-exp on each rank's slice of the
 cache, then one max and one sum all_reduce; MLA's absorbed decode with
 `wkv_b` gathered over "model", one max and two sum all_reduces.
 
+Serving on a mesh rank's `lm_rules` blocks (`Transformer.on_blocks`;
+the reference jits `prefill` and `decode_step` over the mesh with those
+``in_shardings`` and ``ACT_SHARDING``) is tensor-parallel over "model":
+each layer gathers its blocks over the data axes alone (`serve_layer`;
+deepseek-v3's ``LM_SERVE_FSDP``), the q projections and ``w_in`` /
+``w_gate`` are column blocks, ``wo`` and ``w_out`` row blocks followed by
+one all_reduce each, the shared expert's partial joins the routed
+experts' all_reduce, and the embedding and the head are
+vocabulary-parallel. `Transformer.prefill(..., mesh=)` computes the
+rank's heads and writes every KV head (or the MLA latent) of the rank's
+own cache slots from its rows, so the cache comes out in the split-KV
+decode's sequence-sharded layout with no key or value on the wire. A
+leaf whose spec keeps it whole over "model" computes whole with no
+collective, so whole leaves run the same path.
+
 Training (`hidden_forward`, `ce_from_hidden`, `loss_fn`) follows the
 reference's plain path: `_sdpa` attention under autograd, the cross-entropy
 over the unpadded vocabulary, optionally in sequence chunks each
@@ -71,7 +86,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_lse_ref
 from repro_torch.sharding.rules import (AllReduce, Blocks, Gather, P,
                                         Replicated, Shard, batch_axis,
-                                        gather_for_compute)
+                                        gather_for_compute, model_block_dim)
 
 
 @dataclass(frozen=True)
@@ -261,19 +276,127 @@ def _sdpa(q, k, v, scale, q_start, *, chunk: int = 0):
     return out.reshape(B, S, H, v.shape[-1])
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism over "model": a mesh rank's `lm_rules` blocks
+# ---------------------------------------------------------------------------
+
+def _block(mesh, specs, name) -> bool:
+    """Whether leaf ``name`` of a module's spec dict ``specs`` (None: whole
+    leaves) is this rank's block over "model" (`model_block_dim`)."""
+    return (mesh is not None and specs is not None
+            and model_block_dim(specs[name], mesh) is not None)
+
+
+def _head_cols(w, mesh, specs, name, n_heads: int):
+    """(the columns of the head-major projection ``w`` this rank computes
+    with, its first head, its last head + 1): its column block, or ``w``
+    itself where it is whole. A block that would cut a head raises."""
+    if not _block(mesh, specs, name):
+        return w, 0, n_heads
+    m = mesh.axes_size("model")
+    if n_heads % m:
+        raise ValueError(f"{n_heads} heads do not divide over {m} model "
+                         f"ranks: a block of {name} would cut a head")
+    n = n_heads // m
+    j = mesh.axis_index("model")
+    return w, j * n, (j + 1) * n
+
+
+def _heads_of(w, mesh, specs, name, n_heads: int, h0: int, h1: int):
+    """The columns of heads h0 .. h1 - 1 of the head-major ``w``: this
+    rank's block, or cut from ``w`` where it is whole."""
+    if _block(mesh, specs, name):
+        return _head_cols(w, mesh, specs, name, n_heads)[0]
+    per = w.shape[-1] // n_heads
+    return w[..., h0 * per:h1 * per]
+
+
+def _whole_cols(w, mesh, specs, name):
+    """``w`` with every column: its blocks gathered over "model" where it
+    holds a column block."""
+    return mesh.all_gather(w, "model", dim=-1) \
+        if _block(mesh, specs, name) else w
+
+
+def _row_parallel(out, w, mesh, specs, name, col0: int = 0):
+    """``out @ w`` over the rows of ``w`` this rank holds. Where ``w`` is
+    a row block over "model", the product of ``out``'s matching columns
+    (its first column is global column ``col0``) is a partial sum,
+    all-reduced over "model"; else ``out`` holds every column."""
+    if not _block(mesh, specs, name):
+        return out @ w
+    r = w.shape[0]
+    start = mesh.axis_index("model") * r - col0
+    return mesh.all_reduce(out[..., start:start + r] @ w, "model")
+
+
+def _gather_cols(mesh, parts):
+    """Each (..., n_i) tensor of ``parts`` with its columns gathered over
+    "model" in rank order, in one all_gather of them packed side by
+    side."""
+    sizes = [t.shape[-1] for t in parts]
+    g = mesh.all_gather(torch.cat(parts, dim=-1), "model", tiled=False)
+    return [pc.movedim(0, -2).reshape(*t.shape[:-1], -1)
+            for pc, t in zip(g.split(sizes, dim=-1), parts)]
+
+
+def _project(x, p, names, mesh=None, specs=None) -> list:
+    """``x @ p[name]`` for each of ``names``, every column: the products
+    with a column block over "model" gathered in one all_gather."""
+    out = [x @ p[n] for n in names]
+    split = [i for i, n in enumerate(names) if _block(mesh, specs, n)]
+    for i, t in zip(split, _gather_cols(mesh, [out[i] for i in split])
+                    if split else ()):
+        out[i] = t
+    return out
+
+
+def _kv_heads(h0: int, h1: int, group: int) -> tuple[int, int]:
+    """(first KV head, last + 1) of q heads h0 .. h1 - 1 in groups of
+    ``group``: one KV head shared by the rank's q heads, or whole groups
+    (flash and `_sdpa` take equal groups; other cuts raise)."""
+    kv0, kv1 = h0 // group, (h1 - 1) // group + 1
+    if kv1 - kv0 > 1 and (h0 % group or (h1 - h0) % group):
+        raise ValueError(f"q heads {h0} .. {h1 - 1} make no equal groups "
+                         f"of their KV heads (groups of {group})")
+    return kv0, kv1
+
+
+def _local_rows(t_loc: int, cur: int, s: int, mesh, seq_axes):
+    """(this rank's first slot, the first position it writes, the last +
+    1) of ``s`` rows at positions cur .. cur + s - 1 into its ``t_loc``
+    slots of a cache split along ``seq_axes``."""
+    off = mesh.axis_index(seq_axes) * t_loc
+    n = mesh.axes_size(seq_axes) * t_loc
+    if not 0 <= cur <= n - s:
+        raise ValueError(f"cache of {n} slots cannot take {s} rows at "
+                         f"position {cur}")
+    return off, max(cur, off), min(cur + s, off + t_loc)
+
+
 def _gqa_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
-                   use_kernel: bool = True, mesh=None, seq_axes=None):
+                   use_kernel: bool = True, mesh=None, seq_axes=None,
+                   specs=None):
     """Attention of one layer. ``cache`` is (ck, cv, cur): the layer's
     (B, T, Hkv, dh) cache tensors, into whose slots cur .. cur + S the new
     keys and values are written in place, and the first slot's index.
-    A decode step on a ``mesh`` holds this rank's slice of the cache's
-    sequence along ``seq_axes`` and attends split-KV
-    (`_decode_attn_split_kv`)."""
+    On a ``mesh`` the cache holds this rank's slice of the sequence along
+    ``seq_axes``, and the leaves may be its blocks over "model" (``specs``,
+    the module's spec dict): a prefill computes its own heads
+    (`_gqa_prefill_mesh`); a decode step gathers the new token's q, k and v
+    over "model" (one all_gather of the blocks' columns), attends split-KV
+    (`_decode_attn_split_kv`) and projects through its row block of
+    ``wo``, one all_reduce. Leaves whole over "model" compute whole, with
+    no collective."""
     B, S, D = x.shape
     c = cfg
-    q = (x @ p["wq"]).reshape(B, S, c.n_heads, c.d_head)
-    k = (x @ p["wk"]).reshape(B, S, c.n_kv_heads, c.d_head)
-    v = (x @ p["wv"]).reshape(B, S, c.n_kv_heads, c.d_head)
+    if mesh is not None and S > 1:
+        return _gqa_prefill_mesh(p, c, x, positions, cache, mesh, seq_axes,
+                                 specs, use_kernel=use_kernel)
+    q, k, v = _project(x, p, ("wq", "wk", "wv"), mesh, specs)
+    q = q.reshape(B, S, c.n_heads, c.d_head)
+    k = k.reshape(B, S, c.n_kv_heads, c.d_head)
+    v = v.reshape(B, S, c.n_kv_heads, c.d_head)
     cos, sin = rope_freqs(positions, c.d_head, c.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -283,7 +406,8 @@ def _gqa_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
         out = _decode_attn_split_kv(q, ck, cv, cur - off,
                                     1.0 / math.sqrt(c.d_head), mesh,
                                     seq_axes, use_kernel=use_kernel)
-        return out.reshape(B, S, c.n_heads * c.d_head) @ p["wo"]
+        return _row_parallel(out.reshape(B, S, c.n_heads * c.d_head),
+                             p["wo"], mesh, specs, "wo")
     if cache is not None:
         ck, cv, cur = cache
         if not 0 <= cur <= ck.shape[1] - S:
@@ -302,8 +426,56 @@ def _gqa_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
     return out.reshape(B, S, c.n_heads * c.d_head) @ p["wo"]
 
 
+def _gqa_prefill_mesh(p, cfg: LMConfig, x, positions, cache, mesh,
+                      seq_axes, specs, *, use_kernel: bool):
+    """One GQA layer of a prefill (from position 0) on a mesh rank, over
+    its (B_loc, S, D) rows, which every rank of its model line holds.
+
+    The rank computes the q heads of its ``wq`` column block and the KV
+    heads they read, from ``wk`` / ``wv`` whole (their blocks gathered over
+    "model": the KV heads need not line up with the ranks), attends over
+    them (flash, or `_sdpa` without ``use_kernel``) and projects through
+    its row block of ``wo``, one all_reduce. The cache the decode reads
+    splits the slots, not the heads: the rank computes every KV head of
+    its own slots from its rows of ``x``, so no key or value crosses the
+    wire (the bytes moved are ``wk`` and ``wv``)."""
+    c = cfg
+    B, S, _ = x.shape
+    dh, group = c.d_head, c.n_heads // c.n_kv_heads
+    ck, cv, cur = cache
+    if cur:
+        raise ValueError(f"a prefill on a mesh starts at position 0, not "
+                         f"{cur}")
+    wq, h0, h1 = _head_cols(p["wq"], mesh, specs, "wq", c.n_heads)
+    wk, wv = (_whole_cols(p[n], mesh, specs, n) for n in ("wk", "wv"))
+    kv0, kv1 = _kv_heads(h0, h1, group)
+    cos, sin = rope_freqs(positions, dh, c.rope_theta)
+    cols = slice(kv0 * dh, kv1 * dh)
+    q = apply_rope((x @ wq).reshape(B, S, h1 - h0, dh), cos, sin)
+    k = apply_rope((x @ wk[:, cols]).reshape(B, S, kv1 - kv0, dh), cos, sin)
+    v = (x @ wv[:, cols]).reshape(B, S, kv1 - kv0, dh)
+    off, lo, hi = _local_rows(ck.shape[1], 0, S, mesh, seq_axes)
+    if lo < hi:
+        xs = x[:, lo:hi]
+        ck[:, lo - off:hi - off] = apply_rope(
+            (xs @ wk).reshape(B, hi - lo, c.n_kv_heads, dh),
+            cos[:, lo:hi], sin[:, lo:hi])
+        cv[:, lo - off:hi - off] = (xs @ wv).reshape(B, hi - lo,
+                                                     c.n_kv_heads, dh)
+    scale = 1.0 / math.sqrt(dh)
+    if use_kernel:
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True, scale=scale,
+                              q_start=0).transpose(1, 2)
+    else:
+        out = _sdpa(q, k, v, scale, 0, chunk=c.attn_chunk)
+    return _row_parallel(out.reshape(B, S, (h1 - h0) * dh), p["wo"], mesh,
+                         specs, "wo", h0 * dh)
+
+
 def _mla_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
-                   use_kernel: bool = True, mesh=None, seq_axes=None):
+                   use_kernel: bool = True, mesh=None, seq_axes=None,
+                   specs=None):
     """DeepSeek MLA with the compressed cache: ``cache`` is (cc, cr, cur),
     the layer's (B, T, kv_lora) latent and (B, T, 1, rope) decoupled key,
     into whose slots cur .. cur + S the new entries are written in place.
@@ -312,14 +484,25 @@ def _mla_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
     cache) attends in the latent space with `wkv_b` absorbed; otherwise the
     latent is expanded into per-head keys and values for `_sdpa`. MLA
     reaches no kernel (``use_kernel`` is accepted for the GQA signature).
-    A decode step on a ``mesh`` holds this rank's slice of the latent
-    cache's sequence along ``seq_axes`` (`_mla_decode_split_kv`)."""
+    On a ``mesh`` the cache holds this rank's slice of the sequence along
+    ``seq_axes``, and ``wq_b``, ``wkv_b`` and ``wo`` may be its blocks over
+    "model" (``specs``): a prefill expands and attends over its own heads
+    and writes the latent of its own slots, which every rank computes
+    whole (``wkv_a`` is whole); a decode step gathers the new token's q
+    over "model" and attends split-KV (`_mla_decode_split_kv`); both
+    project through the rank's row block of ``wo``, one all_reduce."""
     c = cfg
     B, S, D = x.shape
+    H = c.n_heads
+    wq_b, h0, h1 = p["wq_b"], 0, H
+    if mesh is not None and S > 1:      # a prefill: this rank's heads
+        wq_b, h0, h1 = _head_cols(wq_b, mesh, specs, "wq_b", H)
     qin = rmsnorm(x @ p["wq_a"], p["q_norm"], c.norm_eps) \
         if c.q_lora_rank else x
-    q = (qin @ p["wq_b"]).reshape(B, S, c.n_heads,
-                                  c.qk_nope_dim + c.qk_rope_dim)
+    q = qin @ wq_b
+    if S == 1 and _block(mesh, specs, "wq_b"):      # every head, to decode
+        q, = _gather_cols(mesh, [q])
+    q = q.reshape(B, S, h1 - h0, c.qk_nope_dim + c.qk_rope_dim)
     q_nope, q_rope = q.split([c.qk_nope_dim, c.qk_rope_dim], dim=-1)
     c_kv, k_rope = (x @ p["wkv_a"]).split([c.kv_lora_rank, c.qk_rope_dim],
                                           dim=-1)
@@ -327,14 +510,21 @@ def _mla_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
     cos, sin = rope_freqs(positions, c.qk_rope_dim, c.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)   # (B, S, 1, rope)
+    wkv_b = p["wkv_b"]
     if mesh is not None:
         cc, cr, cur = cache
+        if S > 1 and cur:
+            raise ValueError(f"a prefill on a mesh starts at position 0, "
+                             f"not {cur}")
         off = _write_local_slot((cc, cr), (c_kv, k_rope), cur, mesh,
                                 seq_axes)
-        out = _mla_decode_split_kv(c, q_nope, q_rope, cc, cr, p["wkv_b"],
-                                   cur - off, mesh, seq_axes)
-        return out.reshape(B, S, c.n_heads * c.v_head_dim) @ p["wo"]
-    if cache is not None:
+        if S == 1:
+            out = _mla_decode_split_kv(c, q_nope, q_rope, cc, cr, wkv_b,
+                                       cur - off, mesh, seq_axes)
+            return _row_parallel(out.reshape(B, S, H * c.v_head_dim),
+                                 p["wo"], mesh, specs, "wo")
+        wkv_b = _heads_of(wkv_b, mesh, specs, "wkv_b", H, h0, h1)
+    elif cache is not None:
         cc, cr, cur = cache
         if not 0 <= cur <= cc.shape[1] - S:
             raise ValueError(f"cache of {cc.shape[1]} slots cannot take "
@@ -347,8 +537,8 @@ def _mla_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
     if cache is not None and S == 1:
         # absorbed decode: the per-token (B, T, H, .) keys and values are
         # never formed; memory per layer stays O(B T kv_lora)
-        w_uk, w_uv = p["wkv_b"].reshape(
-            c.kv_lora_rank, c.n_heads, c.qk_nope_dim + c.v_head_dim).split(
+        w_uk, w_uv = wkv_b.reshape(
+            c.kv_lora_rank, H, c.qk_nope_dim + c.v_head_dim).split(
             [c.qk_nope_dim, c.v_head_dim], dim=-1)
         q_lat = torch.einsum("bshd,lhd->bshl", q_nope, w_uk)
         scores = (torch.einsum("bshl,btl->bhst", q_lat, c_kv)
@@ -359,15 +549,16 @@ def _mla_attention(p, cfg: LMConfig, x, positions, q_start, cache=None, *,
         ctx = torch.einsum("bhst,btl->bshl", probs, c_kv)
         out = torch.einsum("bshl,lhd->bshd", ctx, w_uv)
     else:
-        T = c_kv.shape[1]
-        k_nope, v = (c_kv @ p["wkv_b"]).reshape(
-            B, T, c.n_heads, c.qk_nope_dim + c.v_head_dim).split(
+        T, n = c_kv.shape[1], h1 - h0
+        k_nope, v = (c_kv @ wkv_b).reshape(
+            B, T, n, c.qk_nope_dim + c.v_head_dim).split(
             [c.qk_nope_dim, c.v_head_dim], dim=-1)
-        k = torch.cat([k_nope, k_rope.expand(B, T, c.n_heads,
-                                             c.qk_rope_dim)], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(B, T, n, c.qk_rope_dim)],
+                      dim=-1)
         out = _sdpa(torch.cat([q_nope, q_rope], dim=-1), k, v, scale,
                     q_start, chunk=c.attn_chunk)
-    return out.reshape(B, S, c.n_heads * c.v_head_dim) @ p["wo"]
+    return _row_parallel(out.reshape(B, S, (h1 - h0) * c.v_head_dim),
+                         p["wo"], mesh, specs, "wo", h0 * c.v_head_dim)
 
 
 def decode_axes(mesh, batch: int):
@@ -386,19 +577,16 @@ def decode_axes(mesh, batch: int):
 
 
 def _write_local_slot(cache, new, cur: int, mesh, seq_axes) -> int:
-    """Write the step's entries (each (B, 1, ...)) into slot ``cur`` of
-    this rank's slices of the cache (each (B, T_loc, ...)) when this rank
-    owns that slot: the in-place counterpart of the reference's masked
-    update over a sequence-sharded cache. Returns the slice's first
-    global position."""
-    t_loc = cache[0].shape[1]
-    off = mesh.axis_index(seq_axes) * t_loc
-    if not 0 <= cur < mesh.axes_size(seq_axes) * t_loc:
-        raise ValueError(f"cache of {mesh.axes_size(seq_axes) * t_loc} "
-                         f"slots cannot take a row at position {cur}")
-    if off <= cur < off + t_loc:
+    """Write the step's S entries (each (B, S, ...), positions cur ..
+    cur + S - 1) into this rank's slices of the cache (each (B, T_loc,
+    ...)) where they fall in them: the in-place counterpart of the
+    reference's masked update over a sequence-sharded cache. Returns the
+    slice's first global position."""
+    off, lo, hi = _local_rows(cache[0].shape[1], cur, new[0].shape[1], mesh,
+                              seq_axes)
+    if lo < hi:
         for dst, src in zip(cache, new):
-            dst[:, cur - off] = src[:, 0]
+            dst[:, lo - off:hi - off] = src[:, lo - cur:hi - cur]
     return off
 
 
@@ -542,7 +730,7 @@ def moe_experts(w, cfg: LMConfig, buf):
 
 
 def _moe_mlp(p, cfg: LMConfig, x, drops: list | None = None, *,
-             mesh=None, split: bool = True):
+             mesh=None, split: bool = True, specs=None):
     """Capacity-bounded top-k MoE with scatter dispatch (no (T, E, C)
     one-hot): the kept (token, k) pairs scattered into (E, capacity, D),
     the experts' MLPs as batched products, the pairs gathered back (a
@@ -557,15 +745,21 @@ def _moe_mlp(p, cfg: LMConfig, x, drops: list | None = None, *,
     reference's route where the tokens do not divide over the data axes
     (a decode step of one sequence), the one-device layer over the whole
     expert weights. ``p["experts"]`` holds each rank's block under
-    `lm_rules` or the whole weights; the router and the shared expert are
-    whole."""
+    `lm_rules` or the whole weights; the router is whole. The shared
+    expert is whole, or (``specs``, the layer's spec tree) this rank's
+    column and row blocks over "model", whose partial output joins the
+    routed experts' before their one all_reduce."""
     c = cfg
     B, S, D = x.shape
     T = B * S
     xt = x.reshape(T, D)
+    shared_tp = bool(c.n_shared_experts) and mesh is not None and split \
+        and _block(mesh, None if specs is None else specs["shared"], "w_out")
     if mesh is not None and split:
         gates, idx = moe_gates(p, c, xt)
-        comb = _moe_mlp_ep(p["experts"], c, xt, gates, idx, mesh, drops)
+        comb = _moe_mlp_ep(p["experts"], c, xt, gates, idx, mesh, drops,
+                           extra=_mlp(p["shared"], xt, c.mlp) if shared_tp
+                           else None)
     else:
         w = p["experts"] if mesh is None else _expert_weights(
             p["experts"], c, mesh, "whole")
@@ -575,7 +769,7 @@ def _moe_mlp(p, cfg: LMConfig, x, drops: list | None = None, *,
         out_e = moe_experts(w, c, moe_dispatch(c, xt, e_safe, p_safe, keep))
         gath = out_e[e_safe, p_safe] * keep[:, None]           # (T k, D)
         comb = (gath.reshape(T, c.top_k, D) * gates[..., None]).sum(dim=1)
-    if c.n_shared_experts:
+    if c.n_shared_experts and not shared_tp:
         comb = comb + _mlp(p["shared"], xt, c.mlp)
     return comb.reshape(B, S, D)
 
@@ -639,15 +833,18 @@ def moe_mesh_capacity(cfg: LMConfig, n_local: int) -> int:
     return int(np.ceil(cap / 8)) * 8
 
 
-def _moe_mlp_ep(w, cfg: LMConfig, xt, gates, idx, mesh, drops=None):
+def _moe_mlp_ep(w, cfg: LMConfig, xt, gates, idx, mesh, drops=None,
+                extra=None):
     """The routed experts on a mesh rank (the reference's
     `_moe_mlp_ep_shard_map`). EP (E % model == 0): this model column
     keeps E / model experts and routes its local tokens' pairs that go to
     them; expert-TP: it holds every expert's d_ff / model slice and
     computes partial outputs for every pair. The pairs are combined to
     tokens on each column, then summed in one (T_loc, D) all_reduce over
-    "model" (`AllReduce`); the tokens and gates, the same on every column,
-    sum their gradients over "model" (`Replicated`)."""
+    "model" (`AllReduce`), with ``extra`` (another partial (T_loc, D)
+    output, the tensor-parallel shared expert's) added first; the tokens
+    and gates, the same on every column, sum their gradients over "model"
+    (`Replicated`)."""
     c = cfg
     mdl = _model_axis(mesh)
     ep = moe_mesh_mode(c, mesh) == "ep"
@@ -675,25 +872,38 @@ def _moe_mlp_ep(w, cfg: LMConfig, xt, gates, idx, mesh, drops=None):
     out_e = moe_experts(wl, c, buf)                 # partial iff expert-TP
     gath = out_e[e_safe, p_safe] * keep[:, None]
     comb = (gath.reshape(t_loc, c.top_k, D) * g_in[..., None]).sum(dim=1)
+    if extra is not None:
+        comb = comb + extra
     return AllReduce.apply(comb, mesh, mdl)
 
 
 def _layer_fwd(p, cfg: LMConfig, x, positions, q_start, moe: bool = False,
                cache=None, *, use_kernel: bool = True,
                drops: list | None = None, mesh=None, seq_axes=None,
-               split: bool = True):
+               split: bool = True, specs=None):
     """One layer. On a ``mesh``: a cache holds this rank's slices along
-    ``seq_axes`` (a decode step), and the MoE layer runs expert-parallel
-    over this rank's tokens (``split``) or the one-device route over
-    every token."""
+    ``seq_axes`` (a prefill or a decode step), and the MoE layer runs
+    expert-parallel over this rank's tokens (``split``) or the one-device
+    route over every token. With ``specs`` (the layer's spec tree) the
+    leaves are this rank's blocks over "model" (gathered over the data
+    axes where stored there): the layer runs tensor-parallel, the MLP
+    with its column blocks of ``w_in`` / ``w_gate`` and its row block of
+    ``w_out``, one all_reduce."""
+    sp = (lambda k: None) if specs is None else specs.get
     attn = _mla_attention if cfg.attn == "mla" else _gqa_attention
     h = attn(p["attn"], cfg, rmsnorm(x, p["ln1"], cfg.norm_eps), positions,
              q_start, cache, use_kernel=use_kernel,
-             mesh=mesh if seq_axes is not None else None, seq_axes=seq_axes)
+             mesh=mesh if seq_axes is not None else None, seq_axes=seq_axes,
+             specs=sp("attn"))
     x = x + h
     z = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + (_moe_mlp(p, cfg, z, drops, mesh=mesh, split=split) if moe
-                else _mlp(p["mlp"], z, cfg.mlp))
+    if moe:
+        return x + _moe_mlp(p, cfg, z, drops, mesh=mesh, split=split,
+                            specs=specs)
+    y = _mlp(p["mlp"], z, cfg.mlp)
+    if _block(mesh, sp("mlp"), "w_out"):
+        y = mesh.all_reduce(y, "model")
+    return x + y
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
@@ -874,7 +1084,9 @@ class Transformer:
 
     def on_blocks(self, blocks: Blocks) -> Transformer:
         """The model over a mesh rank's `Blocks` (no whole leaf of its
-        own): `loss_fn` on its ``params`` gathers layer by layer."""
+        own): `loss_fn` on its ``params`` gathers layer by layer;
+        `prefill` and `decode_step` on ``blocks.mesh`` serve
+        tensor-parallel."""
         return Transformer(self.cfg, blocks)
 
     def param_tree(self) -> dict:
@@ -911,21 +1123,58 @@ class Transformer:
             P(None, b_ax, t_ax, *([None] * (t.dim() - 3))) for t in v)
             for k, v in shapes.items()}
 
-    def _run(self, tokens, positions, q_start, cache=None, cur=0, *,
-             use_kernel, mesh=None, seq_axes=None, split=True):
+    def _leaf(self, name: str):
+        """A leaf outside the layers as a serving pass computes with it: a
+        mesh rank's block gathered over the data axes alone, its block over
+        "model" kept; else the leaf itself."""
         p = self.params
-        x = p["embed"][tokens]
+        if isinstance(p, Blocks):
+            return gather_for_compute(p[name], p.specs[name], p.mesh,
+                                      data_only=True)
+        return p[name]
+
+    def _embed(self, tokens):
+        """The tokens' embeddings; vocabulary-parallel where ``embed`` is a
+        row block over "model": ids outside the rank's rows read zeros,
+        then one all_reduce over "model"."""
+        p = self.params
+        e = self._leaf("embed")
+        if not (isinstance(p, Blocks) and _block(p.mesh, p.specs, "embed")):
+            return e[tokens]
+        mesh = p.mesh
+        n = e.shape[0]
+        local = tokens - mesh.axis_index("model") * n
+        inside = (local >= 0) & (local < n)
+        x = torch.where(inside[..., None], e[local.clamp(0, n - 1)], 0)
+        return mesh.all_reduce(x, "model")
+
+    def _run(self, tokens, positions, q_start, cache=None, cur=0, *,
+             use_kernel, mesh=None, seq_axes=None, split=True,
+             last: bool = False):
+        """The layers over the tokens' embeddings, the final norm and the
+        head (on the last position alone with ``last``). Over a mesh
+        rank's `Blocks` the layers run tensor-parallel (`serve_layer`) and
+        a head split over "model" gives this rank's vocabulary block."""
+        p = self.params
+        specs = p.specs if isinstance(p, Blocks) else None
+        x = self._embed(tokens)
         self.dropped = []
         for name, moe, layers in self.stacks:
+            lspecs = None if specs is None else layer_specs(
+                specs, f"{name}_layers")
             for i, lp in enumerate(layers):
                 layer_cache = None if cache is None else (
                     cache[name][0][i], cache[name][1][i], cur)
-                x = _layer_fwd(lp, self.cfg, x, positions, q_start, moe,
-                               layer_cache, use_kernel=use_kernel,
-                               drops=self.dropped, mesh=mesh,
-                               seq_axes=seq_axes, split=split)
-        x = rmsnorm(x, p["final_norm"], self.cfg.norm_eps)
-        head = p["embed"].T if self.cfg.tie_embeddings else p["lm_head"]
+                x = serve_layer(lp, self.cfg, x, positions, q_start, moe,
+                                layer_cache, use_kernel=use_kernel,
+                                drops=self.dropped, mesh=mesh,
+                                seq_axes=seq_axes, split=split,
+                                specs=lspecs)
+        if last:
+            x = x[:, -1:]
+        x = rmsnorm(x, self._leaf("final_norm"), self.cfg.norm_eps)
+        head = self._leaf("embed").T if self.cfg.tie_embeddings \
+            else self._leaf("lm_head")
         return x @ head
 
     def forward(self, tokens, *, use_kernel: bool = True):
@@ -933,52 +1182,118 @@ class Transformer:
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         return self._run(tokens, positions, 0, use_kernel=use_kernel)
 
+    def _rank_tokens(self, tokens, mesh, batch: int | None):
+        """(this rank's tokens, the whole batch, the cache's batch axes or
+        None, its sequence axes) of a pass on ``mesh`` over a batch of
+        ``batch`` sequences, of which ``tokens`` is this rank's block;
+        with no ``batch``, ``tokens`` is the whole batch and the rank
+        takes its rows."""
+        whole = batch is None
+        batch = tokens.shape[0] if whole else batch
+        b_ax, t_ax = decode_axes(mesh, batch)
+        n_b = mesh.axes_size(b_ax) if b_ax is not None else 1
+        if whole and n_b > 1:
+            n = batch // n_b
+            tokens = tokens[mesh.axis_index(b_ax) * n:][:n]
+        elif not whole and tokens.shape[0] * n_b != batch:
+            raise ValueError(f"a block of {tokens.shape[0]} sequences is not "
+                             f"a rank's share of {batch} over {b_ax}")
+        return tokens, batch, b_ax, t_ax
+
     def prefill(self, tokens, max_len: int | None = None, *,
-                use_kernel: bool = True):
+                use_kernel: bool = True, mesh=None,
+                batch: int | None = None):
         """Prefill pass: (logits (B, S, V), a fresh cache of ``max_len``
         slots (default S) holding the prompt's keys and values in slots
-        0 .. S - 1)."""
+        0 .. S - 1).
+
+        On a ``mesh`` (a `DeviceMesh` rank) ``tokens`` is this rank's
+        block of a batch of ``batch`` sequences (its rows over the data
+        axes; a batch of one whole), or the whole batch when ``batch`` is
+        None. The layers run tensor-parallel over a model on a rank's
+        `Blocks` (`on_blocks`), and whole over whole leaves. It returns
+        the last position's logits, (B_loc, V) or, over a head split over
+        "model", this rank's (B_loc, V / model) block (whole tokens: the
+        rows gathered over the data axes), and this rank's block of a
+        fresh cache in the layout `cache_specs` gives a decode step of
+        ``batch`` sequences, which `decode_step(..., mesh=)` reads on."""
         B, S = tokens.shape
-        cache = self.init_cache(B, max_len or S)
+        if mesh is None:
+            cache = self.init_cache(B, max_len or S)
+            positions = torch.arange(S, device=tokens.device)[None]
+            return self._run(tokens, positions, 0, cache, 0,
+                             use_kernel=use_kernel), cache
+        whole = batch is None
+        tokens, batch, b_ax, t_ax = self._rank_tokens(tokens, mesh, batch)
+        cache = self.init_cache(batch, max_len or S, mesh=mesh)
         positions = torch.arange(S, device=tokens.device)[None]
-        return self._run(tokens, positions, 0, cache, 0,
-                         use_kernel=use_kernel), cache
+        logits = self._run(tokens, positions, 0, cache, 0,
+                           use_kernel=use_kernel, mesh=mesh, seq_axes=t_ax,
+                           split=self._moe_split(b_ax), last=True)[:, 0]
+        if whole and b_ax is not None:
+            logits = mesh.all_gather(logits, b_ax)
+        return logits, cache
+
+    def _moe_split(self, b_ax) -> bool:
+        """Whether the MoE layers on a mesh run expert-parallel: over a
+        rank's blocks always (every rank of a batch of one computes the
+        same tokens), over whole leaves where the batch splits."""
+        return isinstance(self.params, Blocks) or b_ax is not None
 
     def decode_step(self, cache, tokens, cur_len: int, *,
-                    use_kernel: bool = True, mesh=None):
+                    use_kernel: bool = True, mesh=None,
+                    batch: int | None = None):
         """One decode step. tokens (B, 1) at position ``cur_len``; cache from
         `init_cache` or `prefill`, written in place at slot ``cur_len``.
         Returns (logits (B, 1, V), cache) — the same cache object.
 
-        On a ``mesh`` (a `DeviceMesh` rank with a "model" axis) every rank
-        gets every token and holds whole parameters (``wkv_b`` may be its
-        block over "model") and its block of the cache (`init_cache(...,
-        mesh=)`, `cache_specs`): with B > 1 it runs its sequences of the
-        batch split over the data axes, attends split-KV over "model" and
-        gathers the logits over the data axes; with B = 1 every rank runs
-        the sequence and the cache's slots split over (data, model). The
-        slot is written on the rank that owns ``cur_len``."""
+        On a ``mesh`` (a `DeviceMesh` rank with a "model" axis) the rank
+        holds its block of the cache (`init_cache(..., mesh=)`,
+        `cache_specs`, or a mesh `prefill`'s): with B > 1 the batch is
+        split over the data axes and the slots over "model", with B = 1
+        every rank runs the sequence and the slots split over (data,
+        model); it attends split-KV and the slot is written on the rank
+        that owns ``cur_len``. ``tokens`` is this rank's block of a batch
+        of ``batch`` sequences and the logits come back as its block,
+        (B_loc, 1, V / model) over a head split over "model"; with no
+        ``batch`` every rank gets every token and the logits are gathered
+        over the data axes. Over a rank's `Blocks` the layers run
+        tensor-parallel; over whole leaves (``wkv_b`` may be its block
+        over "model") they compute whole."""
         cur_len = int(cur_len)
         if mesh is not None:
             return self._decode_mesh(cache, tokens, cur_len, mesh,
-                                     use_kernel=use_kernel), cache
+                                     use_kernel=use_kernel,
+                                     batch=batch), cache
         positions = torch.full((tokens.shape[0], 1), cur_len,
                                dtype=torch.int32, device=tokens.device)
         return self._run(tokens, positions, cur_len, cache, cur_len,
                          use_kernel=use_kernel), cache
 
     def _decode_mesh(self, cache, tokens, cur_len: int, mesh, *,
-                     use_kernel: bool):
-        b_ax, t_ax = decode_axes(mesh, tokens.shape[0])
-        if b_ax is not None:
-            n = tokens.shape[0] // mesh.axes_size(b_ax)
-            tokens = tokens[mesh.axis_index(b_ax) * n:][:n]
+                     use_kernel: bool, batch: int | None):
+        whole = batch is None
+        tokens, _, b_ax, t_ax = self._rank_tokens(tokens, mesh, batch)
         positions = torch.full((tokens.shape[0], 1), cur_len,
                                dtype=torch.int32, device=tokens.device)
         logits = self._run(tokens, positions, cur_len, cache, cur_len,
                            use_kernel=use_kernel, mesh=mesh, seq_axes=t_ax,
-                           split=b_ax is not None)
-        return logits if b_ax is None else mesh.all_gather(logits, b_ax)
+                           split=self._moe_split(b_ax))
+        return mesh.all_gather(logits, b_ax) if whole and b_ax is not None \
+            else logits
+
+
+def serve_layer(lp, cfg: LMConfig, x, positions, q_start, moe: bool,
+                cache=None, *, mesh=None, specs=None, **kw):
+    """One layer of a serving pass. With ``specs`` (the layer's spec tree)
+    ``lp`` holds a mesh rank's blocks: gathered here over the data axes
+    alone, where `lm_rules(fsdp=True)` stored a dim there, and freed when
+    the layer returns; the blocks over "model" stay and the layer runs
+    tensor-parallel (`_layer_fwd`)."""
+    if specs is not None:
+        lp = _gather_tree(lp, specs, mesh, data_only=True)
+    return _layer_fwd(lp, cfg, x, positions, q_start, moe, cache, mesh=mesh,
+                      specs=specs, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -408,6 +408,22 @@ def gather_for_compute(block: torch.Tensor, spec, mesh, *,
     return x
 
 
+def model_block_dim(spec, mesh) -> int | None:
+    """The dim of a leaf that ``spec`` holds as this rank's block over
+    "model" (the last of a matrix for a column block, the first of its two
+    for a row block), or None where the leaf is whole over "model": no dim
+    names it, ``spec`` is None, or the axis holds one rank. What a
+    tensor-parallel layer reads to tell its column, row and whole leaves
+    apart."""
+    if spec is None or "model" not in mesh.axis_names \
+            or mesh.axes_size("model") == 1:
+        return None
+    for dim, ax in enumerate(spec):
+        if ax is not None and "model" in _axes(ax):
+            return dim
+    return None
+
+
 def whole_shape(block, spec, mesh) -> tuple[int, ...]:
     """The shape of the whole tensor whose block under ``spec`` is
     ``block``."""
