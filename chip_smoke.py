@@ -314,6 +314,16 @@ order; any failure exits non-zero:
    held bytes within 10%; then a tensor-parallel prefill cell (4 x 2,048)
    and decode cell (4 sequences over 8,192 slots) at the same widths on
    2 x 2, held the same way, flash's meta calls equal to its launches;
+   then Equiformer-v2 and EGNN train cells at full width on the molecule
+   batch on 2 x 2, each rank on its node block and edge block
+   (graph_batch_specs), segment_spmm over its block-local receivers: the
+   loss and every leaf's gradient as AdamW takes it within 1e-4 (relative
+   L2) of one device's over the whole batch, FLOPs, collectives and
+   segment_spmm calls equal to the MetaMesh rank's, the peak above the
+   held bytes within 10%, max_memory_allocated a rank beside the same
+   step's over the whole batch on every rank; phase 3 holds segment_spmm
+   at a rank's edge block of that cell (each rank's receivers, the
+   receiver mask) and records rank 0's;
    the card's total_memory equals the dry run's H100 constant (phase 1);
 13. summary — every kernel's launches on its path.
 
@@ -322,6 +332,7 @@ per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -332,6 +343,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -448,7 +460,9 @@ from repro_torch.launch.mesh import (MetaMesh,  # noqa: E402
                                      make_device_mesh,
                                      make_production_mesh)
 from repro_torch.models import meta_generator  # noqa: E402
-from repro_torch.models.gnn.common import GraphBatch  # noqa: E402
+from repro_torch.models.gnn.common import (GraphBatch,  # noqa: E402
+                                           MeshGraph)
+from repro_torch.tree import leaves_with_path  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
@@ -1943,6 +1957,42 @@ def spmm_record(shape: str, d: int, g=None) -> dict:
     return rec
 
 
+def molecule_block(rank: int):
+    """Rank ``rank``'s block of the molecule batch on a GNN_MESH mesh
+    (`graph_batch_specs`' layout) and its MeshGraph over the edge mask:
+    the block-local receivers, the receiver mask and the plan a forward
+    builds."""
+    mesh = MetaMesh(GNN_MESH, ("data", "model"), rank=rank)
+    _, specs = dry_cells.graph_batch_specs("molecule", mesh)
+    block = dry_cells.graph_block(gnn_graph("molecule")[0], specs, mesh)
+    return block, MeshGraph(block, block.edge_mask)
+
+
+def block_spmm_record(d: int) -> dict:
+    """segment_spmm at one rank's edge block of phase 12c's GNN cells:
+    every rank's random (E / 2, d) messages over its block-local receivers
+    and receiver mask into its N / 2 rows, through the plan, against the
+    plain version (`spmm_check`); then rank 0's block recorded as
+    `spmm_record` records a path (its edges reordered live first, which
+    changes no sum, for the library call over the live edges)."""
+    worst = 0.0
+    for rank in range(math.prod(GNN_MESH)):
+        block, mg = molecule_block(rank)
+        vals = torch.randn((block.senders.shape[0], d), device=DEV)
+        worst = max(worst, spmm_check(vals, mg.receivers, mg.edge_mask,
+                                      mg.n_loc, plan=mg.plan))
+    block, mg = molecule_block(0)
+    log(f"  segment_spmm at each rank's edge block of the {GNN_MESH[0]} x "
+        f"{GNN_MESH[1]} molecule cell (E {block.senders.shape[0]:,}, D {d:,}"
+        f", N {mg.n_loc:,}; live edges of rank 0: "
+        f"{int(mg.edge_mask.sum()):,}): within float32 atol=rtol 1e-4 of "
+        f"the plain sums, max |diff| {worst:.3g}")
+    order = torch.argsort((~mg.edge_mask).to(torch.int8), stable=True)
+    return spmm_record("molecule_block", d, types.SimpleNamespace(
+        receivers=mg.receivers[order], edge_mask=mg.edge_mask[order],
+        node_mask=block.node_mask))
+
+
 def bag_case(v: int, d: int, b: int, bag: int, dt=torch.float32,
              weighted: bool = True, ids_np=None):
     table = torch.randn((v, d), device=DEV).to(dt)
@@ -2173,6 +2223,8 @@ def phase_kernels() -> dict:
     eq = eq_configs.full()
     rec["segment_spmm[molecule]"] = spmm_record(
         "molecule", (eq.l_max + 1) ** 2 * eq.d_hidden)
+    rec["segment_spmm[molecule_block]"] = block_spmm_record(
+        (eq.l_max + 1) ** 2 * eq.d_hidden)
     log(f"  segment_spmm records: {time.perf_counter() - t0:.1f} s")
     return rec
 
@@ -5378,6 +5430,20 @@ TP_CELLS = {"prefill_32k": dict(seq=2048, batch=4),
             "decode_32k": dict(seq=8192, batch=4)}
 
 
+# and GNN train cells at full width on the molecule batch, 2 x 2 gloo ranks
+# sharing the card, each rank on its node and edge block
+# (`graph_batch_specs`): the loss and every leaf's gradient as AdamW takes
+# it within GNN_MESH_RTOL (relative L2) of one device's over the whole
+# batch; the peak a rank beside the whole-graph mesh route's (expected at
+# most GNN_MESH_PEAK_SHARE of it, recorded either way)
+GNN_MESH = (2, 2)
+GNN_MESH_ARCHS = {"equiformer-v2": (EquiformerV2, eq_mod),
+                  "egnn": (EGNN, egnn_mod)}
+GNN_MESH_RTOL = 1e-4
+GNN_MESH_PEAK_SHARE = 0.6
+GNN_MESH_REF = Path(__file__).resolve().parent / "build" / "gnn_mesh_ref.pt"
+
+
 def meta_batch(g):
     """A meta GraphBatch of ``g``'s shapes and dtypes."""
     return dataclasses.replace(g, **{
@@ -5821,6 +5887,228 @@ def tp_card_cells(card: str) -> dict:
     return out
 
 
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want|| in float64 (the difference's norm where
+    want is 0)."""
+    diff = torch.linalg.vector_norm((got - want).double()).item()
+    top = torch.linalg.vector_norm(want.double()).item()
+    return diff / top if top else diff
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic kernels where it has them: `index_add_` on
+    the card sums each row in index order instead of by atomics (the
+    degrees, the edge softmax's denominators, the pooling, the gathers'
+    backward). Its warnings for ops that have none are silenced."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
+def shuffled_edges(g):
+    """``g`` with its edges in a fixed random order. The molecule batch
+    stores them molecule by molecule, which on GNN_MESH leaves ranks
+    (0, 1) and (1, 0) no live edge; shuffled, every rank holds some, so
+    both sides of each sum over "model" are non-zero."""
+    perm = torch.randperm(g.senders.shape[0],
+                          generator=torch.Generator().manual_seed(0))
+    perm = perm.to(g.device)
+    return dataclasses.replace(g, senders=g.senders[perm],
+                               receivers=g.receivers[perm],
+                               edge_mask=g.edge_mask[perm])
+
+
+def gnn_mesh_reference() -> None:
+    """One device's loss and gradients for each GNN_MESH_ARCHS cell: the
+    cell's weights (seed 0) through the model's loss_fn over the whole
+    molecule batch, under `deterministic`, written to GNN_MESH_REF for the
+    ranks (which take their gradients so too). Each side is then one
+    reproducible sum order: Equiformer-v2's attention scores go through a
+    leaky_relu, and where a pre-activation lies within rounding of its
+    kink the order of PyTorch's atomic sums decides which slope the
+    backward takes."""
+    g = dry_cells.real_graph_batch("molecule", DEV)
+    out = {}
+    for arch, (cls, mod) in GNN_MESH_ARCHS.items():
+        model = cls.random(dry_cells.gnn_config(arch, "molecule"),
+                           torch.Generator(device=DEV).manual_seed(0))
+        leaves = dict(leaves_with_path(model.param_tree()))
+        for t in leaves.values():
+            t.requires_grad_(True)
+        with deterministic():
+            loss, _ = mod.loss_fn(model, g)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+        out[arch] = {"loss": float(loss.detach()), "grads": {
+            p: (torch.zeros_like(t) if gr is None else gr).cpu()
+            for (p, t), gr in zip(leaves.items(), grads)}}
+        del model, leaves, loss, grads
+    GNN_MESH_REF.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(out, GNN_MESH_REF)
+    torch.cuda.empty_cache()
+
+
+def gnn_mesh_rank(mesh) -> dict:
+    """Each GNN_MESH_ARCHS cell on this rank: its meta run on a `MetaMesh`
+    rank of the same coordinates; then on the card the gradients the step
+    hands AdamW, under `deterministic`, against one device's
+    (`gnn_mesh_reference`; this also warms cuBLAS and the allocator), for
+    the molecule batch as stored and with `shuffled_edges`; the step run
+    counted (FLOPs, collectives, launches, peak), and the same step over
+    the whole batch on every rank (the whole-graph mesh route) for its
+    peak."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = torch.load(GNN_MESH_REF)
+    whole = dry_cells.real_graph_batch("molecule", DEV)
+    orders = {"stored": whole, "shuffled": shuffled_edges(whole)}
+    out = {}
+    for arch in GNN_MESH_ARCHS:
+        meta_mesh = MetaMesh(mesh.sizes, mesh.axis_names, rank=mesh.rank)
+        cell = dry_cells.build_gnn_cell(arch, "molecule", meta_mesh)
+        meta_mesh.reset_counts()
+        meta = dryrun.account(cell.fn, cell.args)
+        meta_calls = dict(meta_mesh.calls)
+        cell = dry_cells.build_gnn_cell(arch, "molecule", mesh)
+        want = ref[arch]["grads"]
+        rec = dict(loss_ref=ref[arch]["loss"], errs={}, loss={}, live={})
+        for order, batch in orders.items():
+            view, blocks, _, block = cell.make_args(DEV, batch=batch)
+            ef = {"_": torch.zeros((), device=DEV)}
+            with deterministic():
+                metrics, grads, _ = Trainer(
+                    cell.parts["task"], mesh=mesh)._mesh_grads(
+                    view, blocks, cell.param_specs, ef, block,
+                    batch_is_local=True)
+            errs = {p: rel_l2(gr, want[p].to(DEV))
+                    for p, gr in leaves_with_path(grads)}
+            rec["errs"][order] = errs
+            rec["loss"][order] = float(metrics["loss"])
+            rec["live"][order] = int(MeshGraph(block, block.edge_mask)
+                                     .edge_mask.sum())
+            rec.setdefault("missing", sorted(set(want) - set(errs)))
+            del view, blocks, block, grads, metrics
+        rec["n_leaves"] = len(want)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        args = cell.make_args(DEV, batch=whole)
+        view, blocks, opt, block = args
+        torch.cuda.reset_peak_memory_stats(DEV)
+        reset_counts()
+        before = torch.cuda.memory_allocated(DEV)
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        real = dryrun.account(cell.fn, args)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        block_peak = torch.cuda.max_memory_allocated(DEV)
+        rec.update(
+            meta_temp=meta["temp_size_bytes"],
+            card_temp=block_peak - before, card_peak=block_peak,
+            flops_meta=meta["dispatch_flops"],
+            flops_card=real["dispatch_flops"], calls=dict(mesh.calls),
+            meta_calls=meta_calls, kernel_calls=meta["kernel_calls"],
+            launched={k: v for k, v in counts().items() if v},
+            step_ms=step_ms,
+            block=(tuple(block.senders.shape), tuple(block.node_mask.shape)))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(DEV)
+        t0 = time.perf_counter()
+        cell.fn(view, blocks, opt, whole)
+        torch.cuda.synchronize()
+        rec.update(whole_ms=(time.perf_counter() - t0) * 1e3,
+                   whole_peak=torch.cuda.max_memory_allocated(DEV))
+        out[arch] = rec
+        del args, cell, view, blocks, opt, block
+        torch.cuda.empty_cache()
+    return out
+
+
+def gnn_mesh_cells(card: str) -> dict:
+    """12c's GNN train cells on GNN_MESH: each rank's loss and gradients
+    against one device's, its meta FLOPs, collectives and segment_spmm
+    calls equal to the card's, its peak above the held bytes within
+    PEAK_GAP, and its peak beside the whole-graph mesh route's."""
+    t0 = time.perf_counter()
+    gnn_mesh_reference()
+    ranks = spawn(GNN_MESH, gnn_mesh_rank, device=DEV.type,
+                  timeout=MM_TIMEOUT, join_timeout=MM_JOIN)
+    out = {}
+    for arch in GNN_MESH_ARCHS:
+        gaps, shares = [], []
+        for r, ranked in enumerate(ranks):
+            x = ranked[arch]
+            gap = x["meta_temp"] / x["card_temp"] - 1
+            share = x["card_peak"] / x["whole_peak"]
+            gaps.append(gap)
+            shares.append(share)
+            loss_err = max(abs(v - x["loss_ref"]) / abs(x["loss_ref"])
+                           for v in x["loss"].values())
+            grad_err = max(max(e.values()) for e in x["errs"].values())
+            for order, errs in x["errs"].items():
+                worst = sorted(errs, key=errs.get)[-3:]
+                log(f"  {arch} rank {r}, edges {order} ({x['live'][order]:,} "
+                    f"live here): loss {x['loss'][order]:.8g} against "
+                    f"{x['loss_ref']:.8g}; the worst leaves' relative L2 "
+                    f"against one device: " + ", ".join(
+                        f"{p} {errs[p]:.3g}" for p in reversed(worst)))
+            line = (f"{arch} full config, molecule train cell, rank {r} of "
+                    f"{GNN_MESH[0]} x {GNN_MESH[1]} (edges {x['block'][0]}, "
+                    f"nodes {x['block'][1]}): loss against one device's "
+                    f"{x['loss_ref']:.6g} (rel {loss_err:.3g}); "
+                    f"{x['n_leaves']} leaves' gradients, worst relative L2 "
+                    f"{grad_err:.3g}; FLOPs meta {x['flops_meta']:,} "
+                    f"card {x['flops_card']:,}; kernel calls meta "
+                    f"{x['kernel_calls']} launches {x['launched']}; peak "
+                    f"above the held bytes: meta {x['meta_temp']:,} card "
+                    f"{x['card_temp']:,} (gap {gap:+.4f}); "
+                    f"max_memory_allocated {x['card_peak']:,} against the "
+                    f"whole-graph mesh route's {x['whole_peak']:,} "
+                    f"({share:.4f}); step {x['step_ms']:.1f} ms (whole "
+                    f"graph {x['whole_ms']:.1f}); collectives {x['calls']}")
+            log("  " + line)
+            if x["missing"] or not loss_err <= GNN_MESH_RTOL \
+                    or not grad_err <= GNN_MESH_RTOL:
+                raise AssertionError(f"GNN mesh cell differs from one "
+                                     f"device beyond {GNN_MESH_RTOL}: {line}")
+            if not x["live"]["shuffled"]:
+                raise AssertionError(f"no live edge on rank {r} with the "
+                                     f"edges shuffled: {line}")
+            if x["flops_meta"] != x["flops_card"]:
+                raise AssertionError(f"GNN mesh cell FLOPs differ: {line}")
+            if x["calls"] != x["meta_calls"]:
+                raise AssertionError(f"GNN mesh cell collectives differ "
+                                     f"from the MetaMesh's "
+                                     f"{x['meta_calls']}: {line}")
+            if x["kernel_calls"] != x["launched"] \
+                    or not x["launched"].get("segment_spmm"):
+                raise AssertionError(f"GNN mesh cell kernel calls differ: "
+                                     f"{line}")
+            if not abs(gap) <= PEAK_GAP:
+                raise AssertionError(f"GNN mesh cell peak off by more than "
+                                     f"{PEAK_GAP:.0%}: {line}")
+        met = max(shares) <= GNN_MESH_PEAK_SHARE
+        log(f"  {arch}: max_memory_allocated a rank at most "
+            f"{max(shares):.4f} of the whole-graph mesh route's (expected at "
+            f"most {GNN_MESH_PEAK_SHARE}: {'met' if met else 'not met'}) "
+            f"[{card}]")
+        out[f"{arch}/molecule[gnn 2x2]"] = {
+            "gap": max(gaps, key=abs), "share": max(shares),
+            "launches": sum(x[arch]["launched"].get("segment_spmm", 0)
+                            for x in ranks),
+            "ranks": [x[arch] for x in ranks]}
+    log(f"  GNN cells on {GNN_MESH[0]} x {GNN_MESH[1]}: "
+        f"{time.perf_counter() - t0:.1f} s from the reference to the last "
+        f"rank's exit [{card}]")
+    return out
+
+
 def phase_dry_card(graph, card: str) -> dict:
     """12c: the dry run against the card for cells that fit one H100, the
     FSDP train cell and the tensor-parallel prefill and decode cells on
@@ -5836,6 +6124,7 @@ def phase_dry_card(graph, card: str) -> dict:
     torch.cuda.empty_cache()
     out["granite-3-8b/train_4k[fsdp 2x2]"] = fsdp_card_cell(card)
     out.update(tp_card_cells(card))
+    out.update(gnn_mesh_cells(card))
     return out
 
 
@@ -6002,7 +6291,9 @@ def main() -> None:
     log(f"[12c/13] {at()} the dry run against the card on a 1 x 1 mesh: "
         f"{', '.join(f'{a}/{b}' for a, b in CARD_CELLS)}; an FSDP train "
         f"cell and tensor-parallel prefill and decode cells (granite-3-8b "
-        f"widths, {FSDP_CELL['layers']} layers) on 2 x 2 gloo ranks")
+        f"widths, {FSDP_CELL['layers']} layers) on 2 x 2 gloo ranks; "
+        f"{' and '.join(GNN_MESH_ARCHS)} train cells at full width on the "
+        f"molecule batch, each rank on its node and edge block, on 2 x 2")
     dry_card = phase_dry_card(mb.pop("graph"), card)
 
     rec["scan_hits"]["launches"] = expand_counts["scan_hits"]
@@ -6028,6 +6319,8 @@ def main() -> None:
     rec["segment_spmm[molecule]"]["launches"] = sum(
         gnn_counts[k] + train_gnn[k]
         for k in ("egnn", "nequip", "equiformer_v2"))
+    rec["segment_spmm[molecule_block]"]["launches"] = sum(
+        v["launches"] for k, v in dry_card.items() if k.endswith("[gnn 2x2]"))
     paths = {"scan_hits": "LUBM expand path (phase 5)",
              "scan_select": "LUBM main path (phase 4)",
              "join_ranges": "LUBM main path (phase 4)",
@@ -6061,7 +6354,11 @@ def main() -> None:
                  "EGNN, NequIP, Equiformer-v2 forwards (phase 10); GNN "
                  "training (phase 11)",
              "segment_spmm[minibatch_lg]":
-                 "GCN forward and training on minibatch_lg (phase 12)"}
+                 "GCN forward and training on minibatch_lg (phase 12)",
+             "segment_spmm[molecule_block]":
+                 "Equiformer-v2 and EGNN train cells at full width, each "
+                 "rank on its node and edge block of the molecule batch, "
+                 "2 x 2 gloo ranks (phase 12c)"}
     # the per-query engine's kernels (phase 6), where it launched them; its
     # launches are printed with the phase, the records keep phase 4's and
     # 5's

@@ -26,8 +26,9 @@ The steps are the port's own:
   decode  — `Transformer.decode_step(..., mesh=)` over the same blocks
             and the rank's block of the tokens, split-KV over the cache's
             sequence axes (`models.transformer.decode_axes`);
-  GNN     — the Trainer's mesh step over the graph batch of
-            `gnn_full_shapes`;
+  GNN     — the Trainer's mesh step over the rank's block of the graph
+            batch of `gnn_full_shapes` (`graph_batch_specs`: its edge
+            block over "model", its node block over the data axes);
   recsys  — the Trainer's mesh step, `XDeepFM.forward` through the
             kernels, or `retrieval_scores`.
 Where the port's layout on a mesh differs from the reference's GSPMD
@@ -53,7 +54,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.models import meta_generator
-from repro_torch.models.gnn.common import GraphBatch
+from repro_torch.models.gnn.common import GraphBatch, GraphBlock
 from repro_torch.optim import adamw_init
 from repro_torch.runtime.trainer import Trainer, TrainTask
 from repro_torch.sharding.rules import (Blocks, P, batch_axis, block_view,
@@ -390,6 +391,57 @@ def meta_graph_batch(shape_id: str) -> GraphBatch:
         n_graphs=gs["n_graphs"], species=_meta((n,), I32))
 
 
+NODE_FIELDS = ("node_feat", "positions", "node_mask", "labels",
+               "label_mask", "graph_ids", "species")
+EDGE_FIELDS = ("senders", "receivers", "edge_mask")
+
+
+def graph_specs(n_nodes: int, n_graphs: int, mesh) -> GraphBatch:
+    """The layout of a graph batch of ``n_nodes`` nodes on ``mesh``, a
+    GraphBatch of `P`: the edge arrays split over "model", the node
+    arrays over the data axes (`batch_axis`) where ``n_nodes`` divides
+    by their size, else whole."""
+    dp = batch_axis(mesh)
+    node_ax = dp if n_nodes % mesh.axes_size(dp) == 0 else None
+    return GraphBatch(
+        node_feat=P(node_ax, None), positions=P(node_ax, None),
+        senders=P("model"), receivers=P("model"), edge_mask=P("model"),
+        node_mask=P(node_ax), labels=P(node_ax), label_mask=P(node_ax),
+        graph_ids=P(node_ax), n_graphs=n_graphs, species=P(node_ax))
+
+
+def graph_batch_specs(shape_id: str, mesh) -> tuple[GraphBatch, GraphBatch]:
+    """(the whole batch as meta tensors, its `graph_specs`): the
+    reference's `graph_batch_specs`."""
+    gs = gnn_full_shapes(shape_id)
+    return meta_graph_batch(shape_id), graph_specs(gs["n"], gs["n_graphs"],
+                                                   mesh)
+
+
+def _axes_tuple(ax) -> tuple[str, ...]:
+    return () if ax is None else (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+def graph_block(g: GraphBatch, specs: GraphBatch, mesh) -> GraphBlock:
+    """This rank's block of the whole batch ``g`` under ``specs`` (a
+    GraphBatch of `P`, as `graph_batch_specs` gives): each array its
+    `local_slice`, a tensor of its own (meta tensors of the block's
+    shapes for a meta ``g``), ``n_graphs`` carried."""
+    def cut(name):
+        t = getattr(g, name)
+        if t is None:
+            return None
+        b = local_slice(t, getattr(specs, name), mesh)
+        if t.device.type == "meta":
+            return _meta(b.shape, b.dtype)
+        return b.clone()
+    return GraphBlock(
+        **{f: cut(f) for f in NODE_FIELDS + EDGE_FIELDS},
+        n_graphs=g.n_graphs, mesh=mesh, n_nodes=g.node_mask.shape[0],
+        node_axes=_axes_tuple(specs.node_mask[0]),
+        edge_axes=_axes_tuple(specs.senders[0]))
+
+
 def pad_graph_batch(g: GraphBatch, n: int, e: int) -> GraphBatch:
     """``g`` padded to ``n`` nodes and ``e`` edges: the new nodes and edges
     masked out (zeros, edges on node 0), as the reference pads."""
@@ -402,12 +454,9 @@ def pad_graph_batch(g: GraphBatch, n: int, e: int) -> GraphBatch:
         extra = torch.zeros((size - t.shape[0], *t.shape[1:]),
                             dtype=t.dtype, device=t.device)
         return torch.cat([t, extra])
-    nodes = ("node_feat", "positions", "node_mask", "labels", "label_mask",
-             "graph_ids", "species")
-    edges = ("senders", "receivers", "edge_mask")
     return dataclasses.replace(
-        g, **{k: pad(getattr(g, k), n) for k in nodes},
-        **{k: pad(getattr(g, k), e) for k in edges})
+        g, **{k: pad(getattr(g, k), n) for k in NODE_FIELDS},
+        **{k: pad(getattr(g, k), e) for k in EDGE_FIELDS})
 
 
 def real_graph_batch(shape_id: str, device, seed: int = 0) -> GraphBatch:
@@ -429,11 +478,17 @@ def gnn_config(arch_id: str, shape_id: str):
 
 def build_gnn_cell(arch_id: str, shape_id: str, mesh, *,
                    cfg=None) -> Cell:
+    """A GNN train cell: the Trainer's mesh step over this rank's
+    replicated `gnn_rules` blocks and its `graph_block` of the batch
+    under `graph_batch_specs`. ``make_args(device, batch=)`` cuts the
+    given whole batch (else the shape's own, built on ``device``) into
+    the rank's block."""
     mod_name, cls_name = GNN_MODULES[arch_id]
     mod = importlib.import_module("repro_torch.models.gnn." + mod_name)
     cls = getattr(mod, cls_name)
     cfg = cfg or gnn_config(arch_id, shape_id)
     gs = gnn_full_shapes(shape_id)
+    whole, bspecs = graph_batch_specs(shape_id, mesh)
 
     def build(device, seed=0, batch=None):
         gen = meta_generator(seed) if device == "meta" else \
@@ -442,9 +497,9 @@ def build_gnn_cell(arch_id: str, shape_id: str, mesh, *,
         specs = make_param_specs(model.param_tree(), mesh, gnn_rules(mesh))
         view, blocks, opt = _state(model, specs, mesh, F32)
         if batch is None:
-            batch = meta_graph_batch(shape_id) if device == "meta" else \
+            batch = whole if device == "meta" else \
                 real_graph_batch(shape_id, device, seed)
-        return (view, blocks, opt, batch), specs
+        return (view, blocks, opt, graph_block(batch, bspecs, mesh)), specs
 
     args, specs = build("meta")
     task = TrainTask(name=arch_id, init_params=None, loss_fn=mod.loss_fn,
@@ -455,14 +510,11 @@ def build_gnn_cell(arch_id: str, shape_id: str, mesh, *,
                 ("model", "params", "opt_state", "batch"), specs,
                 {"params": specs, "opt_state": {"step": P(), "m": specs,
                                                  "v": specs},
-                 "batch": None},
-                6.0 * n_par * gs["n"], dict(n_params=n_par, **gs, layout={
-                    "batch": "the whole graph on every rank: the port has "
-                             "no node or edge sharding (every rank computes "
-                             "the whole loss; the gradients' sum over the "
-                             "data axes is an all_reduce)"}),
+                 "batch": bspecs},
+                6.0 * n_par * gs["n"], dict(n_params=n_par, **gs),
                 mesh, lambda device, batch=None: build(device,
-                                                       batch=batch)[0])
+                                                       batch=batch)[0],
+                dict(task=task))
 
 
 # ---------------------------------------------------------------------------

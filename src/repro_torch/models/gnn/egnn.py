@@ -14,12 +14,9 @@ import torch
 from torch import nn
 
 from repro_torch.engine.batch import resolve_device
-from repro_torch.kernels.segment_spmm.ops import segment_plan
-from repro_torch.models.gnn.common import (MLP, GraphBatch, aggregate,
-                                           energy_loss, frozen, graph_ids,
-                                           mlp_apply,
-                                           mlp_init, normal, segment_sum,
-                                           to_tensor)
+from repro_torch.models.gnn.common import (MLP, GraphBatch, MeshGraph,
+                                           energy_loss, frozen, mlp_apply,
+                                           mlp_init, normal, to_tensor)
 
 
 @dataclass(frozen=True)
@@ -84,27 +81,25 @@ class EGNN(nn.Module):
                 "readout": self.readout.param_tree()}
 
     def forward(self, g: GraphBatch, *, use_kernel: bool = True):
-        """Returns (per-graph energy (n_graphs,), final positions)."""
-        n = g.positions.shape[0]
+        """Returns (per-graph energy (n_graphs,), final positions); on a
+        `GraphBlock` the positions of the node block. The positions are
+        node state: a mesh rank gathers them, as ``h``, in every layer."""
+        mg = MeshGraph(g, g.edge_mask, use_kernel=use_kernel)
         h = self.embed[g.species]
         x = g.positions
-        plan = segment_plan(g.receivers, g.edge_mask, n) if use_kernel else None
         for layer in self.layers:
-            d = x[g.senders] - x[g.receivers]
+            xs, hs = mg.rows(x), mg.rows(h)
+            d = xs[g.senders] - xs[g.receivers]
             d2 = torch.sum(d * d, dim=-1, keepdim=True)
             m = mlp_apply(layer.phi_e,
-                          torch.cat([h[g.senders], h[g.receivers], d2], -1),
-                          final_act=True)
-            w = mlp_apply(layer.phi_x, m)                   # (E, 1)
-            x = x + aggregate(d * w, g.receivers, g.edge_mask, n,
-                              reduce=self.cfg.coord_agg,
-                              use_kernel=use_kernel, plan=plan)
-            agg = aggregate(m, g.receivers, g.edge_mask, n,
-                            use_kernel=use_kernel, plan=plan)
+                          torch.cat([hs[g.senders], hs[g.receivers], d2], -1),
+                          final_act=True, wrap=mg.edge)
+            w = mlp_apply(layer.phi_x, m, wrap=mg.edge)     # (E, 1)
+            x = x + mg.aggregate(d * w, reduce=self.cfg.coord_agg)
+            agg = mg.aggregate(m)
             h = h + mlp_apply(layer.phi_h, torch.cat([h, agg], -1))
         e_node = mlp_apply(self.readout, h)[:, 0] * g.node_mask
-        energy = segment_sum(e_node, graph_ids(g), g.n_graphs)
-        return energy, x
+        return mg.pool(e_node), x
 
 
 def loss_fn(model: EGNN, g: GraphBatch, *, use_kernel: bool = True):

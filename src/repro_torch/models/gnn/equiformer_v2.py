@@ -11,7 +11,10 @@ device by the exact CG recursion (`so3.wigner_d_blocks`), and only the
 |m| <= m_max rows of the rotated features are materialized: per edge,
 Sum_l (2*min(l,m_max)+1) coefficients (29 for L=6, m=2) instead of
 (L+1)^2 = 49. One `aggregate` call per layer, on the (E, 49, 128) values
-flattened to (E, 6272); the edge softmax stays plain PyTorch.
+flattened to (E, 6272); the edge softmax stays plain PyTorch. The rotation
+of the senders' rows, the SO(2) convolution, the radial MLP, the
+attention and the values run on the edge block (`MeshGraph`); the
+equivariant RMS norm and the FFN are per node.
 """
 from __future__ import annotations
 
@@ -24,12 +27,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.engine.batch import resolve_device
-from repro_torch.kernels.segment_spmm.ops import segment_plan
-from repro_torch.models.gnn.common import (MLP, GraphBatch, aggregate,
-                                           edge_softmax, energy_loss, frozen,
-                                           graph_ids,
-                                           mlp_apply, mlp_init, normal,
-                                           segment_sum, to_tensor)
+from repro_torch.models.gnn.common import (MLP, GraphBatch, MeshGraph,
+                                           energy_loss, frozen, mlp_apply,
+                                           mlp_init, normal, to_tensor)
 from repro_torch.models.gnn.nequip import bessel_rbf   # same radial basis
 from repro_torch.models.gnn.so3 import (irrep_dim, rotation_to_z,
                                         wigner_d_blocks)
@@ -100,14 +100,15 @@ def _rotate_truncated(feat, d_blocks, cfg, transpose=False):
     return torch.cat(parts, dim=1)
 
 
-def _so2_conv(z, radial_scale, layer, cfg):
+def _so2_conv(z, radial_scale, layer, cfg, edge):
     """Per-m SO(2) linear maps on edge-frame features.
-    z: (E, n_rows, C); radial_scale: (E, m_max+1, C)."""
+    z: (E, n_rows, C); radial_scale: (E, m_max+1, C). ``edge`` maps each
+    weight before its use (`MeshGraph.edge`)."""
     groups = _m_groups(cfg.l_max, cfg.m_max)
     E, _, C = z.shape
     out = torch.zeros_like(z)
     for gi, (m, ls, plus, minus) in enumerate(groups):
-        w1 = layer.so2_w1[gi]
+        w1 = edge(layer.so2_w1[gi])
         plus = list(plus)
         fp = z[:, plus, :].reshape(E, -1)
         if m == 0:
@@ -115,7 +116,7 @@ def _so2_conv(z, radial_scale, layer, cfg):
             o = o.reshape(E, len(ls), C) * radial_scale[:, 0, None, :]
             out[:, plus, :] = o
         else:
-            w2 = layer.so2_w2[gi]
+            w2 = edge(layer.so2_w2[gi])
             minus = list(minus)
             fm = z[:, minus, :].reshape(E, -1)
             op = (fp @ w1 - fm @ w2).reshape(E, len(ls), C)
@@ -235,7 +236,8 @@ class EquiformerV2(nn.Module):
                 ) -> torch.Tensor:
         """Per-graph energies (n_graphs,)."""
         cfg = self.cfg
-        n = g.positions.shape[0]
+        mg = MeshGraph(g, use_kernel=use_kernel)
+        n = mg.n_loc
         C = cfg.d_hidden
         H = cfg.n_heads
         dim = irrep_dim(cfg.l_max)
@@ -244,11 +246,11 @@ class EquiformerV2(nn.Module):
         h = torch.zeros((n, dim, C), dtype=dt, device=g.device)
         h[:, 0, :] = self.embed[g.species]
 
-        vec = g.positions[g.senders] - g.positions[g.receivers]
+        pos = mg.rows(g.positions)
+        vec = pos[g.senders] - pos[g.receivers]
         r = torch.sqrt(torch.sum(vec * vec, -1) + 1e-12)
         # degenerate (zero-length / self-loop) edges have no edge frame: mask them
-        emask = g.edge_mask & (r > 1e-5)
-        plan = segment_plan(g.receivers, emask, n) if use_kernel else None
+        mg.mask_edges(g.edge_mask & (r > 1e-5))
         rot = rotation_to_z(vec).to(dt)
         d_blocks = wigner_d_blocks(rot, cfg.l_max)
         rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff).to(dt)
@@ -256,22 +258,22 @@ class EquiformerV2(nn.Module):
         for layer in self.layers:
             hn = _equi_layernorm(h)
             # rotate source features into the edge frame, truncated to |m|<=m_max
-            z = _rotate_truncated(hn[g.senders], d_blocks, cfg)
-            rs = mlp_apply(layer.radial, rbf).reshape(-1, cfg.m_max + 1, C)
-            z = _so2_conv(z, rs, layer, cfg)
+            z = _rotate_truncated(mg.rows(hn)[g.senders], d_blocks, cfg)
+            rs = mlp_apply(layer.radial, rbf, wrap=mg.edge).reshape(
+                -1, cfg.m_max + 1, C)
+            z = _so2_conv(z, rs, layer, cfg, mg.edge)
 
             # attention scores from the m=0, l=0 row (invariant channel)
             inv = z[:, 0, :].reshape(-1, H, C // H)
             score = F.leaky_relu(
-                torch.einsum("ehc,hc->eh", inv, layer.attn_vec), 0.2)
-            alpha = edge_softmax(score, g.receivers, emask, n)      # (E, H)
+                torch.einsum("ehc,hc->eh", inv, mg.edge(layer.attn_vec)), 0.2)
+            alpha = mg.edge_softmax(score)                          # (E, H)
 
             # values: rotate back to the global frame, head-weighted
-            val = _rotate_truncated(z @ layer.w_val, d_blocks, cfg,
+            val = _rotate_truncated(z @ mg.edge(layer.w_val), d_blocks, cfg,
                                     transpose=True)                 # (E,49,C)
             val = val.reshape(-1, dim, H, C // H) * alpha[:, None, :, None]
-            msg = aggregate(val.reshape(-1, dim, C), g.receivers, emask, n,
-                            use_kernel=use_kernel, plan=plan)
+            msg = mg.aggregate(val.reshape(-1, dim, C))
 
             upd = []
             for l in range(cfg.l_max + 1):
@@ -291,7 +293,7 @@ class EquiformerV2(nn.Module):
             h = h + torch.cat(ff, dim=1)
 
         e_node = mlp_apply(self.readout, h[:, 0, :])[:, 0] * g.node_mask
-        return segment_sum(e_node, graph_ids(g), g.n_graphs)
+        return mg.pool(e_node)
 
 
 def loss_fn(model: EquiformerV2, g: GraphBatch, *, use_kernel: bool = True):

@@ -16,9 +16,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.engine.batch import resolve_device
-from repro_torch.kernels.segment_spmm.ops import segment_plan
-from repro_torch.models.gnn.common import (GraphBatch, aggregate, degrees,
-                                           frozen, normal, to_tensor)
+from repro_torch.models.gnn.common import (GraphBatch, MeshGraph, frozen,
+                                           normal, to_tensor)
 
 
 @dataclass(frozen=True)
@@ -63,26 +62,26 @@ class GCN(nn.Module):
 
     def forward(self, g: GraphBatch, *, use_kernel: bool = True
                 ) -> torch.Tensor:
-        """Logits (N, n_classes). ``use_kernel=False`` aggregates through
-        the plain `index_add_` version on any device."""
-        n = g.node_feat.shape[0]
-        deg = degrees(g.receivers, g.edge_mask, n).clamp_min(1.0)
-        deg_s = degrees(g.senders, g.edge_mask, n).clamp_min(1.0)
+        """Logits (N, n_classes); on a `GraphBlock` the node block's rows.
+        ``use_kernel=False`` aggregates through the plain `index_add_`
+        version on any device."""
+        mg = MeshGraph(g, g.edge_mask, use_kernel=use_kernel)
+        deg = mg.degrees().clamp_min(1.0)
+        deg_s = mg.sender_degrees().clamp_min(1.0)
         if self.cfg.norm == "sym":
-            coef = torch.rsqrt(deg_s[g.senders]) * torch.rsqrt(deg[g.receivers])
+            coef = torch.rsqrt(deg_s[g.senders]) * torch.rsqrt(
+                deg[mg.receivers])
         else:
-            coef = 1.0 / deg[g.receivers]
-        plan = segment_plan(g.receivers, g.edge_mask, n) if use_kernel else None
+            coef = 1.0 / deg[mg.receivers]
         x = g.node_feat
         last = len(self.weights) - 1
         for i, w in enumerate(self.weights):
             x = x @ w                                      # dense first: F->H
             # scaled in place: at ogbn-products the (E, H) messages are
             # 12.1 GB, and a second copy would double that
-            msg = x.index_select(0, g.senders)
+            msg = mg.rows(x).index_select(0, g.senders)
             msg.mul_(coef[:, None].to(x.dtype))
-            x = aggregate(msg, g.receivers, g.edge_mask, n,
-                          use_kernel=use_kernel, plan=plan)
+            x = mg.aggregate(msg)
             del msg
             if i < last:
                 x = torch.relu(x)
@@ -91,14 +90,19 @@ class GCN(nn.Module):
 
 def loss_fn(model: GCN, g: GraphBatch, *, use_kernel: bool = True):
     """Masked cross-entropy over the labelled nodes (``label_mask``, else
-    ``node_mask``) and the share of them classified right ("acc")."""
+    ``node_mask``) and the share of them classified right ("acc"). On a
+    `GraphBlock` the sums over the node blocks are added (`MeshGraph`),
+    and the loss handed back for differentiation is
+    `MeshGraph.trainer_loss`'s."""
     logits = model(g, use_kernel=use_kernel).to(torch.float32)
+    mg = MeshGraph(g)
     mask = g.label_mask if g.label_mask is not None else g.node_mask
     mask = mask.to(torch.float32)
     logp = F.log_softmax(logits, dim=-1)
     safe = torch.clamp(g.labels, min=0).to(torch.int64)
     nll = -torch.take_along_dim(logp, safe[:, None], dim=-1)[:, 0]
-    denom = torch.clamp(mask.sum(), min=1.0)
-    loss = (nll * mask).sum() / denom
-    acc = ((logits.argmax(-1) == g.labels) * mask).sum() / denom
-    return loss, {"loss": loss, "acc": acc}
+    denom = torch.clamp(mg.node_total(mask.sum()), min=1.0)
+    loss = mg.node_sum((nll * mask).sum()) / denom
+    acc = mg.node_total(((logits.argmax(-1) == g.labels) * mask).sum()) \
+        / denom
+    return mg.trainer_loss(loss), {"loss": loss, "acc": acc}

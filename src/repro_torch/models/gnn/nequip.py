@@ -24,12 +24,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.engine.batch import resolve_device
-from repro_torch.kernels.segment_spmm.ops import segment_plan
-from repro_torch.models.gnn.common import (MLP, GraphBatch, aggregate,
-                                           energy_loss, frozen, graph_ids,
-                                           mlp_apply,
-                                           mlp_init, normal, segment_sum,
-                                           to_tensor)
+from repro_torch.models.gnn.common import (MLP, GraphBatch, MeshGraph,
+                                           energy_loss, frozen, mlp_apply,
+                                           mlp_init, normal, to_tensor)
 from repro_torch.models.gnn.so3 import (cg_tensor, irrep_dim,
                                         spherical_harmonics)
 
@@ -146,7 +143,8 @@ class NequIP(nn.Module):
                 ) -> torch.Tensor:
         """Per-graph energies (n_graphs,)."""
         cfg = self.cfg
-        n = g.positions.shape[0]
+        mg = MeshGraph(g, use_kernel=use_kernel)
+        n = mg.n_loc
         C = cfg.d_hidden
         dim = irrep_dim(cfg.l_max)
         n_paths = len(tp_paths(cfg.l_max))
@@ -155,19 +153,19 @@ class NequIP(nn.Module):
                         device=g.device)
         h[:, 0, :] = self.embed[g.species]
 
-        vec = g.positions[g.senders] - g.positions[g.receivers]
+        pos = mg.rows(g.positions)
+        vec = pos[g.senders] - pos[g.receivers]
         r = torch.sqrt(torch.sum(vec * vec, -1) + 1e-12)
         # zero-length edges have no direction: mask them out of message passing
-        emask = g.edge_mask & (r > 1e-5)
-        plan = segment_plan(g.receivers, emask, n) if use_kernel else None
+        mg.mask_edges(g.edge_mask & (r > 1e-5))
         Y = spherical_harmonics(vec, cfg.l_max).to(h.dtype)
         rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff).to(h.dtype)
 
         for layer in self.layers:
-            w = mlp_apply(layer.radial, rbf).reshape(-1, n_paths, C)
-            msg = _tensor_product(h[g.senders], Y, w, cfg)
-            agg = aggregate(msg, g.receivers, emask, n, use_kernel=use_kernel,
-                            plan=plan)
+            w = mlp_apply(layer.radial, rbf, wrap=mg.edge).reshape(
+                -1, n_paths, C)
+            msg = _tensor_product(mg.rows(h)[g.senders], Y, w, cfg)
+            agg = mg.aggregate(msg)
 
             # per-l linear self + message mix
             new = []
@@ -188,7 +186,7 @@ class NequIP(nn.Module):
             h = torch.cat(parts, dim=1)
 
         e_node = mlp_apply(self.readout, h[:, 0, :])[:, 0] * g.node_mask
-        return segment_sum(e_node, graph_ids(g), g.n_graphs)
+        return mg.pool(e_node)
 
 
 def energy_and_forces(model: NequIP, g: GraphBatch, *,

@@ -230,21 +230,11 @@ class Trainer:
                                 device=mesh.device).reshape(1)
         return torch.sqrt(mesh.all_reduce(total, mesh.axis_names)[0])
 
-    def _mesh_step(self, model, blocks, specs, opt_state, ef_state, batch,
-                   step: int, *, batch_is_local: bool = False):
-        """One step on the mesh. ``model`` is a view over the blocks
-        (`block_view`) whose loss gathers each leaf where it uses it: the
-        loss is differentiated with respect to the blocks, whose gradients
-        come out summed over the data axes (a reduce-scatter a leaf a
-        micro-batch, `gather_for_compute`) and are summed over the
-        micro-batches in float32, then divided by the data axes' size.
-        Under int8 EF ``model`` holds the whole parameters, gathered into
-        it first, and the whole gradients cross the data axes quantised
-        (`_ef_grads`). ``batch_is_local`` takes ``batch`` as this rank's
-        block already (the dry run hands a rank's blocks)."""
+    def _mesh_grads(self, model, blocks, specs, ef_state, batch, *,
+                    batch_is_local: bool = False):
+        """(metrics, the gradient blocks as AdamW takes them, ef_state) of
+        one mesh step; `_mesh_step` states the convention."""
         t = self.task
-        lr = cosine_schedule(step, peak_lr=t.lr, warmup=t.warmup,
-                             total=t.total_steps)
         batch = batch if batch_is_local else self._local_batch(batch)
         if t.grad_compression == "int8_ef":
             tree = model.param_tree()
@@ -259,6 +249,40 @@ class Trainer:
                                            for g in grads])
         metrics = self._mesh_metrics({k: v.detach()
                                       for k, v in metrics.items()})
+        return metrics, grads, ef_state
+
+    def _mesh_step(self, model, blocks, specs, opt_state, ef_state, batch,
+                   step: int, *, batch_is_local: bool = False):
+        """One step on the mesh. ``model`` is a view over the blocks
+        (`block_view`) whose loss gathers each leaf where it uses it: the
+        loss is differentiated with respect to the blocks, whose gradients
+        come out summed over the data axes (a reduce-scatter a leaf a
+        micro-batch, `gather_for_compute`) and are summed over the
+        micro-batches in float32, then divided by the data axes' size.
+        Under int8 EF ``model`` holds the whole parameters, gathered into
+        it first, and the whole gradients cross the data axes quantised
+        (`_ef_grads`). ``batch_is_local`` takes ``batch`` as this rank's
+        block already (the dry run hands a rank's blocks).
+
+        The convention: the gradient of the loss a rank hands back is
+        the data axes' size times its share of the whole loss's gradient,
+        the shares adding up to the whole over the data axes; the sum and
+        the division then give the whole loss's gradient. A batch split
+        over the data axes into equal blocks meets it with its block's
+        mean. A GNN on a graph block (`models.gnn.common.MeshGraph`)
+        computes the whole loss on every rank and gets, for each
+        replicated leaf, its node block's share of the whole gradient (an
+        edge-domain use summed over "model" by `Replicated`), so it hands
+        back the loss times the number of node blocks
+        (`MeshGraph.trainer_loss`); with the graph whole on every rank
+        that number is 1, and every data rank computes the whole
+        gradient."""
+        t = self.task
+        lr = cosine_schedule(step, peak_lr=t.lr, warmup=t.warmup,
+                             total=t.total_steps)
+        metrics, grads, ef_state = self._mesh_grads(
+            model, blocks, specs, ef_state, batch,
+            batch_is_local=batch_is_local)
         _, opt_state, om = adamw_update(
             grads, opt_state, blocks, lr=lr, weight_decay=t.weight_decay,
             clip_norm=t.clip_norm, grad_norm=self._mesh_norm(grads, specs))

@@ -194,7 +194,7 @@ def test_cells_match_the_references_build_cell(ref_cells):
             assert mine[name] == b, (key, name)
         if cell.kind == "train":
             # the step's arguments are the reference's shards (the model
-            # a view over the same blocks), the GNN batch named apart
+            # a view over the same blocks)
             apart = [n for n in ref["arg_bytes"] if n in layout]
             held = {id(t.untyped_storage()) for t in tree_leaves(
                 cell.args[1])}
@@ -210,9 +210,9 @@ def test_cells_match_the_references_build_cell(ref_cells):
             assert mine["params"] == ref["arg_bytes"]["params"], key
             deepseek_serving += 1
     assert deepseek_serving == 3
-    # the divergences named: xDeepFM's whole tables, the GNNs' whole
-    # graph, the decode step's position
-    assert skipped == {"params": 4, "batch": 17, "cur": 11}
+    # the divergences named: xDeepFM's whole tables and the decode step's
+    # position (each GNN cell's batch is its graph_batch_specs block)
+    assert skipped == {"params": 4, "cur": 11}
 
 
 def test_lm_constants_are_the_references(ref_cells):
